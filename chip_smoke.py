@@ -12,7 +12,8 @@ Phases, each printed as one JSON line:
      bitwise, at the 1,000,000-node slice's shapes and at edge cases;
      kernel and plain times (CUDA events, median of 21 samples of 10
      launches after warm-up) beside the bytes the function must move and
-     the least time the card could take;
+     the least time the card could take; and the time of a PyTorch copy
+     of the window, the rate this card reaches on one read and one write;
   4. golden: the port on the card reproduces golden.GOLDEN_DIGEST, the
      digest both packages give on the CPU;
   5. parity: SwimConfig(n_nodes=1_000_000, ring_sel_scope="period") with
@@ -20,7 +21,14 @@ Phases, each printed as one JSON line:
      plain versions, both on the card: all 14 state fields equal;
   6. throughput: RingEngine(...).run(100) after warm-up, periods/sec;
      launch counts are zeroed just before this run and read just after;
-     crashed nodes are declared dead and no live node is.
+     crashed nodes are declared dead and no live node is;
+  7. main_inputs: one more period of that engine with
+     selb.select_first_b and wavemerge.merge_waves wrapped to keep
+     clones of their arguments; each kernel against its plain version
+     on those inputs, bitwise, its time on them (`ms_main`), the bytes
+     they need (`bytes_main`: each input byte once, and of sel only the
+     rows some delivering wave reads) and the least time for those
+     bytes (`bound_ms_main`); for wavemerge the ok density of each wave.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -137,10 +145,11 @@ def check_coldsel(gen, rw, n, ow, q, flush=None):
                 require_equal(what + " sel", s_k, s_p)))
 
 
-def check_wavemerge(gen, n, ww, v, vb, offs=None):
+def check_wavemerge(gen, n, ww, v, vb, offs=None, density=0.4):
     win = rand_u32(gen, (n, ww))
     sel = rand_u32(gen, (n, ww))
-    oks = torch.rand((v, n), generator=gen, device="cuda") < 0.4
+    oks = (torch.rand((v, n), generator=gen, device="cuda")
+           < torch.tensor(density, device="cuda").reshape(-1, 1))
     if offs is None:
         offs = torch.randint(-2 * n, 2 * n, (v,), generator=gen,
                              device="cuda", dtype=torch.int32)
@@ -156,7 +165,8 @@ def check_wavemerge(gen, n, ww, v, vb, offs=None):
     want = wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol,
                                        bval)
     return ((win, sel, oks, offs, bcol, bval),
-            require_equal(f"wavemerge n={n} v={v} vb={vb}", got, want))
+            require_equal(f"wavemerge n={n} ww={ww} v={v} vb={vb}", got,
+                          want))
 
 
 def kernel_phase(cfg) -> dict:
@@ -168,10 +178,13 @@ def kernel_phase(cfg) -> dict:
     gen.manual_seed(1234)
     rows = {}
 
-    # edge cases: ragged N, budgets 0/1/32/beyond, bit-31 words
+    # edge cases: ragged N, budgets 0/1/32/beyond, bit-31 words, odd and
+    # wide rows (WW=400 takes more than 48 KB of shared memory)
     edge = []
     for n_e, ww_e, b_e in ((1000, 12, 6), (257, 12, 0), (257, 12, 1),
-                           (1000, 3, 32), (1000, 12, 500), (33, 1, 6)):
+                           (1000, 3, 32), (1000, 12, 500), (33, 1, 6),
+                           (1000, 5, 6), (1000, 16, 31), (1000, 16, 33),
+                           (300, 400, 500)):
         edge.append(check_selb(gen, n_e, ww_e, b_e)[1])
     win, err = check_selb(gen, N, ww, b)
     t_k = gpu_ms(lambda: selb.select_first_b(win, b))
@@ -183,6 +196,12 @@ def kernel_phase(cfg) -> dict:
                         bytes=nbytes, bound_ms=bms, bound_by=by,
                         shape=[N, ww], b=b)
     emit(phase="kernel", name="selb", edge_cases=len(edge), **rows["selb"])
+    # what this card reaches on the same bytes: one read and one write of
+    # the window, by PyTorch's copy
+    dst = torch.empty_like(win)
+    t_c = gpu_ms(lambda: dst.copy_(win))
+    emit(phase="calibration", what="copy of the [N, WW] window",
+         bytes=nbytes, ms=t_c, tb_per_s=nbytes / t_c / 1e9)
 
     edge = []
     for rw_e, n_e, ow_e, q_e, fl in ((16, 1000, 2, 4, None),
@@ -201,12 +220,20 @@ def kernel_phase(cfg) -> dict:
     emit(phase="kernel", name="coldsel", edge_cases=len(edge),
          **rows["coldsel"])
 
+    # edge cases: offsets 0 / N-1 / negative / beyond N, wraps inside a
+    # tile (85 receivers at WW=12), VB rows, WW=3 (the 4-byte path), and
+    # the main path's shape of oks (two dense waves, twelve sparse)
+    sparse = [0.99] * 2 + [0.002] * 12
     edge = []
-    for n_e, vb_e, offs in ((1000, 0, [0, 999, -1, -1000, 1999, 1, 500]),
-                            (1000, 2, None), (257, 2, [0, 256, -257]),
-                            (1, 1, [0, 5])):
+    for n_e, ww_e, vb_e, offs, dens in (
+            (1000, 12, 0, [0, 999, -1, -1000, 1999, 1, 500], 0.4),
+            (1000, 12, 2, None, 0.4), (257, 12, 2, [0, 256, -257], 0.4),
+            (1, 12, 1, [0, 5], 0.4), (1000, 3, 2, None, 0.4),
+            (1001, 12, 1, [0, 1, -1, -85, 830, 2001, -2999, 84], 0.4),
+            (50_000, 12, 0, None, sparse)):
         nv = 14 if offs is None else len(offs)
-        edge.append(check_wavemerge(gen, n_e, 12, nv, vb_e, offs)[1])
+        edge.append(check_wavemerge(gen, n_e, ww_e, nv, vb_e, offs,
+                                    dens)[1])
     _, err2 = check_wavemerge(gen, N, ww, v, 2)
     (win, sel, oks, offs, bcol, bval), err = check_wavemerge(gen, N, ww, v, 0)
     t_k = gpu_ms(lambda: wavemerge.merge_waves(win, sel, oks, offs, bcol,
@@ -250,7 +277,73 @@ def parity_phase(cfg) -> None:
          seconds=time.perf_counter() - t0)
 
 
-def throughput_phase(cfg, card: str) -> dict:
+def capture_main_inputs(engine) -> dict:
+    """One period of `engine` with the two kernels' wrappers replaced by
+    ones that keep clones of their arguments (win before the in-place
+    merge).  GlobalOps looks both up at call time, so the swap reaches
+    the main path."""
+    got = {}
+    real_selb, real_merge = selb.select_first_b, wavemerge.merge_waves
+
+    def capture_selb(win_masked, b):
+        got["selb"] = (win_masked.clone(), b)
+        return real_selb(win_masked, b)
+
+    def capture_merge(*args):
+        got["wavemerge"] = tuple(t.clone() for t in args)
+        return real_merge(*args)
+
+    selb.select_first_b, wavemerge.merge_waves = capture_selb, capture_merge
+    try:
+        engine.run(1)
+    finally:
+        selb.select_first_b, wavemerge.merge_waves = real_selb, real_merge
+    torch.cuda.synchronize()
+    return got
+
+
+def main_inputs_phase(captured: dict, rows: dict) -> None:
+    win, b = captured["selb"]
+    err = require_equal("selb on the main path's input",
+                        selb.select_first_b(win, b),
+                        selb.select_first_b_plain(win, b))
+    nbytes = 2 * win.numel() * 4
+    bms, _ = bound(nbytes, win.numel() * 8)
+    rows["selb"].update(max_abs_err=max(rows["selb"]["max_abs_err"], err),
+                        ms_main=gpu_ms(lambda: selb.select_first_b(win, b)),
+                        bytes_main=nbytes, bound_ms_main=bms)
+    emit(phase="main_inputs", name="selb", shape=list(win.shape), b=b,
+         **{k: rows["selb"][k] for k in ("ms_main", "bytes_main",
+                                          "bound_ms_main")})
+
+    win, sel, oks, offs, bcol, bval = captured["wavemerge"]
+    err = require_equal(
+        "wavemerge on the main path's inputs",
+        wavemerge.merge_waves(win.clone(), sel, oks, offs, bcol, bval),
+        wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol, bval))
+    n, ww = win.shape
+    # sel row j is read when some wave w delivers to receiver j - offs[w]
+    needed = torch.zeros(n, dtype=torch.bool, device=win.device)
+    for w in range(oks.shape[0]):
+        needed |= torch.roll(oks[w], int(offs[w]))
+    deliveries = int(oks.sum())
+    nbytes = (2 * n * ww * 4 + oks.numel() + offs.numel() * 4
+              + int(needed.sum()) * ww * 4 + bcol.numel() * 8)
+    bms, _ = bound(nbytes, n * ww + 2 * deliveries * ww)
+    out = win.clone()
+    rows["wavemerge"].update(
+        max_abs_err=max(rows["wavemerge"]["max_abs_err"], err),
+        ms_main=gpu_ms(lambda: wavemerge.merge_waves(out, sel, oks, offs,
+                                                     bcol, bval)),
+        bytes_main=nbytes, bound_ms_main=bms,
+        ok_density=oks.float().mean(dim=1).tolist())
+    emit(phase="main_inputs", name="wavemerge", shape=[n, ww],
+         v=oks.shape[0], vb=bcol.shape[0],
+         **{k: rows["wavemerge"][k] for k in (
+             "ms_main", "bytes_main", "bound_ms_main", "ok_density")})
+
+
+def throughput_phase(cfg, card: str) -> tuple[dict, dict]:
     plan = crash_plan(cfg, TIMED_PERIODS)
     engine = ring.RingEngine(cfg, plan, seed=0)
     engine.run(WARMUP_PERIODS)
@@ -290,7 +383,7 @@ def throughput_phase(cfg, card: str) -> dict:
          seconds=wall, periods_per_sec=pps, card=card,
          crashed=int(crashed.sum()), declared_dead=n_dead, false_dead=0,
          launches=launches)
-    return launches
+    return launches, capture_main_inputs(engine)
 
 
 def main() -> None:
@@ -316,7 +409,8 @@ def main() -> None:
          periods=golden.GOLDEN_PERIODS)
 
     parity_phase(cfg)
-    launches = throughput_phase(cfg, card)
+    launches, captured = throughput_phase(cfg, card)
+    main_inputs_phase(captured, rows)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -330,7 +424,9 @@ def main() -> None:
             replaces=replaces[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None))
+            library_ms=None,
+            **{k: r[k] for k in ("ms_main", "bytes_main", "bound_ms_main",
+                                 "ok_density") if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

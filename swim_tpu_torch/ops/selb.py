@@ -5,11 +5,14 @@ each node's window row, newest word (last column) first, LSB first
 within a word.  A CUDA tensor goes to the hand-written kernel
 (csrc/selb.cu, replacing the TPU kernel `_first_b_math` of
 swim_tpu/ops/selb.py; bound by bytes: one read and one write of the
-[N, WW] window, 96 MB at the 1M-node slice; one thread per row walks
-its words newest first with a running budget, so WW and b are runtime
-arguments that no register array caps).  A CPU tensor goes to
-`select_first_b_plain`, the budgeted extract loop of the reference's
-`_lax_twin`.  Any other device raises; nothing falls back.
+[N, WW] window, 96 MB at the 1M-node slice).  A block stages 128 rows
+through shared memory with coalesced 16-byte loads and stores, at an
+odd row stride free of bank conflicts; one thread per row walks its
+words newest first with a running budget and cuts the overflowing word
+at its budget-th set bit by a popcount binary ascent.  WW and b are
+runtime arguments.  A CPU tensor goes to `select_first_b_plain`, the
+budgeted extract loop of the reference's `_lax_twin`.  Any other device
+raises; nothing falls back.
 """
 from __future__ import annotations
 

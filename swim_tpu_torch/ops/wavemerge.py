@@ -6,11 +6,16 @@
 Both paths update `win` in place (the reference aliases it the same way)
 and return it.  A CUDA tensor goes to the hand-written kernel
 (csrc/wavemerge.cu, replacing the TPU kernel `_make_kernel` of
-swim_tpu/ops/wavemerge.py; bound by bytes: win read and written, sel and
-oks read once, about 158 MB at the 1M-node slice; one thread per
-(node, word), offsets read on the device and wrapped with floor
-semantics).  A CPU tensor goes to `merge_waves_plain`, the reference's
-rolled-OR `_lax_twin`.  Any other device raises; nothing falls back.
+swim_tpu/ops/wavemerge.py; bound by bytes: win read and written, oks
+read once and the sel rows some delivering wave needs, at most 158 MB
+at the 1M-node slice).  A block owns a tile of receivers and packs
+their ok bytes into one bit word each in shared memory; each thread
+owns 16 bytes of the tile's rows (4 when WW % 4 != 0) and loads a
+wave's shifted sel chunk only when its receiver takes that wave, so a
+wave that no receiver of a warp takes costs no sel read.  Offsets are
+read on the device and wrapped with floor semantics.  A CPU tensor goes
+to `merge_waves_plain`, the reference's rolled-OR `_lax_twin`.  Any
+other device raises; nothing falls back.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ on the CUDA card and prints one JSON line with
   * from torch.profiler over the same run: device-busy ms per period
     (the sum of the kernels' device time; one stream, so they do not
     overlap), the idle share 1 - busy / wall, kernel launches per
-    period, and the aten ops that take the most device time.
+    period, the aten ops that take the most device time, and the
+    device ms per period of the port's own CUDA kernels with their share
+    of the busy time.
 
 The full profiler table goes to chiprun_out/period_profile.txt.
 """
@@ -103,6 +105,9 @@ def main() -> None:
                          reverse=True)[:12]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    own = {name: sum(e.self_device_time_total for e in kernels
+                     if f"{name}_kernel" in e.key) / 1e3 / p
+           for name in ("selb", "coldsel", "wavemerge")}
     (out / "period_profile.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps(dict(
@@ -111,6 +116,8 @@ def main() -> None:
         device_busy_ms_per_period=busy_us / 1e3 / p,
         idle_share=1.0 - (busy_us / 1e3 / p) / wall_ms,
         kernel_launches_per_period=launches / p,
+        port_kernels_device_ms=own,
+        port_kernels_busy_share=sum(own.values()) / (busy_us / 1e3 / p),
         top_aten_ops_by_self_device_time=top_ops,
         top_kernels=[dict(kernel=e.key[:80],
                           device_ms=e.self_device_time_total / 1e3 / p,

@@ -8,6 +8,8 @@ conftest, which imports JAX,
 
   * each CUDA kernel equals its plain PyTorch version bitwise, on the
     cases of tests/test_torch_kernels.py, and counts its launches;
+  * selb and wavemerge on views 4 bytes past a 16-byte boundary, which
+    take the kernels' 4-byte paths;
   * a run on the card equals the same run on the CPU (plain versions);
   * the card reproduces golden.GOLDEN_DIGEST.
 """
@@ -18,7 +20,7 @@ import pytest
 import torch
 from test_torch_cases import (
     COLDSEL_CASES, SELB_CASES, WAVE_CASES, carrier, coldsel_input,
-    selb_input, wavemerge_input)
+    selb_input, wave_case_input, wavemerge_input)
 
 from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import ring
@@ -57,14 +59,38 @@ def test_coldsel_kernel_matches_plain(cuda, rw, n, ow, q, flush):
 
 @pytest.mark.parametrize("n,ww,v,vb,offs", WAVE_CASES)
 def test_wavemerge_kernel_matches_plain(cuda, n, ww, v, vb, offs):
-    win, sel, oks, offs, bcol, bval = wavemerge_input(n + v + vb, n, ww, v,
-                                                      vb, offs)
+    win, sel, oks, offs, bcol, bval = wave_case_input(n, ww, v, vb, offs)
     args = [carrier(sel, cuda), torch.from_numpy(oks).to(cuda),
             carrier(offs, cuda), carrier(bcol, cuda), carrier(bval, cuda)]
     before = wavemerge.launches
     got = wavemerge.merge_waves(carrier(win, cuda), *args)
     assert wavemerge.launches == before + 1
     want = wavemerge.merge_waves_plain(carrier(win, cuda), *args)
+    assert torch.equal(got, want)
+
+
+def _unaligned(t):
+    """A copy of `t` whose data starts 4 bytes past a 16-byte boundary,
+    so the kernels take their 4-byte paths."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                       device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+def test_selb_kernel_unaligned_view(cuda):
+    win = carrier(selb_input(5, 1000, 12), cuda)
+    got = selb.select_first_b(_unaligned(win), 6)
+    assert torch.equal(got, selb.select_first_b_plain(win, 6))
+
+
+def test_wavemerge_kernel_unaligned_view(cuda):
+    win, sel, oks, offs, bcol, bval = (
+        torch.from_numpy(a).to(cuda) if a.dtype == bool else carrier(a, cuda)
+        for a in wavemerge_input(6, 1000, 12, 14, 1))
+    got = wavemerge.merge_waves(_unaligned(win), _unaligned(sel), oks, offs,
+                                bcol, bval)
+    want = wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol,
+                                       bval)
     assert torch.equal(got, want)
 
 

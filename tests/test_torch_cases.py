@@ -50,11 +50,16 @@ def coldsel_input(seed, rw, n, ow, q, flush=None):
     return cold, fr, fv, qr
 
 
-def wavemerge_input(seed, n, ww, v, vb, offs=None):
+def wavemerge_input(seed, n, ww, v, vb, offs=None, density=0.4,
+                    quiet=None):
+    """`density`: ok probability, one for all waves or one per wave;
+    `quiet`: a receiver range (lo, hi) that takes no wave at all."""
     rng = np.random.default_rng(seed)
     win = u32s(rng, (n, ww))
     sel = u32s(rng, (n, ww))
-    oks = rng.random((v, n)) < 0.4
+    oks = rng.random((v, n)) < np.reshape(density, (-1, 1))
+    if quiet is not None:
+        oks[:, quiet[0]:quiet[1]] = False
     if offs is None:
         offs = rng.integers(-2 * n, 2 * n, v)
     offs = np.asarray(offs, np.int32)
@@ -65,11 +70,30 @@ def wavemerge_input(seed, n, ww, v, vb, offs=None):
     return win, sel, oks, offs, bcol, bval
 
 
+# (n, ww, b); b=31 and b=33 on the full-word rows of selb_input end
+# inside a word and one bit into the next word
 SELB_CASES = [(257, 12, 6), (1000, 12, 0), (1000, 12, 1), (4096, 3, 32),
-              (1000, 1, 6), (33, 12, 500)]
+              (1000, 1, 6), (33, 12, 500), (1000, 5, 6), (1000, 16, 6),
+              (777, 16, 31), (777, 16, 33)]
 COLDSEL_CASES = [(128, 5000, 2, 4, None), (16, 300, 1, 3, None),
                  (34, 1000, 2, 4, None), (16, 300, 3, 4, [4, 4, 9]),
                  (8, 33, 2, 1, [7, 20])]
+# (n, ww, v, vb, offs).  The last three: the main path's shape of oks
+# (two dense waves, twelve at 0.2%, a run of receivers that takes no
+# wave); WW=3, the kernel's 4-byte path; N not a multiple of the
+# kernel's tile (85 receivers at WW=12) with offsets whose wrap falls
+# inside a tile, at its first and last receiver and on a tile boundary.
 WAVE_CASES = [(1024, 12, 14, 0, None), (1000, 12, 14, 2, None),
               (1000, 12, 7, 2, [0, 999, -1, -1000, 1999, 1, 500]),
-              (257, 4, 14, 0, None), (1, 12, 2, 1, [0, 5])]
+              (257, 4, 14, 0, None), (1, 12, 2, 1, [0, 5]),
+              (5000, 12, 14, 0, None), (1000, 3, 14, 2, None),
+              (1001, 12, 8, 1, [0, 1, -1, -85, 830, 2001, -2999, 84])]
+# keyword arguments of wavemerge_input beyond the defaults, by case
+WAVE_OPTS = {(5000, 12, 14, 0): dict(density=[0.99] * 2 + [0.002] * 12,
+                                     quiet=(1200, 2100))}
+
+
+def wave_case_input(n, ww, v, vb, offs):
+    """wavemerge_input for one entry of WAVE_CASES."""
+    return wavemerge_input(n + v + vb, n, ww, v, vb, offs,
+                           **WAVE_OPTS.get((n, ww, v, vb), {}))

@@ -19,7 +19,7 @@ import test_wavemerge
 import torch
 from test_torch_cases import (
     COLDSEL_CASES, SELB_CASES, WAVE_CASES, as_u32, carrier, coldsel_input,
-    selb_input, wavemerge_input)
+    selb_input, wave_case_input, wavemerge_input)
 
 from swim_tpu.ops import coldsel as jcoldsel
 from swim_tpu.ops import selb as jselb
@@ -112,8 +112,7 @@ class TestColdUpdateSelect:
 class TestMergeWaves:
     @pytest.mark.parametrize("n,ww,v,vb,offs", WAVE_CASES)
     def test_plain_matches_jax_and_numpy(self, n, ww, v, vb, offs):
-        win, sel, oks, offs, bcol, bval = wavemerge_input(
-            n + v + vb, n, ww, v, vb, offs)
+        win, sel, oks, offs, bcol, bval = wave_case_input(n, ww, v, vb, offs)
         tw = carrier(win)
         got = wavemerge.merge_waves(tw, carrier(sel), torch.from_numpy(oks),
                                     carrier(offs), carrier(bcol),
