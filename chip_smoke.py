@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -12,23 +12,35 @@ Phases, each printed as one JSON line:
      bitwise, at the 1,000,000-node slice's shapes and at edge cases;
      kernel and plain times (CUDA events, median of 21 samples of 10
      launches after warm-up) beside the bytes the function must move and
-     the least time the card could take; and the time of a PyTorch copy
-     of the window, the rate this card reaches on one read and one write;
-  4. golden: the port on the card reproduces golden.GOLDEN_DIGEST, the
-     digest both packages give on the CPU;
-  5. parity: SwimConfig(n_nodes=1_000_000, ring_sel_scope="period") with
-     0.1% of nodes crashing, a few periods with the kernels and with the
-     plain versions, both on the card: all 14 state fields equal;
-  6. throughput: RingEngine(...).run(100) after warm-up, periods/sec;
-     launch counts are zeroed just before this run and read just after;
-     crashed nodes are declared dead and no live node is;
-  7. main_inputs: one more period of that engine with
-     selb.select_first_b and wavemerge.merge_waves wrapped to keep
-     clones of their arguments; each kernel against its plain version
-     on those inputs, bitwise, its time on them (`ms_main`), the bytes
-     they need (`bytes_main`: each input byte once, and of sel only the
-     rows some delivering wave reads) and the least time for those
-     bytes (`bound_ms_main`); for wavemerge the ok density of each wave.
+     the least time the card could take (for coldsel also the bound that
+     counts cold in 32-byte sectors); and the time of a PyTorch copy of
+     the window, the rate this card reaches on one read and one write;
+  4. golden: the port on the card reproduces the three digests of
+     golden.py (period scope, wave scope, Lifeguard with buddy), which
+     both packages give on the CPU;
+  5. parity: 1,000,000 nodes with 0.1% of them crashing, a few periods
+     with the kernels and with the plain versions, both on the card, all
+     14 state fields equal, for each of the three paths: period scope,
+     wave scope (the default SwimConfig) and Lifeguard in period scope;
+  6. throughput: for each path RingEngine(...).run(periods) after
+     warm-up, periods/sec (host-bound readings with a wide spread between
+     calls) and each kernel's launches per period; launch counts are
+     zeroed just before each run and read just after; on the period-scope
+     run crashed nodes are declared dead, and on every run no live node
+     is;
+  7. main_inputs: one more period of each engine with the kernels'
+     wrappers replaced by ones that keep clones of their arguments; each
+     kernel against its plain version on those inputs, bitwise, its time
+     on them (`ms_main`), the bytes they need (`bytes_main`: each input
+     byte once, of wavemerge's sel only the rows some delivering wave
+     reads, of coldsel's cold one 32-byte sector per distinct (row,
+     8-column group) queried) and the least time for those bytes
+     (`bound_ms_main`); for wavemerge the ok density of each wave.
+     coldsel's inputs come from two periods: the quiet one of the
+     period-scope run, and a busy one late in a run whose plan crashes
+     5% of the nodes in its first periods.  The wave-scope capture times
+     the one-wave merge (V=1) against its plain version, and the
+     Lifeguard capture shows the merge receiving VB = 1 + k forced rows.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -37,58 +49,32 @@ is then nonzero and the last line is not printed.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
-from swim_tpu_torch import SwimConfig, _kernels, golden
+from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
+from swim_tpu_torch.measure import (bound, capture_inputs, card_line,
+                                    coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.ops import coldsel, selb, u32, wavemerge
 from swim_tpu_torch.sim import faults
 
 N = 1_000_000
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-INT_OPS_PER_S = 67e12       # the guide's float32 rate outside the tensor
-#                             cores; it lists no int32 rate
 PARITY_PERIODS = 3
 WARMUP_PERIODS = 3
-TIMED_PERIODS = 100
 CRASH_FRACTION = 0.001
+# path -> (SwimConfig keywords, timed periods, crashes spread over)
+PATHS = {
+    "period": (dict(ring_sel_scope="period"), 60, 40),
+    "wave": ({}, 30, 30),
+    "lifeguard": (dict(ring_sel_scope="period", lifeguard=True), 30, 30),
+}
 
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def gpu_ms(fn, samples: int = 21, inner: int = 10) -> float:
-    """Median device ms of one call of `fn` (CUDA events around `inner`
-    calls; a device sleep first lets the host queue them ahead)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -103,11 +89,6 @@ def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> int:
         raise AssertionError(f"{what}: kernel differs from its plain "
                              f"version (max abs err {err})")
     return err
-
-
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / INT_OPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def rand_u32(gen, shape):
@@ -128,7 +109,9 @@ def check_selb(gen, n, ww, b):
     return win, require_equal(f"selb n={n} ww={ww} b={b}", got, want)
 
 
-def check_coldsel(gen, rw, n, ow, q, flush=None):
+def check_coldsel(gen, rw, n, ow, q, flush=None, quiet=False):
+    """`quiet`: q_rows shaped like the main path's, mostly row 0 and -1
+    with a few runs of columns on other rows."""
     cold = rand_u32(gen, (rw, n))
     fr = (torch.tensor(flush, dtype=torch.int32, device="cuda")
           if flush is not None else
@@ -137,6 +120,13 @@ def check_coldsel(gen, rw, n, ow, q, flush=None):
     fv = rand_u32(gen, (fr.shape[0], n))
     qr = torch.randint(-2, rw + 2, (q, n), generator=gen, device="cuda",
                        dtype=torch.int32)
+    if quiet:
+        u = torch.rand((q, n), generator=gen, device="cuda")
+        run = (torch.arange(n, device="cuda") // 3 % rw).to(torch.int32)
+        qr = torch.where(u < 0.9, 0, torch.where(u < 0.95, -1,
+                                                 torch.where(u < 0.98, run,
+                                                             qr)))
+        qr = qr.to(torch.int32)
     c_k, s_k = coldsel.cold_update_select(cold.clone(), fr, fv, qr)
     c_p, s_p = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
     what = f"coldsel rw={rw} n={n} ow={fr.shape[0]} q={q}"
@@ -204,25 +194,34 @@ def kernel_phase(cfg) -> dict:
          bytes=nbytes, ms=t_c, tb_per_s=nbytes / t_c / 1e9)
 
     edge = []
-    for rw_e, n_e, ow_e, q_e, fl in ((16, 1000, 2, 4, None),
-                                     (16, 300, 3, 3, [4, 4, -1]),
-                                     (8, 33, 2, 1, [7, 20])):
-        edge.append(check_coldsel(gen, rw_e, n_e, ow_e, q_e, fl)[1])
+    # edge cases: duplicate and out-of-range flush rows, more queries
+    # than one group of four, N % 4 != 0 (the 4-byte path), a flushed row
+    # 0 under main-path-shaped queries
+    for rw_e, n_e, ow_e, q_e, fl, quiet in (
+            (16, 1000, 2, 4, None, False), (16, 300, 3, 3, [4, 4, -1], False),
+            (8, 33, 2, 1, [7, 20], False), (16, 1000, 2, 9, [3, 3], False),
+            (128, 4096, 2, 4, [0, 5], True), (128, 4099, 2, 4, None, True),
+            (16, 1001, 5, 6, [0, 15, 0, 16, 2], True)):
+        edge.append(check_coldsel(gen, rw_e, n_e, ow_e, q_e, fl, quiet)[1])
     (cold, fr, fv, qr), err = check_coldsel(gen, rw, N, ow, q)
     t_k = gpu_ms(lambda: coldsel.cold_update_select(cold, fr, fv, qr))
     t_p = gpu_ms(lambda: coldsel.cold_update_select_plain(cold, fr, fv, qr),
                  samples=5, inner=2)
     nbytes = (2 * ow + 3 * q) * N * 4
     bms, by = bound(nbytes, N * (ow + q * (ow + 4)))
+    prof = coldsel_profile(cold, fr, fv, qr)
     rows["coldsel"] = dict(max_abs_err=max(err, *edge), ms=t_k, plain_ms=t_p,
                            bytes=nbytes, bound_ms=bms, bound_by=by,
+                           bytes_sector=prof["bytes_sector"],
+                           bound_ms_sector=prof["bound_ms_sector"],
                            shape=[rw, N], ow=ow, q=q)
     emit(phase="kernel", name="coldsel", edge_cases=len(edge),
          **rows["coldsel"])
 
     # edge cases: offsets 0 / N-1 / negative / beyond N, wraps inside a
-    # tile (85 receivers at WW=12), VB rows, WW=3 (the 4-byte path), and
-    # the main path's shape of oks (two dense waves, twelve sparse)
+    # tile (85 receivers at WW=12), VB rows, WW=3 (the 4-byte path), the
+    # main path's shape of oks (two dense waves, twelve sparse), and the
+    # one-wave merges of the in-line delivery (V=1, VB=0 and 1)
     sparse = [0.99] * 2 + [0.002] * 12
     edge = []
     for n_e, ww_e, vb_e, offs, dens in (
@@ -230,7 +229,8 @@ def kernel_phase(cfg) -> dict:
             (1000, 12, 2, None, 0.4), (257, 12, 2, [0, 256, -257], 0.4),
             (1, 12, 1, [0, 5], 0.4), (1000, 3, 2, None, 0.4),
             (1001, 12, 1, [0, 1, -1, -85, 830, 2001, -2999, 84], 0.4),
-            (50_000, 12, 0, None, sparse)):
+            (50_000, 12, 0, None, sparse), (1000, 12, 0, [-7], 0.9),
+            (1000, 12, 1, [993], 0.9)):
         nv = 14 if offs is None else len(offs)
         edge.append(check_wavemerge(gen, n_e, ww_e, nv, vb_e, offs,
                                     dens)[1])
@@ -254,14 +254,38 @@ def kernel_phase(cfg) -> dict:
 # --------------------------------------------------------- main path
 
 
-def crash_plan(cfg, periods: int):
+def crash_plan(cfg, periods: int, fraction: float = CRASH_FRACTION):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     return faults.with_random_crashes(
-        faults.none(cfg.n_nodes, "cuda"), gen, CRASH_FRACTION, 0, periods)
+        faults.none(cfg.n_nodes, "cuda"), gen, fraction, 0, periods)
 
 
-def parity_phase(cfg) -> None:
+def path_cfg(path: str) -> SwimConfig:
+    return SwimConfig(n_nodes=N, **PATHS[path][0])
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches per period: one of each when the waves fuse; else
+    a selection (wave scope only) and a one-wave merge per wave."""
+    waves = 2 + 4 * cfg.k_indirect
+    fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
+    return {"selb": 1 if cfg.ring_sel_scope == "period" else waves,
+            "coldsel": 1, "wavemerge": 1 if fused else waves}
+
+
+def golden_phase() -> None:
+    for name, want in golden.GOLDEN_DIGESTS.items():
+        got = golden.digest(golden.golden_run("cuda", name))
+        if got != want:
+            raise AssertionError(f"golden digest '{name}' on the card {got} "
+                                 f"!= {want}")
+        emit(phase="golden", config=name, digest=got,
+             n_nodes=golden.GOLDEN_N, periods=golden.GOLDEN_PERIODS)
+
+
+def parity_phase(path: str) -> None:
+    cfg = path_cfg(path)
     plan = crash_plan(cfg, PARITY_PERIODS)
     t0 = time.perf_counter()
     k = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, PARITY_PERIODS)
@@ -270,98 +294,37 @@ def parity_phase(cfg) -> None:
     torch.cuda.synchronize()
     for f in ring.RingState._fields:
         if not torch.equal(getattr(k, f), getattr(p, f)):
-            raise AssertionError(f"main path: field {f} differs between "
+            raise AssertionError(f"{path} path: field {f} differs between "
                                  "the kernels and the plain versions")
-    emit(phase="parity", n_nodes=cfg.n_nodes, periods=PARITY_PERIODS,
-         fields_equal=len(ring.RingState._fields),
+    emit(phase="parity", path=path, n_nodes=cfg.n_nodes,
+         periods=PARITY_PERIODS, fields_equal=len(ring.RingState._fields),
          seconds=time.perf_counter() - t0)
 
 
-def capture_main_inputs(engine) -> dict:
-    """One period of `engine` with the two kernels' wrappers replaced by
-    ones that keep clones of their arguments (win before the in-place
-    merge).  GlobalOps looks both up at call time, so the swap reaches
-    the main path."""
-    got = {}
-    real_selb, real_merge = selb.select_first_b, wavemerge.merge_waves
-
-    def capture_selb(win_masked, b):
-        got["selb"] = (win_masked.clone(), b)
-        return real_selb(win_masked, b)
-
-    def capture_merge(*args):
-        got["wavemerge"] = tuple(t.clone() for t in args)
-        return real_merge(*args)
-
-    selb.select_first_b, wavemerge.merge_waves = capture_selb, capture_merge
-    try:
-        engine.run(1)
-    finally:
-        selb.select_first_b, wavemerge.merge_waves = real_selb, real_merge
-    torch.cuda.synchronize()
-    return got
-
-
-def main_inputs_phase(captured: dict, rows: dict) -> None:
-    win, b = captured["selb"]
-    err = require_equal("selb on the main path's input",
-                        selb.select_first_b(win, b),
-                        selb.select_first_b_plain(win, b))
-    nbytes = 2 * win.numel() * 4
-    bms, _ = bound(nbytes, win.numel() * 8)
-    rows["selb"].update(max_abs_err=max(rows["selb"]["max_abs_err"], err),
-                        ms_main=gpu_ms(lambda: selb.select_first_b(win, b)),
-                        bytes_main=nbytes, bound_ms_main=bms)
-    emit(phase="main_inputs", name="selb", shape=list(win.shape), b=b,
-         **{k: rows["selb"][k] for k in ("ms_main", "bytes_main",
-                                          "bound_ms_main")})
-
-    win, sel, oks, offs, bcol, bval = captured["wavemerge"]
-    err = require_equal(
-        "wavemerge on the main path's inputs",
-        wavemerge.merge_waves(win.clone(), sel, oks, offs, bcol, bval),
-        wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol, bval))
-    n, ww = win.shape
-    # sel row j is read when some wave w delivers to receiver j - offs[w]
-    needed = torch.zeros(n, dtype=torch.bool, device=win.device)
-    for w in range(oks.shape[0]):
-        needed |= torch.roll(oks[w], int(offs[w]))
-    deliveries = int(oks.sum())
-    nbytes = (2 * n * ww * 4 + oks.numel() + offs.numel() * 4
-              + int(needed.sum()) * ww * 4 + bcol.numel() * 8)
-    bms, _ = bound(nbytes, n * ww + 2 * deliveries * ww)
-    out = win.clone()
-    rows["wavemerge"].update(
-        max_abs_err=max(rows["wavemerge"]["max_abs_err"], err),
-        ms_main=gpu_ms(lambda: wavemerge.merge_waves(out, sel, oks, offs,
-                                                     bcol, bval)),
-        bytes_main=nbytes, bound_ms_main=bms,
-        ok_density=oks.float().mean(dim=1).tolist())
-    emit(phase="main_inputs", name="wavemerge", shape=[n, ww],
-         v=oks.shape[0], vb=bcol.shape[0],
-         **{k: rows["wavemerge"][k] for k in (
-             "ms_main", "bytes_main", "bound_ms_main", "ok_density")})
-
-
-def throughput_phase(cfg, card: str) -> tuple[dict, dict]:
-    plan = crash_plan(cfg, TIMED_PERIODS)
+def throughput_phase(path: str, card: str) -> tuple[dict, dict]:
+    """(launches in the timed run, the next period's captured inputs)."""
+    cfg = path_cfg(path)
+    timed, crash_over = PATHS[path][1:]
+    plan = crash_plan(cfg, crash_over)
     engine = ring.RingEngine(cfg, plan, seed=0)
     engine.run(WARMUP_PERIODS)
     torch.cuda.synchronize()
     selb.launches = coldsel.launches = wavemerge.launches = 0
     t0 = time.perf_counter()
-    st = engine.run(TIMED_PERIODS)
+    st = engine.run(timed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"selb": selb.launches, "coldsel": coldsel.launches,
                 "wavemerge": wavemerge.launches}
+    per_period = expected_launches(cfg)
     for name, cnt in launches.items():
-        if cnt < TIMED_PERIODS:
-            raise AssertionError(f"{name}: {cnt} launches in "
-                                 f"{TIMED_PERIODS} periods")
+        if cnt != timed * per_period[name]:
+            raise AssertionError(
+                f"{path} path, {name}: {cnt} launches in {timed} periods, "
+                f"expected {per_period[name]} a period")
     # the run's output: finite shapes, crashed nodes detected, no live
     # node declared dead (no loss in this plan, so no false suspicion)
-    periods_done = WARMUP_PERIODS + TIMED_PERIODS
+    periods_done = WARMUP_PERIODS + timed
     if int(st.step) != periods_done:
         raise AssertionError(f"step {int(st.step)} != {periods_done}")
     g = ring.geometry(cfg)
@@ -375,15 +338,140 @@ def throughput_phase(cfg, card: str) -> tuple[dict, dict]:
     dead_subj[st.subject[live_rows].long()] = True
     false_dead = int((dead_subj & ~crashed).sum())
     n_dead = int(dead_subj.sum())
-    if false_dead or n_dead == 0:
-        raise AssertionError(f"detection: {n_dead} declared dead, "
-                             f"{false_dead} of them alive")
-    pps = TIMED_PERIODS / wall
-    emit(phase="throughput", n_nodes=cfg.n_nodes, periods=TIMED_PERIODS,
-         seconds=wall, periods_per_sec=pps, card=card,
+    # a suspicion takes suspicion_periods to confirm: only the
+    # period-scope run is long enough for that
+    if false_dead or (path == "period" and n_dead == 0):
+        raise AssertionError(f"{path} path detection: {n_dead} declared "
+                             f"dead, {false_dead} of them alive")
+    if cfg.lifeguard and int(st.lha.max()) == 0:
+        raise AssertionError("Lifeguard run: no health score left 0")
+    emit(phase="throughput", path=path, n_nodes=cfg.n_nodes, periods=timed,
+         seconds=wall, periods_per_sec=timed / wall, card=card,
          crashed=int(crashed.sum()), declared_dead=n_dead, false_dead=0,
-         launches=launches)
-    return launches, capture_main_inputs(engine)
+         lha_max=int(st.lha.max()), launches=launches,
+         launches_per_period=per_period)
+    captured = capture_inputs(engine)
+    for name, cnt in captured["calls"].items():
+        if cnt != per_period[name]:
+            raise AssertionError(f"{path} path, {name}: {cnt} calls in the "
+                                 "captured period")
+    return launches, captured
+
+
+def selb_main(captured: dict, rows: dict) -> None:
+    win, b = captured["selb"]
+    err = require_equal("selb on the main path's input",
+                        selb.select_first_b(win, b),
+                        selb.select_first_b_plain(win, b))
+    nbytes = 2 * win.numel() * 4
+    bms, _ = bound(nbytes, win.numel() * 8)
+    rows["selb"].update(max_abs_err=max(rows["selb"]["max_abs_err"], err),
+                        ms_main=gpu_ms(lambda: selb.select_first_b(win, b)),
+                        bytes_main=nbytes, bound_ms_main=bms)
+    emit(phase="main_inputs", name="selb", shape=list(win.shape), b=b,
+         **{k: rows["selb"][k] for k in ("ms_main", "bytes_main",
+                                          "bound_ms_main")})
+
+
+def wavemerge_on(captured: dict, what: str) -> dict:
+    """The merge kernel on one captured call: bitwise against the plain
+    version, its time, the bytes the call needs and their bound."""
+    win, sel, oks, offs, bcol, bval = captured["wavemerge"]
+    err = require_equal(
+        f"wavemerge on {what}",
+        wavemerge.merge_waves(win.clone(), sel, oks, offs, bcol, bval),
+        wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol, bval))
+    n, ww = win.shape
+    # sel row j is read when some wave w delivers to receiver j - offs[w]
+    needed = torch.zeros(n, dtype=torch.bool, device=win.device)
+    for w in range(oks.shape[0]):
+        needed |= torch.roll(oks[w], int(offs[w]))
+    deliveries = int(oks.sum())
+    nbytes = (2 * n * ww * 4 + oks.numel() + offs.numel() * 4
+              + int(needed.sum()) * ww * 4 + bcol.numel() * 8)
+    bms, _ = bound(nbytes, n * ww + 2 * deliveries * ww)
+    out = win.clone()
+    return dict(
+        max_abs_err=err, shape=[n, ww], v=oks.shape[0], vb=bcol.shape[0],
+        forced_bits=int((bval != 0).sum()),
+        ms_main=gpu_ms(lambda: wavemerge.merge_waves(out, sel, oks, offs,
+                                                     bcol, bval)),
+        bytes_main=nbytes, bound_ms_main=bms,
+        ok_density=oks.float().mean(dim=1).tolist())
+
+
+def coldsel_on(args, what: str) -> dict:
+    cold, fr, fv, qr = args
+    c_k, s_k = coldsel.cold_update_select(cold.clone(), fr, fv, qr)
+    c_p, s_p = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
+    err = max(require_equal(f"coldsel on {what}: cold", c_k, c_p),
+              require_equal(f"coldsel on {what}: sel", s_k, s_p))
+    prof = coldsel_profile(cold, fr, fv, qr)
+    return dict(
+        max_abs_err=err,
+        ms_main=gpu_ms(lambda: coldsel.cold_update_select(cold, fr, fv, qr)),
+        bytes_main=prof["bytes_sector"],
+        bound_ms_main=prof["bound_ms_sector"],
+        out_of_range=prof["out_of_range"], row0=prof["row0"],
+        rows_per_32_columns=prof["rows_per_32_columns"])
+
+
+def main_inputs_phase(captured: dict, rows: dict) -> None:
+    """`captured`: path -> the period captured after its throughput run."""
+    selb_main(captured["period"], rows)
+
+    r = wavemerge_on(captured["period"], "the period-scope path's inputs")
+    rows["wavemerge"].update(
+        max_abs_err=max(rows["wavemerge"]["max_abs_err"], r["max_abs_err"]),
+        **{k: r[k] for k in ("ms_main", "bytes_main", "bound_ms_main",
+                             "ok_density")})
+    emit(phase="main_inputs", name="wavemerge", path="period", **r)
+
+    # wave scope: the first wave's one-wave merge, kernel against the plain
+    # rolled OR (what the in-line delivery would cost in PyTorch ops)
+    r = wavemerge_on(captured["wave"], "a wave-scope wave's inputs")
+    if r["v"] != 1:
+        raise AssertionError(f"wave scope merged {r['v']} waves at once")
+    win, sel, oks, offs, bcol, bval = captured["wave"]["wavemerge"]
+    out = win.clone()
+    r["plain_ms_main"] = gpu_ms(
+        lambda: wavemerge.merge_waves_plain(out, sel, oks, offs, bcol, bval),
+        samples=5, inner=2)
+    rows["wavemerge"]["max_abs_err"] = max(rows["wavemerge"]["max_abs_err"],
+                                           r["max_abs_err"])
+    rows["wavemerge"]["wave_scope"] = {
+        k: r[k] for k in ("ms_main", "plain_ms_main", "bound_ms_main")}
+    emit(phase="main_inputs", name="wavemerge", path="wave", **r)
+
+    # Lifeguard: the fused merge takes the 1 + k buddy rows
+    r = wavemerge_on(captured["lifeguard"], "the Lifeguard path's inputs")
+    k = path_cfg("lifeguard").k_indirect
+    if r["vb"] != 1 + k:
+        raise AssertionError(f"Lifeguard merge got VB={r['vb']}, expected "
+                             f"{1 + k}")
+    rows["wavemerge"]["max_abs_err"] = max(rows["wavemerge"]["max_abs_err"],
+                                           r["max_abs_err"])
+    rows["wavemerge"]["lifeguard"] = {
+        k_: r[k_] for k_ in ("vb", "ms_main", "bound_ms_main")}
+    emit(phase="main_inputs", name="wavemerge", path="lifeguard", **r)
+
+    quiet = coldsel_on(captured["period"]["coldsel"], "the quiet period")
+    # a late period of a run whose plan crashes 5% of the nodes in its
+    # first periods: as many rumours as the ring's window carries
+    busy_args, used = coldsel_bench.captured_input(
+        path_cfg("period"), **coldsel_bench.BUSY)
+    busy = coldsel_on(busy_args, "the busy period")
+    rows["coldsel"].update(
+        max_abs_err=max(rows["coldsel"]["max_abs_err"],
+                        quiet["max_abs_err"], busy["max_abs_err"]),
+        **{k: quiet[k] for k in ("ms_main", "bytes_main", "bound_ms_main")},
+        busy={k: busy[k] for k in ("ms_main", "bytes_main",
+                                   "bound_ms_main")})
+    emit(phase="main_inputs", name="coldsel", input="quiet", **quiet)
+    emit(phase="main_inputs", name="coldsel", input="busy",
+         crash_fraction=coldsel_bench.BUSY["fraction"],
+         period=coldsel_bench.BUSY["periods"],
+         slots_used=used, **busy)
 
 
 def main() -> None:
@@ -397,36 +485,32 @@ def main() -> None:
     build_s = _kernels.build()
     emit(phase="build", seconds=build_s, dir=str(_kernels.BUILD_DIR))
 
-    cfg = SwimConfig(n_nodes=N, ring_sel_scope="period")
-    rows = kernel_phase(cfg)
-
-    st = golden.golden_run("cuda")
-    got = golden.digest(st)
-    if got != golden.GOLDEN_DIGEST:
-        raise AssertionError(f"golden digest on the card {got} != "
-                             f"{golden.GOLDEN_DIGEST}")
-    emit(phase="golden", digest=got, n_nodes=golden.GOLDEN_N,
-         periods=golden.GOLDEN_PERIODS)
-
-    parity_phase(cfg)
-    launches, captured = throughput_phase(cfg, card)
+    rows = kernel_phase(path_cfg("period"))
+    golden_phase()
+    launches, captured = {}, {}
+    for path in PATHS:
+        parity_phase(path)
+    for path in PATHS:
+        launches[path], captured[path] = throughput_phase(path, card)
     main_inputs_phase(captured, rows)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
                 "wavemerge": "swim_tpu/ops/wavemerge.py:136"}
+    extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
+             "bound_ms_sector", "busy", "wave_scope", "lifeguard")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"swim_tpu_torch/csrc/{name}.cu",
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=launches["period"][name],
+            launches_wave=launches["wave"][name],
+            launches_lifeguard=launches["lifeguard"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None,
-            **{k: r[k] for k in ("ms_main", "bytes_main", "bound_ms_main",
-                                 "ok_density") if k in r}))
+            library_ms=None, **{k: r[k] for k in extra if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,13 @@ RingState or a mapping of numpy arrays (the reference's state through
 `np.asarray`), so one constant holds both packages and the card to the
 same trajectory without JAX on the card's machine.
 
-GOLDEN_DIGEST is the digest after `golden_run`: N = 4096, period scope,
-crashes at a few nodes, loss 0.02, seed 0, 40 periods
-(tests/test_torch_golden.py checks it against both packages).
+GOLDEN_DIGESTS holds the digest after `golden_run(device, name)` for
+three configurations of one run (N = 4096, crashes at a few nodes, loss
+0.02, seed 0, 40 periods): `period` (period scope, the waves fused;
+also GOLDEN_DIGEST), `wave` (the default SwimConfig: a selection and a
+delivery per wave) and `lifeguard` (period scope with Lifeguard, buddy
+and dynamic suspicion).  tests/test_torch_golden.py checks each against
+both packages.
 """
 from __future__ import annotations
 
@@ -28,8 +32,19 @@ GOLDEN_SEED = 0
 GOLDEN_LOSS = 0.02
 GOLDEN_CRASHES = ([5, 77, 1000, 2049, 4095], [2, 3, 5, 8, 13])
 
+GOLDEN_CONFIGS = {
+    "period": dict(ring_sel_scope="period"),
+    "wave": {},
+    "lifeguard": dict(ring_sel_scope="period", lifeguard=True),
+}
 GOLDEN_DIGEST = (
     "4863822e1b0f94a33ce318c94ef56f43d947d3a5dd7cc19daf38ddf552817117")
+GOLDEN_DIGEST_WAVE = (
+    "b3578df2cfd9e1fc4399e8834ddc5ed6f9fc45638b7a33eaa03e4eaea48cdaa8")
+GOLDEN_DIGEST_LIFEGUARD = (
+    "7285696ffaaa07500cb3b0ffd2fe5e991834c46b7005d8141cab9950d4077c2b")
+GOLDEN_DIGESTS = {"period": GOLDEN_DIGEST, "wave": GOLDEN_DIGEST_WAVE,
+                  "lifeguard": GOLDEN_DIGEST_LIFEGUARD}
 
 _DTYPES = {
     "win": "<u4", "cold": "<u4", "inc_self": "<u4", "lha": "<i4",
@@ -52,15 +67,15 @@ def digest(state) -> str:
     return h.hexdigest()
 
 
-def golden_config():
-    """(cfg, crash node ids, crash periods) of the golden run."""
-    cfg = SwimConfig(n_nodes=GOLDEN_N, ring_sel_scope="period")
+def golden_config(name: str = "period"):
+    """(cfg, crash node ids, crash periods) of the golden run `name`."""
+    cfg = SwimConfig(n_nodes=GOLDEN_N, **GOLDEN_CONFIGS[name])
     return cfg, GOLDEN_CRASHES[0], GOLDEN_CRASHES[1]
 
 
-def golden_run(device=None) -> ring.RingState:
-    """The fixed run whose digest is GOLDEN_DIGEST, on `device`."""
-    cfg, nodes, at = golden_config()
+def golden_run(device=None, name: str = "period") -> ring.RingState:
+    """The fixed run whose digest is GOLDEN_DIGESTS[name], on `device`."""
+    cfg, nodes, at = golden_config(name)
     plan = faults.with_loss(
         faults.with_crashes(faults.none(cfg.n_nodes, device), nodes, at),
         GOLDEN_LOSS)

@@ -1,21 +1,27 @@
-"""Ring engine, period-scope rotor slice (port of `swim_tpu/models/ring.py`).
+"""Ring engine, rotor probing (port of `swim_tpu/models/ring.py`).
 
 One protocol period for all N nodes, as the reference's `step` computes
-it with `ring_sel_scope="period"` and rotor probing, vanilla protocol,
-wide scalar wire: Phase 0 (judge the outgoing window words, recycle the
-spreading ones, shift the window), the per-subject top-C index, one
-first-B piggyback selection, the 2+4k message waves fused into one
-window merge, the deferred cold flush with the C+1 view queries,
-Phase C (refutation, sentinel expiry) and Phase D (originations).  The
-reference's module docstring holds the protocol semantics and the
-deviations R1-R5; this port reproduces its state bit for bit.
+it with rotor probing and the wide scalar wire, vanilla or with
+Lifeguard (local health, buddy, dynamic suspicion): Phase 0 (judge the
+outgoing window words, recycle the spreading ones, shift the window),
+the per-subject top-C index, the first-B piggyback selection, the 2+4k
+message waves, the deferred cold flush with the C+1 view queries,
+Phase C (refutation, sentinel expiry) and Phase D (originations).  With
+`ring_sel_scope="period"` the selection runs once and the waves fuse
+into one window merge (up to 32 waves); with "wave", the default, and
+beyond 32 waves, the selection (wave scope) and a one-wave merge run
+before and for every wave.  The reference's module docstring holds the
+protocol semantics and the deviations R1-R5; this port reproduces its
+state bit for bit.
 
 Three steps of the period are kernels: `select_first_b`
-(ops/selb.py), `merge_waves` (ops/wavemerge.py) and
-`cold_update_select` (ops/coldsel.py).  On CUDA tensors they launch the
-hand-written kernels; on CPU tensors they run their plain versions.
-`step(..., plain=True)` runs the plain versions on any device: it is
-the reference `chip_smoke.py` holds the kernels against on the card.
+(ops/selb.py; once a period, or 2+4k times in wave scope),
+`merge_waves` (ops/wavemerge.py; once with all waves and the 1+k buddy
+rows, or once per wave) and `cold_update_select` (ops/coldsel.py; once).
+On CUDA tensors they launch the hand-written kernels; on CPU tensors
+they run their plain versions.  `step(..., plain=True)` runs the plain
+versions on any device: it is the reference `chip_smoke.py` holds the
+kernels against on the card.
 
 Layouts and dtypes follow the reference; u32 arrays are int32 carriers
 (ops/u32.py).  `step` updates the incoming `state.cold` in place (the
@@ -38,6 +44,7 @@ import torch
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
+from swim_tpu_torch.models import rumor
 from swim_tpu_torch.ops import coldsel, lattice, sampling, selb, u32, wavemerge
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
@@ -117,19 +124,11 @@ def check_slice(cfg: SwimConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     run yet, naming the ROADMAP.md item that brings it."""
     todo = []
-    if cfg.ring_sel_scope != "period":
-        todo.append("ring_sel_scope='wave' (ROADMAP.md Queue 1: wave scope)")
     if cfg.ring_probe != "rotor":
         todo.append("ring_probe='pull' (ROADMAP.md Queue 1: pull mode)")
-    if cfg.lifeguard:
-        todo.append("lifeguard=True (ROADMAP.md Queue 1: Lifeguard and "
-                    "buddy)")
     if cfg.ring_scalar_wire != "wide":
         todo.append("ring_scalar_wire='packed' (ROADMAP.md Queue 1: "
                     "sharding)")
-    if 2 + 4 * cfg.k_indirect > wavemerge.MAX_WAVES:
-        todo.append(f"k_indirect={cfg.k_indirect}: more than 32 waves do "
-                    "not fuse (ROADMAP.md Queue 1: wave scope)")
     if cfg.telemetry or cfg.profiling:
         todo.append("telemetry/profiling taps (ROADMAP.md Queue 1: "
                     "instruments)")
@@ -306,12 +305,17 @@ class GlobalOps:
               else coldsel.cold_update_select)
         return fn(cold, flush_rows, flush_vals, q_rows)
 
-    def merge_waves(self, win, sel, oks, offs):
-        empty = torch.zeros((0, self.n), dtype=I32, device=self.device)
+    def merge_waves(self, win, sel, oks, offs, bcols=(), bvals=()):
+        """`win` (updated in place) with the waves (oks[w], offs[w]) of
+        `sel` and the receiver-aligned forced-bit rows ORed in."""
+        if bcols:
+            bcol, bval = torch.stack(bcols), torch.stack(bvals)
+        else:
+            bcol = bval = torch.zeros((0, self.n), dtype=I32,
+                                      device=self.device)
         fn = (wavemerge.merge_waves_plain if self.plain
               else wavemerge.merge_waves)
-        return fn(win, sel, torch.stack(oks), torch.stack(offs), empty,
-                  empty)
+        return fn(win, sel, torch.stack(oks), torch.stack(offs), bcol, bval)
 
 
 # ---------------------------------------------------------------- step
@@ -320,8 +324,9 @@ class GlobalOps:
 def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
          rnd: RingRandomness, *, plain: bool = False, ext=None, tap=None,
          prof=None) -> RingState:
-    """One protocol period (reference ring.py:759-1841, rotor + period
-    scope).  Consumes `state.cold` (updated in place)."""
+    """One protocol period (reference ring.py:759-1841, the rotor
+    branch in either selection scope, with or without Lifeguard).
+    Consumes `state.cold` (updated in place)."""
     check_slice(cfg)
     if ext is not None or tap is not None or prof is not None:
         raise NotImplementedError(
@@ -465,14 +470,41 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         r_tot).to(torch.int64)
     elig = used[win_slots_lin].reshape(g.ww, WORD)
     elig_mask = u32.pack_bits(elig)                            # u32[WW]
-    # period scope (deviation R5): one selection from the start-of-period
-    # window, reused by every wave
-    sel_base = ops.select_first_b(win & elig_mask[None, :], b_pig)
+    # Piggyback-selection freshness (deviation R5).  Period scope: one
+    # selection from the start-of-period window, reused by every wave,
+    # and the 2+4k deliveries fuse into one merge (at most 32 waves).
+    # Wave scope, and period scope beyond 32 waves: each wave is
+    # delivered at once, by a merge of that one wave, and in wave scope
+    # the selection re-runs on the live window before every wave.
+    period_scope = cfg.ring_sel_scope == "period"
+    fused = period_scope and 2 + 4 * k <= wavemerge.MAX_WAVES
+    buddy_on = cfg.lifeguard and cfg.buddy
+    if period_scope:
+        sel_base = ops.select_first_b(win & elig_mask[None, :], b_pig)
+    # the window senders consult for buddy knowledge: the live one in
+    # wave scope, the start-of-period one in period scope (a copy where
+    # in-line deliveries would change it under the later buddy waves)
+    sel_src = win.clone() if buddy_on and period_scope and not fused else win
 
     s_off = rnd.s_off
     target = torch.remainder(ids + s_off, n)
     prober = active & ops.roll_from(joined, s_off)
-    oks, offs = [], []
+    waves = []                  # fused: (ok, off, buddy (col, val) | None)
+
+    def buddy_cv(d):
+        """(col i32[N], val u32[N]) per sender i: the forced window bit
+        of the suspect rumor about subject (i + d) mod n, when sender i
+        knows it and it is in the window (val 0 = inert)."""
+        if not buddy_on:
+            return None
+        slot = ops.roll_from(sus_slot, d)
+        in_win, wcol, _, bit = slot_pos(slot)
+        (wword,) = _col_select_multi(sel_src if period_scope else win,
+                                     [wcol])
+        usebit = (slot >= 0) & u32.bit_of(wword, bit) & in_win
+        one = torch.ones_like(bit, dtype=torch.int64)
+        return wcol, torch.where(usebit,
+                                 u32.from_u64(one << bit.to(torch.int64)), 0)
 
     def wave_ok(flag_at_sender, d, u):
         """bool[N] per receiver i: the message from (i + d) arrived."""
@@ -480,13 +512,30 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         pid_r = ops.roll_from(pid, d)
         return flag_r & active & ~(part_on & (pid_r != pid)) & (u >= loss_thr)
 
-    def deliver(ok, d):
-        oks.append(ok)
-        offs.append(d.to(I32))
+    def staged(ok, d, cv):
+        """The sender-side forced bit as receiver-aligned rows, masked
+        by the wave's delivery (roll(sel | forced) == roll(sel) |
+        roll(forced))."""
+        if cv is None:
+            return [], []
+        return ([ops.roll_from(cv[0], d)],
+                [torch.where(ok, ops.roll_from(cv[1], d), 0)])
 
-    # W1: ping i -> i+s; W2: the ack back
+    def deliver(ok, d, cv=None):
+        """One wave: receiver i ORs sel row (i + d) mod n under ok."""
+        nonlocal win
+        d = d.to(I32)
+        if fused:
+            waves.append((ok, d, cv))
+            return
+        sel_w = (sel_base if period_scope else
+                 ops.select_first_b(win & elig_mask[None, :], b_pig))
+        win = ops.merge_waves(win, sel_w, [ok], [d], *staged(ok, d, cv))
+
+    # W1: ping i -> i+s (carries the buddy bit); W2: the ack back
+    cv1 = buddy_cv(s_off)
     ok1 = wave_ok(prober & active, -s_off, rnd.loss_w1)
-    deliver(ok1, -s_off)
+    deliver(ok1, -s_off, cv1)
     ok2 = wave_ok(ok1, s_off, rnd.loss_w2)
     deliver(ok2, s_off)
     acked = ok2 & prober
@@ -497,17 +546,35 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         d4 = s_off - q
         ok3 = wave_ok(need, -q, rnd.loss_w3[:, a])       # W3 ping-req
         deliver(ok3, -q)
+        cv4 = buddy_cv(d4)
         ok4 = wave_ok(ok3, -d4, rnd.loss_w4[:, a])       # W4 proxy ping
-        deliver(ok4, -d4)
+        deliver(ok4, -d4, cv4)
         ok5 = wave_ok(ok4, d4, rnd.loss_w5[:, a])        # W5 target ack
         deliver(ok5, d4)
         ok6 = wave_ok(ok5, q, rnd.loss_w6[:, a])         # W6 relay ack
         deliver(ok6, q)
         relayed = relayed | (ok6 & need)
-    win = ops.merge_waves(win, sel_base, oks, offs)
+    if fused:
+        bcols, bvals = [], []
+        for ok, d, cv in waves:
+            bc, bv = staged(ok, d, cv)
+            bcols += bc
+            bvals += bv
+        win = ops.merge_waves(win, sel_base, [w[0] for w in waves],
+                              [w[1] for w in waves], bcols, bvals)
 
     probe_ok = acked | relayed
     failed = prober & ~probe_ok
+    lha = state.lha
+    if cfg.lifeguard:
+        # probe-side health update, then thinning by the score the probe
+        # started with: bits * (1 + s) < 65536 == bits / 65536 < 1 / (1 + s)
+        if cfg.lha_max > 256:
+            raise ValueError("the integer thinning compare holds to "
+                             "lha_max = 256")
+        bump = torch.where(failed, 1, -1).to(I32)
+        lha = torch.where(prober, (lha + bump).clamp(0, cfg.lha_max), lha)
+        failed = failed & (rnd.lha_u * (1 + state.lha) < 65536)
     # view_of(ids, target) + Phase C's self-suspicion word: C+1 queries
     q_slots = [ops.roll_from(top_slot[lvl], s_off) for lvl in range(g.c)]
     q_slots.append(sus_slot)
@@ -542,8 +609,15 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     new_inc = torch.where(refute, lattice.incarnation_of(self_key) + 1,
                           state.inc_self)
     inc_self = new_inc
+    if cfg.lifeguard:
+        lha = torch.where(refute, (lha + 1).clamp(0, cfg.lha_max), lha)
 
-    timeout = cfg.suspicion_periods
+    if cfg.lifeguard and cfg.dynamic_suspicion:
+        filled = (snode >= 0).sum(dim=-1)
+        timeout = rumor.dynamic_timeout_table(cfg, dev)[
+            filled.clamp(0, s_cap)][:, None]
+    else:
+        timeout = cfg.suspicion_periods
     snode_cl = snode.clamp(min=0).to(torch.int64)
     sent_alive = (snode >= 0) & (plan.crash_step[snode_cl] > t)
     deadline_hit = sent_alive & (t >= stime + timeout)
@@ -679,7 +753,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
 
     # inactive nodes are frozen
     inc_self = torch.where(active, inc_self, state.inc_self)
-    lha = state.lha
+    if cfg.lifeguard:
+        lha = torch.where(active, lha, state.lha)
 
     return RingState(
         win=win, cold=cold, inc_self=inc_self, lha=lha, gone_key=gone_key,

@@ -8,10 +8,16 @@ Both paths update `cold` in place (the reference aliases it the same
 way) and return `(cold, sel)`.  A CUDA tensor goes to the hand-written
 kernel (csrc/coldsel.cu, replacing the TPU kernel `_kernel` of
 swim_tpu/ops/coldsel.py; bound by bytes: it touches only the OW flushed
-rows and the Q queried words per column, 64 MB at the 1M-node slice,
-where the TPU block walk rewrote all 128 rows; one thread per node
-column).  A CPU tensor goes to `cold_update_select_plain`, the
-reference's `_lax_twin`.  Any other device raises; nothing falls back.
+rows and the Q queried words per column, where the TPU block walk
+rewrote all 128 rows).  A thread owns 4 consecutive columns: flush_vals,
+q_rows and sel move as 16-byte evict-first accesses, a group of four
+queries is resolved before any of its cold loads is issued, the four
+columns of a query share one 16-byte load when they name one row (on
+the ring's period nearly all name row 0), a query on a flushed row is
+answered from flush_vals, and the flush goes last.  With N % 4 != 0 or
+an unaligned view it takes a 4-byte path, one column per thread.  A CPU
+tensor goes to `cold_update_select_plain`, the reference's `_lax_twin`.
+Any other device raises; nothing falls back.
 """
 from __future__ import annotations
 

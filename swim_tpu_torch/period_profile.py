@@ -1,9 +1,11 @@
 """Where one ring period's time goes on the card.
 
     python3 -m swim_tpu_torch.period_profile [--nodes N] [--periods P]
+        [--scope period|wave] [--lifeguard]
 
-Runs the period-scope rotor slice (0.1% of nodes crashing over the run)
-on the CUDA card and prints one JSON line with
+Runs the rotor ring engine (0.1% of nodes crashing over the run) in the
+given selection scope, vanilla or with Lifeguard, on the CUDA card and
+prints one JSON line with
 
   * wall ms per period of `RingEngine.run` (host clock around a
     synchronised run), and the split between drawing the period's
@@ -15,13 +17,13 @@ on the CUDA card and prints one JSON line with
     device ms per period of the port's own CUDA kernels with their share
     of the busy time.
 
-The full profiler table goes to chiprun_out/period_profile.txt.
+The full profiler table goes to
+chiprun_out/period_profile_<scope>[_lifeguard].txt.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from pathlib import Path
 
@@ -29,6 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from swim_tpu_torch import SwimConfig
+from swim_tpu_torch.measure import card_line
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.utils import threefry
@@ -49,16 +52,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=1_000_000)
     ap.add_argument("--periods", type=int, default=20)
+    ap.add_argument("--scope", choices=("period", "wave"), default="period")
+    ap.add_argument("--lifeguard", action="store_true")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("period_profile: PyTorch sees no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     n, p = args.nodes, args.periods
-    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    cfg = SwimConfig(n_nodes=n, ring_sel_scope=args.scope,
+                     lifeguard=args.lifeguard)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     plan = faults.with_random_crashes(faults.none(n), gen, 0.001, 0,
@@ -108,15 +111,21 @@ def main() -> None:
     own = {name: sum(e.self_device_time_total for e in kernels
                      if f"{name}_kernel" in e.key) / 1e3 / p
            for name in ("selb", "coldsel", "wavemerge")}
-    (out / "period_profile.txt").write_text(
+    own_launches = {name: sum(e.count for e in kernels
+                              if f"{name}_kernel" in e.key) / p
+                    for name in own}
+    tag = args.scope + ("_lifeguard" if args.lifeguard else "")
+    (out / f"period_profile_{tag}.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps(dict(
-        card=card, n_nodes=n, periods=p, wall_ms_per_period=wall_ms,
+        card=card, n_nodes=n, periods=p, scope=args.scope,
+        lifeguard=args.lifeguard, wall_ms_per_period=wall_ms,
         draw_ms=draw_ms, step_ms=step_ms,
         device_busy_ms_per_period=busy_us / 1e3 / p,
         idle_share=1.0 - (busy_us / 1e3 / p) / wall_ms,
         kernel_launches_per_period=launches / p,
         port_kernels_device_ms=own,
+        port_kernels_launches_per_period=own_launches,
         port_kernels_busy_share=sum(own.values()) / (busy_us / 1e3 / p),
         top_aten_ops_by_self_device_time=top_ops,
         top_kernels=[dict(kernel=e.key[:80],

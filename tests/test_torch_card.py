@@ -8,10 +8,11 @@ conftest, which imports JAX,
 
   * each CUDA kernel equals its plain PyTorch version bitwise, on the
     cases of tests/test_torch_kernels.py, and counts its launches;
-  * selb and wavemerge on views 4 bytes past a 16-byte boundary, which
-    take the kernels' 4-byte paths;
-  * a run on the card equals the same run on the CPU (plain versions);
-  * the card reproduces golden.GOLDEN_DIGEST.
+  * each kernel on views 4 bytes past a 16-byte boundary, which take
+    the kernels' 4-byte paths;
+  * a run on the card equals the same run on the CPU (plain versions),
+    in period scope, in wave scope and with Lifeguard;
+  * the card reproduces the digests of golden.GOLDEN_DIGESTS.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cases import (
-    COLDSEL_CASES, SELB_CASES, WAVE_CASES, carrier, coldsel_input,
-    selb_input, wave_case_input, wavemerge_input)
+    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, carrier,
+    coldsel_input, selb_input, wave_case_input, wavemerge_input)
 
 from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import ring
@@ -57,6 +58,16 @@ def test_coldsel_kernel_matches_plain(cuda, rw, n, ow, q, flush):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("rw,n,ow,q,flush", COLDSEL_QUIET_CASES)
+def test_coldsel_kernel_matches_plain_on_main_path_shapes(cuda, rw, n, ow, q,
+                                                          flush):
+    cold, fr, fv, qr = (carrier(a, cuda) for a in coldsel_input(
+        rw * n + ow, rw, n, ow, q, flush, quiet=True))
+    got = coldsel.cold_update_select(cold.clone(), fr, fv, qr)
+    want = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("n,ww,v,vb,offs", WAVE_CASES)
 def test_wavemerge_kernel_matches_plain(cuda, n, ww, v, vb, offs):
     win, sel, oks, offs, bcol, bval = wave_case_input(n, ww, v, vb, offs)
@@ -83,6 +94,22 @@ def test_selb_kernel_unaligned_view(cuda):
     assert torch.equal(got, selb.select_first_b_plain(win, 6))
 
 
+@pytest.mark.parametrize("which", ["cold", "flush_vals", "q_rows"])
+def test_coldsel_kernel_unaligned_view(cuda, which):
+    """One argument 4 bytes past a 16-byte boundary, N % 4 == 0: the
+    kernel takes its 4-byte path and the result does not change."""
+    args = dict(zip(("cold", "flush_rows", "flush_vals", "q_rows"),
+                    (carrier(a, cuda) for a in coldsel_input(
+                        7, 128, 4096, 2, 4, [0, 9], quiet=True))))
+    want = coldsel.cold_update_select_plain(
+        args["cold"].clone(), args["flush_rows"], args["flush_vals"],
+        args["q_rows"])
+    args["cold"] = args["cold"].clone()
+    args[which] = _unaligned(args[which])
+    got = coldsel.cold_update_select(**args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_wavemerge_kernel_unaligned_view(cuda):
     win, sel, oks, offs, bcol, bval = (
         torch.from_numpy(a).to(cuda) if a.dtype == bool else carrier(a, cuda)
@@ -94,9 +121,14 @@ def test_wavemerge_kernel_unaligned_view(cuda):
     assert torch.equal(got, want)
 
 
-def test_card_run_equals_cpu_run(cuda):
+@pytest.mark.parametrize("kw", [
+    dict(ring_sel_scope="period"), {},
+    dict(ring_sel_scope="period", lifeguard=True), dict(lifeguard=True),
+    dict(ring_sel_scope="period", k_indirect=8, lifeguard=True)],
+    ids=["period", "wave", "lifeguard", "lifeguard_wave", "lifeguard_k8"])
+def test_card_run_equals_cpu_run(cuda, kw):
     n, periods = 1500, 12
-    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    cfg = SwimConfig(n_nodes=n, **kw)
     runs = {}
     for dev in ("cpu", cuda):
         plan = faults.with_loss(faults.with_crashes(
@@ -108,5 +140,7 @@ def test_card_run_equals_cpu_run(cuda):
                                       err_msg=f)
 
 
-def test_card_run_gives_the_golden_digest(cuda):
-    assert golden.digest(golden.golden_run(cuda)) == golden.GOLDEN_DIGEST
+@pytest.mark.parametrize("name", list(golden.GOLDEN_DIGESTS))
+def test_card_run_gives_the_golden_digest(cuda, name):
+    assert (golden.digest(golden.golden_run(cuda, name))
+            == golden.GOLDEN_DIGESTS[name])

@@ -1,9 +1,10 @@
-"""golden.GOLDEN_DIGEST holds both packages to one trajectory.
+"""golden.GOLDEN_DIGESTS holds both packages to one trajectory each.
 
-The JAX package's run and the port's CPU run of the golden config must
-both give the committed digest; chip_smoke.py asserts that the port on
-the card gives it too, which holds the card to the JAX package without
-JAX on the card's machine.
+The JAX package's run and the port's CPU run of each golden config
+(period scope, wave scope, Lifeguard with buddy) must both give the
+committed digest; chip_smoke.py asserts that the port on the card gives
+it too, which holds the card to the JAX package without JAX on the
+card's machine.
 """
 from __future__ import annotations
 
@@ -19,16 +20,20 @@ from swim_tpu_torch import convert, golden
 from swim_tpu_torch.models import ring
 
 
-@pytest.fixture(scope="module")
-def jax_golden_state():
-    cfg, nodes, at = golden.golden_config()
-    jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes, ring_sel_scope="period")
+def jax_golden_run(name):
+    cfg, nodes, at = golden.golden_config(name)
+    jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes, **golden.GOLDEN_CONFIGS[name])
     plan = jfaults.with_loss(
         jfaults.with_crashes(jfaults.none(cfg.n_nodes), nodes, at),
         golden.GOLDEN_LOSS)
     return jring.run(jcfg, jring.init_state(jcfg), plan,
                      jax.random.key(golden.GOLDEN_SEED),
                      golden.GOLDEN_PERIODS)
+
+
+@pytest.fixture(scope="module")
+def jax_golden_state():
+    return jax_golden_run("period")
 
 
 def test_jax_run_gives_the_golden_digest(jax_golden_state):
@@ -39,6 +44,26 @@ def test_jax_run_gives_the_golden_digest(jax_golden_state):
 
 def test_port_cpu_run_gives_the_golden_digest():
     assert golden.digest(golden.golden_run("cpu")) == golden.GOLDEN_DIGEST
+
+
+@pytest.mark.parametrize("name", ["wave", "lifeguard"])
+def test_jax_run_gives_the_golden_digest_of(name):
+    ref = jax_golden_run(name)
+    st = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
+    assert golden.digest(st) == golden.GOLDEN_DIGESTS[name]
+    if name == "lifeguard":     # the digest pins a run that used Lifeguard
+        assert int(st["lha"].max()) > 0
+
+
+@pytest.mark.parametrize("name", ["wave", "lifeguard"])
+def test_port_cpu_run_gives_the_golden_digest_of(name):
+    assert (golden.digest(golden.golden_run("cpu", name))
+            == golden.GOLDEN_DIGESTS[name])
+
+
+def test_golden_digests_differ():
+    assert len(set(golden.GOLDEN_DIGESTS.values())) == 3
+    assert golden.GOLDEN_DIGESTS["period"] == golden.GOLDEN_DIGEST
 
 
 def test_golden_run_detects_the_crashes(jax_golden_state):

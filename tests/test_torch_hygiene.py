@@ -75,10 +75,12 @@ def test_steps_with_jax_unimportable():
         "from swim_tpu_torch import SwimConfig\n"
         "from swim_tpu_torch.models import ring\n"
         "from swim_tpu_torch.sim import faults\n"
-        "cfg = SwimConfig(n_nodes=20, ring_sel_scope='period')\n"
         "plan = faults.with_crashes(faults.none(20, 'cpu'), [2], [0])\n"
-        "st = ring.run(cfg, ring.init_state(cfg, 'cpu'), plan, 1, 2)\n"
-        "assert int(st.step) == 2\n"
+        "for kw in (dict(ring_sel_scope='period'), {},\n"
+        "           dict(lifeguard=True)):\n"
+        "    cfg = SwimConfig(n_nodes=20, **kw)\n"
+        "    st = ring.run(cfg, ring.init_state(cfg, 'cpu'), plan, 1, 2)\n"
+        "    assert int(st.step) == 2\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

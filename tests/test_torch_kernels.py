@@ -18,8 +18,8 @@ import test_core_units
 import test_wavemerge
 import torch
 from test_torch_cases import (
-    COLDSEL_CASES, SELB_CASES, WAVE_CASES, as_u32, carrier, coldsel_input,
-    selb_input, wave_case_input, wavemerge_input)
+    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, as_u32,
+    carrier, coldsel_input, selb_input, wave_case_input, wavemerge_input)
 
 from swim_tpu.ops import coldsel as jcoldsel
 from swim_tpu.ops import selb as jselb
@@ -63,7 +63,19 @@ class TestSelectFirstB:
 class TestColdUpdateSelect:
     @pytest.mark.parametrize("rw,n,ow,q,flush", COLDSEL_CASES)
     def test_plain_matches_jax(self, rw, n, ow, q, flush):
-        cold, fr, fv, qr = coldsel_input(rw * n + ow, rw, n, ow, q, flush)
+        self.check(coldsel_input(rw * n + ow, rw, n, ow, q, flush))
+
+    @pytest.mark.parametrize("rw,n,ow,q,flush", COLDSEL_QUIET_CASES)
+    def test_plain_matches_jax_on_main_path_shapes(self, rw, n, ow, q,
+                                                   flush):
+        args = coldsel_input(rw * n + ow, rw, n, ow, q, flush, quiet=True)
+        assert (args[3] == 0).mean() > 0.85
+        self.check(args)
+
+    @staticmethod
+    def check(args):
+        cold, fr, fv, qr = args
+        rw, n = cold.shape
         tc = carrier(cold)
         new, sel = coldsel.cold_update_select(tc, carrier(fr), carrier(fv),
                                               carrier(qr))

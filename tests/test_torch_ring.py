@@ -4,10 +4,15 @@ Step-by-step parity: JAX's `draw_period_ring` draws each period's
 randomness, it is carried across (convert.randomness_from_numpy), both
 engines step, and all 14 RingState fields must be equal after every
 period.  The port follows the engine, not the oracle, so stale freed
-table slots and every `cold` column are compared too.  All configs use
-`ring_sel_scope="period"` (the ported slice).  Whole-run parity holds
-the port's own threefry against `ring.run(..., jax.random.key(seed))`.
-Tolerance: exact.
+table slots and every `cold` column are compared too.  The configs:
+period scope (one selection a period, waves fused), wave scope (the
+default: a selection and a delivery per wave), `k_indirect=8` (period
+scope past 32 waves, delivered in-line), and Lifeguard with and without
+buddy and dynamic suspicion, in both scopes (those cases run from
+tests/test_torch_lifeguard.py).  The Lifeguard cases assert that a
+buddy bit was forced and that a health score left 0, so they have
+teeth.  Whole-run parity holds the port's own threefry against
+`ring.run(..., jax.random.key(seed))`.  Tolerance: exact.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from swim_tpu.sim import faults as jfaults
 from swim_tpu.types import Status, key_status
 from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.models import ring
+from swim_tpu_torch.ops import wavemerge
 from swim_tpu_torch.sim import faults
 
 
@@ -44,6 +50,8 @@ def jax_plan(name: str, n: int):
         return jfaults.with_crashes(none, [5], [2])
     if name == "loss":
         return jfaults.with_loss(none, 0.08)
+    if name == "lossy":     # probes fail even through eight proxies
+        return jfaults.with_loss(none, 0.35)
     if name == "partition":
         return jfaults.with_partition(jfaults.with_loss(none, 0.05),
                                       jfaults.halves(n), 3, 9)
@@ -57,15 +65,51 @@ def jax_plan(name: str, n: int):
     raise KeyError(name)
 
 
+# config name -> SwimConfig keywords beyond n_nodes
+CONFIGS = {
+    "period": dict(ring_sel_scope="period"),
+    "wave": {},
+    "k8": dict(ring_sel_scope="period", k_indirect=8),
+    "lg_period": dict(ring_sel_scope="period", lifeguard=True),
+    "lg_wave": dict(lifeguard=True),
+    "lg_nobuddy": dict(ring_sel_scope="period", lifeguard=True, buddy=False),
+    "lg_static": dict(ring_sel_scope="period", lifeguard=True,
+                      dynamic_suspicion=False),
+    "lg_k8": dict(ring_sel_scope="period", lifeguard=True, k_indirect=8),
+}
+
 # (name, n, periods, seed): the crash lifecycle / loss / partition / join
 # patterns of tests/test_ring.py, plus one N >= 1024 not a power of two
 CASES = [("crash", 32, 26, 7), ("loss", 32, 30, 3), ("partition", 24, 16, 4),
          ("join", 24, 24, 5), ("wide", 1500, 20, 11)]
+_BY_NAME = {c[0]: c for c in CASES + [("lossy", 32, 24, 6)]}
+# (config, plan case); the period-scope cases keep their bare ids
+STEP_CASES = ([("period",) + c for c in CASES]
+              + [("wave",) + c for c in CASES]
+              + [("k8",) + _BY_NAME[nm] for nm in ("crash", "lossy")])
+# the Lifeguard cases run in tests/test_torch_lifeguard.py
+LIFEGUARD_STEP_CASES = [
+    (cf,) + _BY_NAME[nm]
+    for cf, names in (("lg_period", ("crash", "loss", "partition", "wide")),
+                      ("lg_wave", ("loss", "wide")),
+                      ("lg_nobuddy", ("crash", "loss")),
+                      ("lg_static", ("crash", "loss")),
+                      ("lg_k8", ("crash", "lossy")))
+    for nm in names]
 
 
-def step_both(name, n, periods, seed):
-    jcfg = JaxSwimConfig(n_nodes=n, ring_sel_scope="period")
-    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+def case_id(case):
+    tail = "-".join(str(x) for x in case[1:])
+    return tail if case[0] == "period" else f"{case[0]}-{tail}"
+
+
+def step_both(cfg_name, name, n, periods, seed, monkeypatch):
+    """Step both engines in lockstep; returns (JAX state, port state,
+    stats) with the forced buddy bits delivered and the largest health
+    score seen over the run."""
+    kw = CONFIGS[cfg_name]
+    jcfg = JaxSwimConfig(n_nodes=n, **kw)
+    cfg = SwimConfig(n_nodes=n, **kw)
     jplan = jax_plan(name, n)
     plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
     key = jax.random.key(seed)
@@ -73,33 +117,72 @@ def step_both(name, n, periods, seed):
     jdraw = jax.jit(lambda t: jring.draw_period_ring(key, t, jcfg))
     js = jring.init_state(jcfg)
     ts = ring.init_state(cfg, "cpu")
+    stats = dict(forced=0, forced_rows=0, merges=0, lha_max=0)
+    real_merge = wavemerge.merge_waves
+
+    def spy(win, sel, oks, offs, bcol, bval):
+        stats["forced"] += int((bval != 0).sum())
+        stats["forced_rows"] = max(stats["forced_rows"], bval.shape[0])
+        stats["merges"] += 1
+        return real_merge(win, sel, oks, offs, bcol, bval)
+
+    monkeypatch.setattr(wavemerge, "merge_waves", spy)
     for t in range(periods):
         rnd = jdraw(t)
         js = jstep(js, rnd)
         ts = ring.step(cfg, ts, plan,
                        convert.randomness_from_numpy(np_fields(rnd), "cpu"))
-        assert_same_state(ts, js, f"{name} period {t}")
-    return js, ts
+        assert_same_state(ts, js, f"{cfg_name} {name} period {t}")
+        stats["lha_max"] = max(stats["lha_max"], int(ts.lha.max()))
+    return js, ts, stats
 
 
-@pytest.mark.parametrize("name,n,periods,seed", CASES)
-def test_step_parity(name, n, periods, seed):
-    js, _ = step_both(name, n, periods, seed)
+@pytest.mark.parametrize("cfg_name,name,n,periods,seed", STEP_CASES,
+                         ids=[case_id(c) for c in STEP_CASES])
+def test_step_parity(cfg_name, name, n, periods, seed, monkeypatch):
+    check_step_parity(cfg_name, name, n, periods, seed, monkeypatch)
+
+
+def check_step_parity(cfg_name, name, n, periods, seed, monkeypatch):
+    js, _, stats = step_both(cfg_name, name, n, periods, seed, monkeypatch)
     gone = np.asarray(js.gone_key)
     if name == "crash":
         assert key_status(int(gone[5])) == Status.DEAD
     if name == "join":
         assert key_status(int(gone[3])) == Status.DEAD
         assert key_status(int(gone[22])) != Status.DEAD
+    kw = CONFIGS[cfg_name]
+    k = kw.get("k_indirect", 3)
+    fused = kw.get("ring_sel_scope") == "period" and k <= 7
+    assert stats["merges"] == periods * (1 if fused else 2 + 4 * k)
+    if kw.get("lifeguard"):
+        assert stats["lha_max"] > 0, "no health score left 0"
+        if kw.get("buddy", True):
+            assert stats["forced_rows"] == (1 + k if fused else 1)
+            if name != "crash":     # a crashed suspect receives nothing
+                assert stats["forced"] > 0, "no buddy bit was forced"
+        else:
+            assert stats["forced_rows"] == 0
+    else:
+        assert stats["lha_max"] == 0 and stats["forced_rows"] == 0
 
 
-@pytest.mark.parametrize("seed", [0, 9])
-def test_run_parity(seed):
+RUN_CASES = [(cf, seed) for cf in ("period", "wave") for seed in (0, 9)]
+
+
+@pytest.mark.parametrize(
+    "cfg_name,seed", RUN_CASES,
+    ids=[str(sd) if cf == "period" else f"{cf}-{sd}" for cf, sd in RUN_CASES])
+def test_run_parity(cfg_name, seed):
     """run(seed) == ring.run(key(seed)), with the port's own threefry;
     two chunks of a run equal the run in one piece."""
+    check_run_parity(cfg_name, seed)
+
+
+def check_run_parity(cfg_name, seed):
     n, periods = 64, 20
-    jcfg = JaxSwimConfig(n_nodes=n, ring_sel_scope="period")
-    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    jcfg = JaxSwimConfig(n_nodes=n, **CONFIGS[cfg_name])
+    cfg = SwimConfig(n_nodes=n, **CONFIGS[cfg_name])
     jplan = jfaults.with_loss(jfaults.with_crashes(jfaults.none(n), [9, 40],
                                                    [1, 3]), 0.1)
     plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
@@ -110,6 +193,8 @@ def test_run_parity(seed):
     half = ring.run(cfg, ring.init_state(cfg, "cpu"), plan, seed, 7)
     rest = ring.run(cfg, half, plan, seed, periods - 7)
     assert_same_state(rest, want, f"chunked run seed {seed}")
+    if CONFIGS[cfg_name].get("lifeguard"):
+        assert int(got.lha.max()) > 0 or int(got.inc_self.max()) > 0
 
 
 def test_state_round_trips_from_jax():
@@ -142,9 +227,8 @@ def test_engine_runs_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ring_sel_scope="wave"), dict(ring_probe="pull"),
-    dict(lifeguard=True), dict(ring_scalar_wire="packed"),
-    dict(telemetry=True), dict(k_indirect=8)])
+    dict(ring_probe="pull"), dict(ring_scalar_wire="packed"),
+    dict(telemetry=True)], ids=["kw1", "kw3", "kw4"])
 def test_out_of_slice_configs_raise(kw):
     cfg = SwimConfig(n_nodes=16, **{"ring_sel_scope": "period", **kw})
     plan = faults.none(16, "cpu")
