@@ -15,8 +15,9 @@ Phases, each printed as one JSON line:
      the least time the card could take (for coldsel also the bound that
      counts cold in 32-byte sectors); and the time of a PyTorch copy of
      the window, the rate this card reaches on one read and one write;
-  4. golden: the port on the card reproduces the three digests of
-     golden.py (period scope, wave scope, Lifeguard with buddy), which
+  4. golden: the port on the card reproduces the three engine digests
+     of golden.py (period scope, wave scope, Lifeguard with buddy) and
+     the study digest (a pull-mode streaming detection study), which
      both packages give on the CPU;
   5. parity: 1,000,000 nodes with 0.1% of them crashing, a few periods
      with the kernels and with the plain versions, both on the card, all
@@ -40,7 +41,25 @@ Phases, each printed as one JSON line:
      period-scope run, and a busy one late in a run whose plan crashes
      5% of the nodes in its first periods.  The wave-scope capture times
      the one-wave merge (V=1) against its plain version, and the
-     Lifeguard capture shows the merge receiving VB = 1 + k forced rows.
+     Lifeguard capture shows the merge receiving VB = 1 + k forced rows;
+  8. pull and program parity: 1,000,000 nodes for 20 periods with the
+     kernels and with the plain versions, all 14 fields equal, launch
+     counts zeroed before and read after the kernels' run: pull-uniform
+     probing (the default wave scope, 0.1% crashes; selb 1, coldsel 0,
+     wavemerge 0 a period) and the rotor probe under a FaultProgram
+     (gray 0.3 on domain 1, a flapping link loss on domain 2, send loss
+     on every node; 14 / 1 / 14);
+  9. study: `experiments.detection_study` at 1,000,000 nodes, 0.1%
+     crashes, 60 periods (pull-uniform, as the study defaults), by the
+     full-track runner, by the streaming runner in chunks of 20, and
+     by the streaming runner checkpointing every 20 periods, stopped
+     in-process after period 40 and resumed from its directory: equal
+     summaries, and the streaming runs' CompactTrack and series
+     bitwise equal; one more study period with PyTorch's sync check
+     set to raise (no host sync inside a period); study periods/sec
+     and the census's share of the wall time (CUDA events around
+     `live_knower_counts`); then one
+     `lifeguard_ablation` arm pair at 1,000,000 nodes, 20 periods.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -49,17 +68,22 @@ is then nonzero and the last line is not printed.
 from __future__ import annotations
 
 import json
+import shutil
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
-from swim_tpu_torch.measure import (bound, capture_inputs, card_line,
-                                    coldsel_profile, gpu_ms)
+from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
+                                    card_line, coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import ring
+from swim_tpu_torch.obs import analyze
 from swim_tpu_torch.ops import coldsel, selb, u32, wavemerge
-from swim_tpu_torch.sim import faults
+from swim_tpu_torch.sim import experiments, faults, runner
+from swim_tpu_torch.utils import threefry
 
 N = 1_000_000
 PARITY_PERIODS = 3
@@ -71,6 +95,10 @@ PATHS = {
     "wave": ({}, 30, 30),
     "lifeguard": (dict(ring_sel_scope="period", lifeguard=True), 30, 30),
 }
+SLICE_PERIODS = 20      # pull and program parity
+STUDY_PERIODS = 60
+STUDY_CHUNK = 20
+CKPT_DIR = Path(__file__).resolve().parent / "_study_ckpt"
 
 
 def emit(**kw):
@@ -255,10 +283,9 @@ def kernel_phase(cfg) -> dict:
 
 
 def crash_plan(cfg, periods: int, fraction: float = CRASH_FRACTION):
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
     return faults.with_random_crashes(
-        faults.none(cfg.n_nodes, "cuda"), gen, fraction, 0, periods)
+        faults.none(cfg.n_nodes, "cuda"), threefry.key(1), fraction, 0,
+        periods)
 
 
 def path_cfg(path: str) -> SwimConfig:
@@ -282,6 +309,14 @@ def golden_phase() -> None:
                                  f"!= {want}")
         emit(phase="golden", config=name, digest=got,
              n_nodes=golden.GOLDEN_N, periods=golden.GOLDEN_PERIODS)
+    res = golden.golden_study("cuda")
+    got = golden.study_digest(res.state, res.track, res.series)
+    if got != golden.GOLDEN_DIGEST_STUDY:
+        raise AssertionError(f"golden study digest on the card {got} != "
+                             f"{golden.GOLDEN_DIGEST_STUDY}")
+    emit(phase="golden", config="study", digest=got,
+         n_nodes=golden.GOLDEN_N, periods=golden.GOLDEN_PERIODS,
+         crashed=int(res.track.subjects.numel()))
 
 
 def parity_phase(path: str) -> None:
@@ -474,6 +509,185 @@ def main_inputs_phase(captured: dict, rows: dict) -> None:
          slots_used=used, **busy)
 
 
+# ------------------------------------------------------ slice 4 paths
+
+
+def reset_launches() -> None:
+    selb.launches = coldsel.launches = wavemerge.launches = 0
+
+
+def read_launches() -> dict:
+    return {"selb": selb.launches, "coldsel": coldsel.launches,
+            "wavemerge": wavemerge.launches}
+
+
+def program_plan(n: int):
+    """Three segments over domains np.arange(n) % 4: gray 0.3 on domain
+    1, link loss 0.2 flapping (3 of every 6 periods) on domain 2, send
+    loss 0.05 on every node; 0.1% of the nodes crash."""
+    prog = faults.as_program(crash_plan(SwimConfig(n_nodes=n),
+                                        SLICE_PERIODS),
+                             np.arange(n) % 4, capacity=3)
+    prog = faults.with_segment(prog, 0, start=0, end=SLICE_PERIODS,
+                               kind="gray", level=0.3, domain=1)
+    prog = faults.with_segment(prog, 1, start=2, end=SLICE_PERIODS,
+                               kind="link_loss", level=0.2, domain=2,
+                               period=6, on=3)
+    return faults.with_segment(prog, 2, start=0, end=SLICE_PERIODS,
+                               kind="send_loss", level=0.05)
+
+
+def slice_parity_phase(name: str, cfg, plan, want: dict) -> dict:
+    """SLICE_PERIODS periods with the kernels (launches counted) and
+    with the plain versions; every field equal; launches per period as
+    `want` says."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    k = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, SLICE_PERIODS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    p = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, SLICE_PERIODS,
+                 plain=True)
+    for f in ring.RingState._fields:
+        if not torch.equal(getattr(k, f), getattr(p, f)):
+            raise AssertionError(f"{name} path: field {f} differs between "
+                                 "the kernels and the plain versions")
+    per_period = {kn: c / SLICE_PERIODS for kn, c in launches.items()}
+    if per_period != want:
+        raise AssertionError(f"{name} path launches a period {per_period}, "
+                             f"expected {want}")
+    emit(phase="parity", path=name, n_nodes=cfg.n_nodes,
+         periods=SLICE_PERIODS, fields_equal=len(ring.RingState._fields),
+         launches=launches, launches_per_period=per_period,
+         suspects=int((k.rkey & 1).sum()), inc_max=int(k.inc_self.max()),
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def no_sync_period(res, cfg, _state, plan, key) -> None:
+    """One more study period after `res` (step, census, milestones) with
+    PyTorch's sync check set to raise: the period queues its work
+    without waiting for the card.  The randomness is drawn before."""
+    rnd = ring.draw_period_ring(key, int(res.state.step), cfg)
+    base = faults.base_of(plan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.study_period(cfg, res.state, res.track, base, rnd,
+                            lambda st, r: ring.step(cfg, st, plan, r))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+class Interrupted(Exception):
+    """The deliberate in-process stop of the checkpointed study."""
+
+
+def study_phase(card: str) -> None:
+    kw = dict(n=N, crash_fraction=CRASH_FRACTION, periods=STUDY_PERIODS,
+              seed=0, engine="ring")
+    kept = {}
+    real_stream = runner.run_study_ring_stream
+    real_step = ring.step
+
+    def keep_stream(*a, **k):
+        res = real_stream(*a, **k)
+        kept["stream"] = res
+        kept["args"] = a
+        return res
+
+    calls = [0]
+
+    def stopping_step(*a, **k):
+        calls[0] += 1
+        if calls[0] > 2 * STUDY_CHUNK:
+            raise Interrupted
+        return real_step(*a, **k)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        runner.run_study_ring_stream = keep_stream
+        full = experiments.detection_study(stream=False, **kw)
+        with PartTimer({"census": (ring, "live_knower_counts")}) as parts:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            chunked = experiments.detection_study(
+                stream=True, chunk=STUDY_CHUNK, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        census_ms = parts.ms(STUDY_PERIODS)["census"]["device_ms"]
+        ref = kept.pop("stream")
+        ring.step = stopping_step
+        try:
+            experiments.detection_study(checkpoint_dir=str(CKPT_DIR),
+                                        checkpoint_every=STUDY_CHUNK, **kw)
+            raise AssertionError("the checkpointed study was not stopped")
+        except Interrupted:
+            pass
+        ring.step = real_step
+        snaps = sorted(p.name for p in CKPT_DIR.iterdir())
+        resumed = experiments.detection_study(
+            checkpoint_dir=str(CKPT_DIR), checkpoint_every=STUDY_CHUNK, **kw)
+        again = kept.pop("stream")
+    finally:
+        runner.run_study_ring_stream = real_stream
+        ring.step = real_step
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if calls[0] != 2 * STUDY_CHUNK + 1:
+        raise AssertionError(f"stopped after {calls[0] - 1} periods")
+    if launches != {"selb": STUDY_PERIODS, "coldsel": 0, "wavemerge": 0}:
+        raise AssertionError(f"study launches {launches}: expected one "
+                             "selb a period and nothing else")
+    drop = {"stream"}
+    for name, d in (("chunked", chunked), ("resumed", resumed)):
+        if {k: v for k, v in d.items() if k not in drop} != \
+                {k: v for k, v in full.items() if k not in drop}:
+            raise AssertionError(f"{name} study summary differs from the "
+                                 f"full-track one: {d} != {full}")
+    for part in ("track", "series"):
+        a, b = getattr(ref, part), getattr(again, part)
+        for f in a._fields:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"resumed study: {part}.{f} differs")
+    if full["crashed"] == 0 or full.get("suspect_detected", 0) == 0:
+        raise AssertionError(f"the study detected nothing: {full}")
+    no_sync_period(ref, *kept["args"][:4])
+    law = analyze.detection_law(ref.track.crash_step.cpu().numpy(),
+                                ref.track.first_suspect.cpu().numpy(), N,
+                                "pull")
+    emit(phase="study", study="detection", n_nodes=N,
+         periods=STUDY_PERIODS, ring_probe=full["ring_probe"],
+         host_syncs_in_a_period=0,
+         runners=["full", f"stream chunk={STUDY_CHUNK}",
+                  f"stream resumed at {2 * STUDY_CHUNK}"],
+         snapshots=snaps, summaries_equal=True, launches=launches,
+         track_series_bitwise=True,
+         **{k: full.get(k) for k in ("crashed", "suspect_detected",
+                                     "suspect_latency_mean",
+                                     "dead_view_detected",
+                                     "false_dead_views_final", "overflow")},
+         mean_vs_law=law.get("mean_vs_law"),
+         expected_mean=law["expected_mean"],
+         study_periods_per_sec=STUDY_PERIODS / wall,
+         census_ms_per_period=census_ms,
+         census_share_of_wall=census_ms * STUDY_PERIODS / 1e3 / wall,
+         card=card)
+    t0 = time.perf_counter()
+    ab = experiments.lifeguard_ablation(n=N, crash_fraction=CRASH_FRACTION,
+                                        periods=20, seed=0, engine="ring")
+    for arm in ab["arms"].values():
+        if arm["crashed"] == 0:
+            raise AssertionError(f"Lifeguard ablation arm crashed none: "
+                                 f"{ab}")
+    emit(phase="study", study="lifeguard_ablation", n_nodes=N, periods=20,
+         loss=ab["loss"], arms=ab["arms"],
+         seconds=time.perf_counter() - t0, card=card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -493,6 +707,14 @@ def main() -> None:
     for path in PATHS:
         launches[path], captured[path] = throughput_phase(path, card)
     main_inputs_phase(captured, rows)
+    launches["pull"] = slice_parity_phase(
+        "pull", SwimConfig(n_nodes=N, ring_probe="pull"),
+        crash_plan(SwimConfig(n_nodes=N), SLICE_PERIODS),
+        {"selb": 1.0, "coldsel": 0.0, "wavemerge": 0.0})
+    launches["program"] = slice_parity_phase(
+        "program", SwimConfig(n_nodes=N), program_plan(N),
+        {k: float(v) for k, v in expected_launches(path_cfg("wave")).items()})
+    study_phase(card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -508,6 +730,8 @@ def main() -> None:
             replaces=replaces[name], launches=launches["period"][name],
             launches_wave=launches["wave"][name],
             launches_lifeguard=launches["lifeguard"][name],
+            launches_pull=launches["pull"][name],
+            launches_program=launches["program"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

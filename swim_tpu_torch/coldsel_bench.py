@@ -34,6 +34,7 @@ from swim_tpu_torch import SwimConfig, _kernels, measure
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.ops import coldsel
 from swim_tpu_torch.sim import faults
+from swim_tpu_torch.utils import threefry
 
 QUIET = dict(fraction=0.001, start=0, end=100, periods=106)
 BUSY = dict(fraction=0.05, start=0, end=4, periods=45)
@@ -65,10 +66,9 @@ def captured_input(cfg, fraction, start, end, periods, seed: int = 1):
     """(coldsel's arguments in period `periods` of a run of `cfg` whose
     plan crashes `fraction` of the nodes over [start, end), the ring
     slots in use at that period)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
     plan = faults.with_random_crashes(
-        faults.none(cfg.n_nodes, "cuda"), gen, fraction, start, end)
+        faults.none(cfg.n_nodes, "cuda"), threefry.key(seed), fraction,
+        start, end)
     engine = ring.RingEngine(cfg, plan, seed=0)
     used = int((engine.run(periods).subject >= 0).sum())
     return measure.capture_inputs(engine)["coldsel"], used

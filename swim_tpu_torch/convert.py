@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from swim_tpu_torch import device as devmod
-from swim_tpu_torch.models.ring import RingRandomness, RingState, U32_FIELDS
-from swim_tpu_torch.sim.faults import FaultPlan
+from swim_tpu_torch.models.ring import (PullRandomness, RingRandomness,
+                                        RingState, U32_FIELDS)
+from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
 
 _RND_U32 = frozenset({"loss_w1", "loss_w2", "loss_w3", "loss_w4",
                       "loss_w5", "loss_w6", "lha_u"})
@@ -48,14 +49,46 @@ def plan_from_numpy(d: dict, device=None) -> FaultPlan:
     return FaultPlan(**{f: _to_torch(d[f], dev) for f in FaultPlan._fields})
 
 
-def randomness_from_numpy(d: dict, device=None) -> RingRandomness:
-    """RingRandomness from the reference's rotor fields (its `pull`
-    field, None in rotor mode, is not carried)."""
+def program_from_numpy(d: dict, device=None) -> FaultProgram:
+    """FaultProgram from a mapping of numpy arrays by field name, whose
+    `base` is itself such a mapping."""
     dev = devmod.resolve(device)
-    return RingRandomness(**{f: _to_torch(d[f], dev)
-                             for f in RingRandomness._fields})
+    return FaultProgram(base=plan_from_numpy(d["base"], dev), **{
+        f: _to_torch(d[f], dev) for f in FaultProgram._fields if f != "base"})
 
 
-def randomness_to_numpy(rnd: RingRandomness) -> dict[str, np.ndarray]:
-    return {f: _to_numpy(getattr(rnd, f), f in _RND_U32)
-            for f in RingRandomness._fields}
+def randomness_from_numpy(d: dict, device=None) -> RingRandomness:
+    """RingRandomness from the reference's fields; its `pull` field is
+    None (rotor mode) or a mapping of the PullRandomness arrays."""
+    dev = devmod.resolve(device)
+    pull = d.get("pull")
+    if isinstance(pull, np.ndarray) and pull.dtype == object:
+        pull = pull.item()          # np.asarray of the reference's None
+    if pull is not None:
+        pull = PullRandomness(**{f: _to_torch(pull[f], dev)
+                                 for f in PullRandomness._fields})
+    return RingRandomness(pull=pull, **{
+        f: _to_torch(d[f], dev) for f in RingRandomness._fields
+        if f != "pull"})
+
+
+def randomness_to_numpy(rnd: RingRandomness) -> dict:
+    out = {f: _to_numpy(getattr(rnd, f), f in _RND_U32)
+           for f in RingRandomness._fields if f != "pull"}
+    out["pull"] = (None if rnd.pull is None else
+                   {f: _to_numpy(getattr(rnd.pull, f), False)
+                    for f in PullRandomness._fields})
+    return out
+
+
+def tuple_to_numpy(nt) -> dict[str, np.ndarray]:
+    """A NamedTuple of tensors (a study's track or series) as numpy
+    arrays by field name, in their torch dtype."""
+    return {f: _to_numpy(getattr(nt, f), False) for f in nt._fields}
+
+
+def tuple_from_numpy(cls, d: dict, device=None):
+    """NamedTuple `cls` (CompactTrack, StudyTrack, PeriodSeries, ...)
+    from numpy arrays by field name."""
+    dev = devmod.resolve(device)
+    return cls(**{f: _to_torch(d[f], dev) for f in cls._fields})

@@ -53,6 +53,43 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+class PartTimer:
+    """Wraps module-level callables so that every call inside a `with`
+    block is bracketed by CUDA events; `ms()` sums them per part."""
+
+    def __init__(self, parts: dict):
+        self.parts = parts          # name -> (owner, attribute)
+        self.spans = {name: [] for name in parts}
+        self.saved = {}
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            self.spans[name].append(ev)
+            return out
+        return timed
+
+    def __enter__(self):
+        for name, (owner, attr) in self.parts.items():
+            self.saved[name] = getattr(owner, attr)
+            setattr(owner, attr, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.parts.items():
+            setattr(owner, attr, self.saved[name])
+
+    def ms(self, periods: int) -> dict:
+        torch.cuda.synchronize()
+        return {name: dict(device_ms=sum(a.elapsed_time(b) for a, b in ev)
+                           / periods, calls=len(ev) / periods)
+                for name, ev in self.spans.items()}
+
+
 def capture_inputs(engine) -> dict:
     """One period of `engine` with the three kernels' wrappers replaced
     by ones that keep clones of their arguments as they were before the

@@ -1,23 +1,34 @@
-"""Ring engine, rotor probing (port of `swim_tpu/models/ring.py`).
+"""Ring engine (port of `swim_tpu/models/ring.py`).
 
 One protocol period for all N nodes, as the reference's `step` computes
-it with rotor probing and the wide scalar wire, vanilla or with
-Lifeguard (local health, buddy, dynamic suspicion): Phase 0 (judge the
-outgoing window words, recycle the spreading ones, shift the window),
-the per-subject top-C index, the first-B piggyback selection, the 2+4k
-message waves, the deferred cold flush with the C+1 view queries,
-Phase C (refutation, sentinel expiry) and Phase D (originations).  With
-`ring_sel_scope="period"` the selection runs once and the waves fuse
-into one window merge (up to 32 waves); with "wave", the default, and
-beyond 32 waves, the selection (wave scope) and a one-wave merge run
-before and for every wave.  The reference's module docstring holds the
-protocol semantics and the deviations R1-R5; this port reproduces its
-state bit for bit.
+it with the wide scalar wire, vanilla or with Lifeguard (local health,
+buddy, dynamic suspicion): Phase 0 (judge the outgoing window words,
+recycle the spreading ones, shift the window), the per-subject top-C
+index, the first-B piggyback selection, the probes, Phase C
+(refutation, sentinel expiry) and Phase D (originations).
+
+Two probe patterns, as in the reference.  Rotor (the default): 2+4k
+rolled message waves, then the deferred cold flush with the C+1 view
+queries; with `ring_sel_scope="period"` the selection runs once and the
+waves fuse into one window merge (up to 32 waves); with "wave", the
+default, and beyond 32 waves, the selection (wave scope) and a one-wave
+merge run before and for every wave.  A FaultProgram's per-node link
+and gray lanes add to each wave's loss threshold.  Pull-uniform
+(`ring_probe="pull"`, what the detection study runs): cold is flushed
+in Phase 0, and every node pulls one probe lane from random peers by
+row gathers (deviations P1-P4 of the reference).  The reference's
+module docstring holds the protocol semantics and the deviations R1-R5;
+this port reproduces its state bit for bit.
+
+`live_knower_counts` is the study runner's census (per-slot counts of
+live knowers), `resolved_words` the current heard-bits of every ring
+word.
 
 Three steps of the period are kernels: `select_first_b`
-(ops/selb.py; once a period, or 2+4k times in wave scope),
-`merge_waves` (ops/wavemerge.py; once with all waves and the 1+k buddy
-rows, or once per wave) and `cold_update_select` (ops/coldsel.py; once).
+(ops/selb.py; once a period, or 2+4k times in wave scope on the rotor
+path), `merge_waves` (ops/wavemerge.py; rotor only: once with all waves
+and the 1+k buddy rows, or once per wave) and `cold_update_select`
+(ops/coldsel.py; rotor only, once).
 On CUDA tensors they launch the hand-written kernels; on CPU tensors
 they run their plain versions.  `step(..., plain=True)` runs the plain
 versions on any device: it is the reference `chip_smoke.py` holds the
@@ -38,8 +49,10 @@ needs no data-dependent branch.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from swim_tpu_torch import device as devmod
@@ -124,8 +137,6 @@ def check_slice(cfg: SwimConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     run yet, naming the ROADMAP.md item that brings it."""
     todo = []
-    if cfg.ring_probe != "rotor":
-        todo.append("ring_probe='pull' (ROADMAP.md Queue 1: pull mode)")
     if cfg.ring_scalar_wire != "wide":
         todo.append("ring_scalar_wire='packed' (ROADMAP.md Queue 1: "
                     "sharding)")
@@ -140,16 +151,59 @@ def check_slice(cfg: SwimConfig) -> None:
 # ----------------------------------------------------------- randomness
 
 
+PULL_SRC_ATTEMPTS = 3
+
+
+def pow_f32(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
+    """base**expo for an f32 base and non-negative int32 expo, by 31
+    rounds of square-and-multiply in a fixed order.  Each round is one
+    correctly rounded f32 multiply per operand, kept as separate tensor
+    ops (no fused multiply-add), so the result equals the reference's
+    and `py_pow_f32`'s bit for bit."""
+    result = torch.ones(expo.shape, dtype=torch.float32, device=expo.device)
+    cur = base.to(torch.float32)
+    for bit in range(31):
+        result = torch.where(((expo >> bit) & 1) == 1, result * cur, result)
+        cur = cur * cur
+    return result
+
+
+def py_pow_f32(base: float, expo: int) -> float:
+    """Scalar numpy twin of pow_f32 (same operation order, f32 ops)."""
+    result = np.float32(1.0)
+    cur = np.float32(base)
+    for bit in range(31):
+        if (int(expo) >> bit) & 1:
+            result = np.float32(result * cur)
+        cur = np.float32(cur * cur)
+    return float(result)
+
+
+class PullRandomness(NamedTuple):
+    """Per-period f32 uniforms of the pull-uniform probe."""
+
+    m_u: torch.Tensor      # f32[N]     in-probe count draw
+    src_u: torch.Tensor    # f32[N, A]  prober-id draws (first alive wins)
+    d_fwd: torch.Tensor    # f32[N]     direct ping leg
+    d_back: torch.Tensor   # f32[N]     direct ack leg
+    px_u: torch.Tensor     # f32[N, k]  proxy-id draws
+    px_fwd: torch.Tensor   # f32[N, k]  ping-req + proxy-ping (composed)
+    px_back: torch.Tensor  # f32[N, k]  proxy-ack + relay (composed)
+    ack_u: torch.Tensor    # f32[N]     ack-gossip contact draw
+    ack_leg: torch.Tensor  # f32[N]     its composed ping+ack legs
+
+
 class RingRandomness(NamedTuple):
     s_off: torch.Tensor    # i32 scalar: probe offset in [1, N)
     q_off: torch.Tensor    # i32[k]: proxy offsets in [1, N)
-    loss_w1: torch.Tensor  # u32[N]    u16 draw
+    loss_w1: torch.Tensor  # u32[N]    u16 draw (rotor; [0] under pull)
     loss_w2: torch.Tensor  # u32[N]    u16 draw
     loss_w3: torch.Tensor  # u32[N, k] u16 draw
     loss_w4: torch.Tensor  # u32[N, k] u16 draw
     loss_w5: torch.Tensor  # u32[N, k] u16 draw
     loss_w6: torch.Tensor  # u32[N, k] u16 draw
     lha_u: torch.Tensor    # u32[N]    u16 draw (Lifeguard thinning)
+    pull: PullRandomness | None = None     # pull mode only
 
 
 def rotor_offsets(cfg: SwimConfig, step: int) -> list[int]:
@@ -174,13 +228,33 @@ def draw_period_ring(key: tuple[int, int], step: int, cfg: SwimConfig,
     """Period `step`'s randomness: the reference's
     `draw_period_ring(jax.random.key(seed), step, cfg)` for
     `key = threefry.key(seed)`.  `offsets` (int32[1+k] on the device,
-    from `rotor_offsets`) saves the host-to-device copy per period."""
+    from `rotor_offsets`) saves the host-to-device copy per period.
+    Pull mode draws nine f32 uniforms instead of the u16 legs (which
+    stay empty); the rotor offsets are computed all the same."""
     dev = devmod.resolve(device)
     n, k = cfg.n_nodes, cfg.k_indirect
     if offsets is None:
         offsets = torch.tensor(rotor_offsets(cfg, step), dtype=I32,
                                device=dev)
-    ks = threefry.split(threefry.fold_in(key, step), 4)
+    kk = threefry.fold_in(key, step)
+    if cfg.ring_probe == "pull":
+        ks = threefry.split(kk, 9)
+        zero = torch.zeros((0,), dtype=I32, device=dev)
+
+        def uni(i, shape):
+            return threefry.uniform(ks[i], shape, dev)
+
+        return RingRandomness(
+            s_off=offsets[0], q_off=offsets[1:],
+            loss_w1=zero, loss_w2=zero, loss_w3=zero, loss_w4=zero,
+            loss_w5=zero, loss_w6=zero, lha_u=zero,
+            pull=PullRandomness(
+                m_u=uni(0, (n,)), src_u=uni(1, (n, PULL_SRC_ATTEMPTS)),
+                d_fwd=uni(2, (n,)), d_back=uni(3, (n,)),
+                px_u=uni(4, (n, k)), px_fwd=uni(5, (n, k)),
+                px_back=uni(6, (n, k)), ack_u=uni(7, (n,)),
+                ack_leg=uni(8, (n,))))
+    ks = threefry.split(kk, 4)
 
     def halves(bits):
         return bits & 0xFFFF, u32.lsr(bits, 16)
@@ -202,9 +276,14 @@ def _set_drop(dst: torch.Tensor, idx: torch.Tensor, val, col=None):
     """dst[idx] = val (dst[idx, col] = val with `col`), dropping entries
     whose idx lies outside [0, len(dst)): they write a spare row that is
     cut off afterwards, so no host sync filters them.  Callers keep the
-    valid indices distinct, so the result is deterministic."""
+    valid indices distinct, so the result is deterministic.  A Python
+    `val` is filled into a tensor on dst's device first: PyTorch makes
+    the value of `t[i] = scalar` on the host for a CUDA `t` and copies it
+    over, which waits for the card."""
     n = dst.shape[0]
     ext = torch.cat([dst, dst[:1]])
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((), val, dtype=dst.dtype, device=dst.device)
     i = torch.where((idx >= 0) & (idx < n), idx, n).to(torch.int64)
     if col is None:
         ext[i] = val
@@ -238,23 +317,96 @@ def _first_true_idx(valid: torch.Tensor, k: int) -> torch.Tensor:
 
 def _lane_counts(words: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """int32[OW*32]: per-lane active-knower counts of u32[OW, N] words
-    (lane w*32 + b counts active nodes with bit b of word w set)."""
-    ow = words.shape[0]
-    sh = torch.arange(WORD, dtype=I32, device=words.device)[None, :, None]
+    (lane w*32 + b counts active nodes with bit b of word w set).  The
+    words are read as little-endian bytes, so byte j's bit i is lane
+    bit 8j + i; the expanded bits are one byte each."""
+    ow, n = words.shape
+    sh = torch.arange(8, dtype=torch.uint8, device=words.device)
     masked = torch.where(active[None, :], words, 0)
-    bits = (masked[:, None, :] >> sh) & 1                     # [OW, 32, N]
-    return bits.sum(dim=2, dtype=I32).reshape(ow * WORD)
+    octets = masked.contiguous().view(torch.uint8).reshape(ow, n, 4, 1)
+    bits = (octets >> sh) & 1                                 # [OW, N, 4, 8]
+    return bits.sum(dim=1, dtype=I32).reshape(ow * WORD)
 
 
 def _sum32(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=I32)
 
 
+def _window_overlay(g: RingGeometry, step) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(in_win bool[RW], wcol i32[RW]): which ring words are window-
+    resident after `step` completed periods, and which win column holds
+    each (the reference's single home of the win/cold overlay)."""
+    first_gw = step * g.ow - g.ww          # win col 0 after the last step
+    win_ring0 = torch.remainder(first_gw, g.rw)
+    word_off = torch.remainder(
+        torch.arange(g.rw, dtype=I32, device=win_ring0.device) - win_ring0,
+        g.rw)
+    return word_off < g.ww, word_off.clamp(0, g.ww - 1)
+
+
+def live_knower_counts(cfg: SwimConfig, state: RingState, up: torch.Tensor,
+                       pair_budget: int = 1 << 23) -> torch.Tensor:
+    """int32[R]: per-ring-slot count of live (`up`) nodes holding the
+    bit: the study runner's census.  Chunks of word rows (and of the
+    node axis, where one row exceeds the budget) keep the expanded bits
+    to `pair_budget` word-node pairs at a time (32 bytes each: 256 MiB at
+    the default); integer sums, equal in any chunk order."""
+    g = geometry(cfg)
+    n = cfg.n_nodes
+    cw = max(1, pair_budget // max(n, 1))
+
+    def matrix_counts(words, nrows):            # [nrows, N] word-major
+        out = []
+        for r0 in range(0, nrows, cw):
+            rc = min(cw, nrows - r0)
+            if rc * n <= pair_budget:
+                tot = _lane_counts(words[r0:r0 + rc], up)
+            else:
+                seg = max(1, pair_budget // rc)
+                tot = None
+                for c0 in range(0, n, seg):
+                    part = _lane_counts(words[r0:r0 + rc, c0:c0 + seg],
+                                        up[c0:c0 + seg])
+                    tot = part if tot is None else tot + part
+            out.append(tot.reshape(-1, WORD))
+        return torch.cat(out)
+
+    counts_cold = matrix_counts(state.cold, g.rw)
+    counts_win = matrix_counts(state.win.T, g.ww)
+    # window-resident words read their win column (cold's copy of a
+    # window column is one generation stale by design)
+    in_win, wcol = _window_overlay(g, state.step)
+    counts = torch.where(in_win[:, None], counts_win[wcol.to(torch.int64)],
+                         counts_cold)
+    return counts.reshape(g.rw * WORD)
+
+
+def resolved_words(cfg: SwimConfig, state: RingState) -> torch.Tensor:
+    """u32[N, RW]: the current heard-bits of every ring word (window
+    words from `win`, the rest from `cold`)."""
+    g = geometry(cfg)
+    in_win, wcol = _window_overlay(g, state.step)
+    return torch.where(in_win[None, :], state.win[:, wcol.to(torch.int64)],
+                       state.cold.T)
+
+
+@functools.lru_cache(maxsize=16)
+def _recip_table(n: int, device) -> torch.Tensor:
+    """f32[N]: 1 / max(i, 1), divided on the host in numpy (correctly
+    rounded) from the int64 ramp rounded once to f32, as the reference
+    builds it; moved to `device` once per (n, device)."""
+    ramp = np.arange(n, dtype=np.int64).astype(np.float32)
+    return torch.from_numpy(
+        np.float32(1.0) / np.maximum(ramp, np.float32(1.0))).to(device)
+
+
 class GlobalOps:
     """Cross-node operations of the single-device engine: the rolls,
-    drop-mode scatters and heard-bit lookups of the reference's GlobalOps
-    (ring.py:625-756) that the rotor path calls, plus the three kernel
-    steps (their plain versions with `plain`)."""
+    drop-mode scatters, node-wise gathers and heard-bit lookups of the
+    reference's GlobalOps (ring.py:625-756), plus the three kernel
+    steps (their plain versions with `plain`).  Node-id vectors given
+    as int64 index without a conversion."""
 
     def __init__(self, cfg: SwimConfig, device, plain: bool = False):
         self.n = cfg.n_nodes
@@ -285,6 +437,23 @@ class GlobalOps:
         out.scatter_add_(0, torch.where(valid, idx, 0).to(torch.int64),
                          torch.where(valid, val, 0).to(dst.dtype))
         return out
+
+    def gather_nodewise(self, arr, idx):
+        """arr[idx] for a node-axis arr and node-axis global ids."""
+        return arr[idx.to(torch.int64)]
+
+    def gather_rows(self, mat, idx):
+        """mat[idx] for a node-axis [N, C] matrix: the pull branch's
+        selection-row exchange."""
+        return mat[idx.to(torch.int64)]
+
+    def knows_nodewise(self, win, cold, slot_pos, rows, slot):
+        """Heard-bit for node-axis (rows, slot) query vectors."""
+        return self.knows_words(win, cold, slot_pos, rows, slot)
+
+    def knows_self(self, win, cold, slot_pos, slot):
+        """Heard-bit of each row's own node for ring slots `slot`."""
+        return self.knows_words(win, cold, slot_pos, self.ids, slot)
 
     def knows_words(self, win, cold, slot_pos, rows, slot):
         """Heard-bit of global node ids `rows` for ring slots `slot`."""
@@ -324,15 +493,24 @@ class GlobalOps:
 def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
          rnd: RingRandomness, *, plain: bool = False, ext=None, tap=None,
          prof=None) -> RingState:
-    """One protocol period (reference ring.py:759-1841, the rotor
-    branch in either selection scope, with or without Lifeguard).
-    Consumes `state.cold` (updated in place)."""
+    """One protocol period (reference ring.py:759-1841: the rotor branch
+    in either selection scope, with or without Lifeguard, with a plain
+    FaultPlan or a FaultProgram; or the pull branch).  Consumes
+    `state.cold` (updated in place)."""
     check_slice(cfg)
     if ext is not None or tap is not None or prof is not None:
         raise NotImplementedError(
             "ext/tap/prof are not in the ported slice (ROADMAP.md Queue "
-            "1: ExtOriginations, instruments)")
-    plan, _ = faults.split_program(plan)
+            "1: serving, which brings ExtOriginations; instruments)")
+    plan, prog = faults.split_program(plan)
+    pull = cfg.ring_probe == "pull"
+    if pull and prog is not None:
+        # pull mode draws each contact at a composed probability and
+        # never sees individual legs: per-node lanes have no sound
+        # insertion point (the reference refuses this too)
+        raise NotImplementedError(
+            "FaultProgram link/gray segments are not supported by "
+            "pull-uniform probing; use ring_probe='rotor'")
     dev = state.win.device
     ops = GlobalOps(cfg, dev, plain=plain)
     g = geometry(cfg)
@@ -414,11 +592,17 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
                                              r_tot), -1)
     carry_mask = u32.pack_bits(carry.reshape(g.ow, WORD))      # u32[OW]
 
-    # ---- Phase 0d: shift the window, carry bits (flush deferred) ----------
+    # ---- Phase 0d: shift the window, carry bits --------------------------
+    # Rotor defers the flush of the out cols into cold to the fused
+    # flush + view-query kernel; pull reads cold through node-wise
+    # lookups first, so it flushes here (the rows are distinct: OW < RW)
     flush_rows = torch.remainder(
         entry_gw0 + torch.arange(g.ow, dtype=I32, device=dev),
         g.rw).to(I32)                                          # i32[OW]
-    flush_vals = out_cols.T.contiguous()                       # u32[OW, N]
+    if pull:
+        cold.index_copy_(0, flush_rows.to(torch.int64), out_cols.T)
+    else:
+        flush_vals = out_cols.T.contiguous()                   # u32[OW, N]
     fresh_cols = out_cols & carry_mask[None, :]
     win = torch.cat([state.win[:, g.ow:], fresh_cols], dim=1)
     win_ring0 = torch.remainder(entry_gw0 + g.ow, g.rw)
@@ -461,9 +645,16 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         return ((slot >= 0) & (off < g.ww), off.clamp(max=g.ww - 1),
                 word_r, bit)
 
-    # ---- Phases A+B: rotor waves ------------------------------------------
+    # ---- Phases A+B: the probes -------------------------------------------
     pid = plan.partition_id
     loss_thr = torch.ceil(plan.loss.to(torch.float32) * 65536.0).to(I32)
+    if prog is not None:
+        # per-node u16 lanes at period t, in loss_thr's integer geometry:
+        # a leg delivers iff u >= loss_thr + send lane (rolled from the
+        # sender) + local recv lane; reply legs (W2/W5/W6) roll the
+        # saturated send+reply lane (gray nodes lose their acks)
+        send_thr, recv_thr, reply_thr = faults.link_lanes(prog, t)
+        resp_thr = (send_thr + reply_thr).clamp(max=faults.LANE_MAX)
     b_pig = min(cfg.max_piggyback, g.ww * WORD)
     win_slots_lin = torch.remainder(
         win_ring0 * WORD + torch.arange(g.ww * WORD, dtype=I32, device=dev),
@@ -485,118 +676,213 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     # wave scope, the start-of-period one in period scope (a copy where
     # in-line deliveries would change it under the later buddy waves)
     sel_src = win.clone() if buddy_on and period_scope and not fused else win
-
-    s_off = rnd.s_off
-    target = torch.remainder(ids + s_off, n)
-    prober = active & ops.roll_from(joined, s_off)
-    waves = []                  # fused: (ok, off, buddy (col, val) | None)
-
-    def buddy_cv(d):
-        """(col i32[N], val u32[N]) per sender i: the forced window bit
-        of the suspect rumor about subject (i + d) mod n, when sender i
-        knows it and it is in the window (val 0 = inert)."""
-        if not buddy_on:
-            return None
-        slot = ops.roll_from(sus_slot, d)
-        in_win, wcol, _, bit = slot_pos(slot)
-        (wword,) = _col_select_multi(sel_src if period_scope else win,
-                                     [wcol])
-        usebit = (slot >= 0) & u32.bit_of(wword, bit) & in_win
-        one = torch.ones_like(bit, dtype=torch.int64)
-        return wcol, torch.where(usebit,
-                                 u32.from_u64(one << bit.to(torch.int64)), 0)
-
-    def wave_ok(flag_at_sender, d, u):
-        """bool[N] per receiver i: the message from (i + d) arrived."""
-        flag_r = ops.roll_from(flag_at_sender, d)
-        pid_r = ops.roll_from(pid, d)
-        return flag_r & active & ~(part_on & (pid_r != pid)) & (u >= loss_thr)
-
-    def staged(ok, d, cv):
-        """The sender-side forced bit as receiver-aligned rows, masked
-        by the wave's delivery (roll(sel | forced) == roll(sel) |
-        roll(forced))."""
-        if cv is None:
-            return [], []
-        return ([ops.roll_from(cv[0], d)],
-                [torch.where(ok, ops.roll_from(cv[1], d), 0)])
-
-    def deliver(ok, d, cv=None):
-        """One wave: receiver i ORs sel row (i + d) mod n under ok."""
-        nonlocal win
-        d = d.to(I32)
-        if fused:
-            waves.append((ok, d, cv))
-            return
-        sel_w = (sel_base if period_scope else
-                 ops.select_first_b(win & elig_mask[None, :], b_pig))
-        win = ops.merge_waves(win, sel_w, [ok], [d], *staged(ok, d, cv))
-
-    # W1: ping i -> i+s (carries the buddy bit); W2: the ack back
-    cv1 = buddy_cv(s_off)
-    ok1 = wave_ok(prober & active, -s_off, rnd.loss_w1)
-    deliver(ok1, -s_off, cv1)
-    ok2 = wave_ok(ok1, s_off, rnd.loss_w2)
-    deliver(ok2, s_off)
-    acked = ok2 & prober
-    need = prober & ~acked
-    relayed = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for a in range(k):
-        q = rnd.q_off[a]
-        d4 = s_off - q
-        ok3 = wave_ok(need, -q, rnd.loss_w3[:, a])       # W3 ping-req
-        deliver(ok3, -q)
-        cv4 = buddy_cv(d4)
-        ok4 = wave_ok(ok3, -d4, rnd.loss_w4[:, a])       # W4 proxy ping
-        deliver(ok4, -d4, cv4)
-        ok5 = wave_ok(ok4, d4, rnd.loss_w5[:, a])        # W5 target ack
-        deliver(ok5, d4)
-        ok6 = wave_ok(ok5, q, rnd.loss_w6[:, a])         # W6 relay ack
-        deliver(ok6, q)
-        relayed = relayed | (ok6 & need)
-    if fused:
-        bcols, bvals = [], []
-        for ok, d, cv in waves:
-            bc, bv = staged(ok, d, cv)
-            bcols += bc
-            bvals += bv
-        win = ops.merge_waves(win, sel_base, [w[0] for w in waves],
-                              [w[1] for w in waves], bcols, bvals)
-
-    probe_ok = acked | relayed
-    failed = prober & ~probe_ok
     lha = state.lha
-    if cfg.lifeguard:
-        # probe-side health update, then thinning by the score the probe
-        # started with: bits * (1 + s) < 65536 == bits / 65536 < 1 / (1 + s)
-        if cfg.lha_max > 256:
-            raise ValueError("the integer thinning compare holds to "
-                             "lha_max = 256")
-        bump = torch.where(failed, 1, -1).to(I32)
-        lha = torch.where(prober, (lha + bump).clamp(0, cfg.lha_max), lha)
-        failed = failed & (rnd.lha_u * (1 + state.lha) < 65536)
-    # view_of(ids, target) + Phase C's self-suspicion word: C+1 queries
-    q_slots = [ops.roll_from(top_slot[lvl], s_off) for lvl in range(g.c)]
-    q_slots.append(sus_slot)
-    q_pos = [slot_pos(s) for s in q_slots]
-    q_win = _col_select_multi(win, [p[1] for p in q_pos])
-    cold, q_cold = ops.cold_update_select(
-        cold, flush_rows, flush_vals,
-        torch.stack([p[2] for p in q_pos]).to(I32).contiguous())
-    q_kn = []
-    for (ok, _, _, bit), wv, cv, s in zip(q_pos, q_win, q_cold, q_slots):
-        word = torch.where(ok, wv, cv)
-        q_kn.append((s >= 0) & u32.bit_of(word, bit))
-    kn_back = [ops.roll_from(q_kn[lvl], -s_off) for lvl in range(g.c)]
-    tk_subj = u32.umax(lattice.alive_key(torch.zeros_like(gone_key)),
-                       gone_key)
-    for lvl in range(g.c):
-        tk_subj = u32.umax(tk_subj, torch.where(kn_back[lvl], top_key[lvl],
-                                                0))
-    viewed_tk = ops.roll_from(tk_subj, s_off)
-    self_key = torch.where(q_kn[g.c], sus_bk, 0)
-    susp_subject = target
-    susp_orig = ids
+
+    if not pull:
+        s_off = rnd.s_off
+        target = torch.remainder(ids + s_off, n)
+        prober = active & ops.roll_from(joined, s_off)
+        waves = []              # fused: (ok, off, buddy (col, val) | None)
+
+        def buddy_cv(d):
+            """(col i32[N], val u32[N]) per sender i: the forced window bit
+            of the suspect rumor about subject (i + d) mod n, when sender i
+            knows it and it is in the window (val 0 = inert)."""
+            if not buddy_on:
+                return None
+            slot = ops.roll_from(sus_slot, d)
+            in_win, wcol, _, bit = slot_pos(slot)
+            (wword,) = _col_select_multi(sel_src if period_scope else win,
+                                         [wcol])
+            usebit = (slot >= 0) & u32.bit_of(wword, bit) & in_win
+            one = torch.ones_like(bit, dtype=torch.int64)
+            return wcol, torch.where(
+                usebit, u32.from_u64(one << bit.to(torch.int64)), 0)
+
+        def wave_ok(flag_at_sender, d, u, reply=False):
+            """bool[N] per receiver i: the message from (i + d) arrived.
+            Under a program, `reply` (ack legs) rolls the send+reply
+            lane instead of the send lane."""
+            flag_r = ops.roll_from(flag_at_sender, d)
+            pid_r = ops.roll_from(pid, d)
+            thr = loss_thr
+            if prog is not None:
+                lane = resp_thr if reply else send_thr
+                thr = loss_thr + ops.roll_from(lane, d) + recv_thr
+            return (flag_r & active & ~(part_on & (pid_r != pid))
+                    & (u >= thr))
+
+        def staged(ok, d, cv):
+            """The sender-side forced bit as receiver-aligned rows, masked
+            by the wave's delivery (roll(sel | forced) == roll(sel) |
+            roll(forced))."""
+            if cv is None:
+                return [], []
+            return ([ops.roll_from(cv[0], d)],
+                    [torch.where(ok, ops.roll_from(cv[1], d), 0)])
+
+        def deliver(ok, d, cv=None):
+            """One wave: receiver i ORs sel row (i + d) mod n under ok."""
+            nonlocal win
+            d = d.to(I32)
+            if fused:
+                waves.append((ok, d, cv))
+                return
+            sel_w = (sel_base if period_scope else
+                     ops.select_first_b(win & elig_mask[None, :], b_pig))
+            win = ops.merge_waves(win, sel_w, [ok], [d], *staged(ok, d, cv))
+
+        # W1: ping i -> i+s (carries the buddy bit); W2: the ack back
+        cv1 = buddy_cv(s_off)
+        ok1 = wave_ok(prober & active, -s_off, rnd.loss_w1)
+        deliver(ok1, -s_off, cv1)
+        ok2 = wave_ok(ok1, s_off, rnd.loss_w2, reply=True)
+        deliver(ok2, s_off)
+        acked = ok2 & prober
+        need = prober & ~acked
+        relayed = torch.zeros((n,), dtype=torch.bool, device=dev)
+        for a in range(k):
+            q = rnd.q_off[a]
+            d4 = s_off - q
+            ok3 = wave_ok(need, -q, rnd.loss_w3[:, a])       # W3 ping-req
+            deliver(ok3, -q)
+            cv4 = buddy_cv(d4)
+            ok4 = wave_ok(ok3, -d4, rnd.loss_w4[:, a])       # W4 proxy ping
+            deliver(ok4, -d4, cv4)
+            ok5 = wave_ok(ok4, d4, rnd.loss_w5[:, a], True)  # W5 target ack
+            deliver(ok5, d4)
+            ok6 = wave_ok(ok5, q, rnd.loss_w6[:, a], True)   # W6 relay ack
+            deliver(ok6, q)
+            relayed = relayed | (ok6 & need)
+        if fused:
+            bcols, bvals = [], []
+            for ok, d, cv in waves:
+                bc, bv = staged(ok, d, cv)
+                bcols += bc
+                bvals += bv
+            win = ops.merge_waves(win, sel_base, [w[0] for w in waves],
+                                  [w[1] for w in waves], bcols, bvals)
+
+        probe_ok = acked | relayed
+        failed = prober & ~probe_ok
+        if cfg.lifeguard:
+            # probe-side health update, then thinning by the score the
+            # probe started with:
+            # bits * (1 + s) < 65536 == bits / 65536 < 1 / (1 + s)
+            if cfg.lha_max > 256:
+                raise ValueError("the integer thinning compare holds to "
+                                 "lha_max = 256")
+            bump = torch.where(failed, 1, -1).to(I32)
+            lha = torch.where(prober, (lha + bump).clamp(0, cfg.lha_max), lha)
+            failed = failed & (rnd.lha_u * (1 + state.lha) < 65536)
+        # view_of(ids, target) + Phase C's self-suspicion word: C+1 queries
+        q_slots = [ops.roll_from(top_slot[lvl], s_off) for lvl in range(g.c)]
+        q_slots.append(sus_slot)
+        q_pos = [slot_pos(s) for s in q_slots]
+        q_win = _col_select_multi(win, [p[1] for p in q_pos])
+        cold, q_cold = ops.cold_update_select(
+            cold, flush_rows, flush_vals,
+            torch.stack([p[2] for p in q_pos]).to(I32).contiguous())
+        q_kn = []
+        for (ok, _, _, bit), wv, cv, s in zip(q_pos, q_win, q_cold, q_slots):
+            word = torch.where(ok, wv, cv)
+            q_kn.append((s >= 0) & u32.bit_of(word, bit))
+        kn_back = [ops.roll_from(q_kn[lvl], -s_off) for lvl in range(g.c)]
+        tk_subj = u32.umax(lattice.alive_key(torch.zeros_like(gone_key)),
+                           gone_key)
+        for lvl in range(g.c):
+            tk_subj = u32.umax(tk_subj,
+                               torch.where(kn_back[lvl], top_key[lvl], 0))
+        viewed_tk = ops.roll_from(tk_subj, s_off)
+        self_key = torch.where(q_kn[g.c], sus_bk, 0)
+        susp_subject = target
+        susp_orig = ids
+    else:
+        # Pull-uniform (deviations P1-P4 of the reference, ring.py:1355-
+        # 1529): node j samples its own in-probe lane with the exact
+        # no-probe probability P(m_j = 0) = (1 - 1/(M-1))^L_j; the prober
+        # is the first live of A draws; gossip flows toward j by gathered
+        # selection rows (direct ping, first delivering proxy, one
+        # ack-direction contact); each two-hop path composes its two loss
+        # legs into one draw against 1 - (1 - loss)^2.
+        pr = rnd.pull
+        sel_all = (sel_base if period_scope else
+                   ops.select_first_b(win & elig_mask[None, :], b_pig))
+        members = _sum32(joined)
+        lj = live_total - active.to(I32)
+        # 1/(M-1) from the host-divided table, never a device divide
+        di = (members - 1).clamp(1, n - 1).reshape(1).to(torch.int64)
+        base = 1.0 - _recip_table(n, dev)[di]
+        p0 = torch.where(members >= 2, pow_f32(base, lj.clamp(min=0)),
+                         1.0)
+        probed = (pr.m_u >= p0) & joined      # only members are probed
+        # a Python scalar, not a device tensor: no copy (and sync) a
+        # period; an f32 tensor times it multiplies in f32
+        n_m1 = float(np.float32(n - 1))
+
+        def draw_id(u):
+            """A uniform other id: (u * f32(n-1)) truncated, self skipped."""
+            idx = (u * n_m1).to(I32).clamp(max=n - 2)
+            return idx + (idx >= ids).to(I32)
+
+        src = draw_id(pr.src_u[:, 0])
+        src_ok = ops.gather_nodewise(active, src)
+        for a in range(1, PULL_SRC_ATTEMPTS):
+            nxt = draw_id(pr.src_u[:, a])
+            src = torch.where(src_ok, src, nxt)
+            src_ok = src_ok | ops.gather_nodewise(active, nxt)
+        probe_live = probed & src_ok
+        src64 = src.to(torch.int64)
+
+        loss_f = plan.loss.to(torch.float32)
+        thr2 = 1.0 - (1.0 - loss_f) * (1.0 - loss_f)
+        pid_src = ops.gather_nodewise(pid, src64)
+        # direct ping src -> j and its ack
+        d_fwd_ok = (probe_live & active & ~(part_on & (pid_src != pid))
+                    & (pr.d_fwd >= loss_f))
+        win |= torch.where(d_fwd_ok[:, None], ops.gather_rows(sel_all, src64),
+                           0)
+        acked_lane = d_fwd_ok & (pr.d_back >= loss_f)
+        # indirect: k proxies, two-hop paths with composed legs
+        need = probe_live & ~acked_lane
+        relayed_lane = torch.zeros((n,), dtype=torch.bool, device=dev)
+        px_deliver = torch.zeros((n,), dtype=torch.bool, device=dev)
+        px_src = torch.zeros((n,), dtype=I32, device=dev)
+        for b in range(k):
+            p_b = draw_id(pr.px_u[:, b]).to(torch.int64)
+            pid_pb = ops.gather_nodewise(pid, p_b)
+            path_up = (need & ops.gather_nodewise(active, p_b)
+                       & ~(part_on & (pid_src != pid_pb))
+                       & ~(part_on & (pid_pb != pid)))
+            w4_ok = path_up & active & (pr.px_fwd[:, b] >= thr2)
+            first = w4_ok & ~px_deliver
+            px_src = torch.where(first, p_b.to(I32), px_src)
+            px_deliver = px_deliver | w4_ok
+            relayed_lane = relayed_lane | (w4_ok & (pr.px_back[:, b] >= thr2))
+        win |= torch.where(px_deliver[:, None],
+                           ops.gather_rows(sel_all, px_src), 0)
+        # ack-direction gossip: one contact from an independent draw,
+        # delivered iff a ping+ack round trip would be
+        aq = draw_id(pr.ack_u).to(torch.int64)
+        ack_gossip_ok = (active & ops.gather_nodewise(active, aq)
+                         & ~(part_on & (pid != ops.gather_nodewise(pid, aq)))
+                         & (pr.ack_leg >= thr2))
+        win |= torch.where(ack_gossip_ok[:, None],
+                           ops.gather_rows(sel_all, aq), 0)
+        failed = probe_live & ~(acked_lane | relayed_lane)
+        # src's view of j: the subject is the viewer's own row, so only
+        # the heard-bit lookup crosses nodes
+        viewed_tk = u32.umax(lattice.alive_key(torch.zeros_like(gone_key)),
+                             gone_key)
+        for lvl in range(g.c):
+            kn = ops.knows_nodewise(win, cold, slot_pos, src64,
+                                    top_slot[lvl])
+            viewed_tk = u32.umax(viewed_tk,
+                                 torch.where(kn, top_key[lvl], 0))
+        self_key = torch.where(ops.knows_self(win, cold, slot_pos, sus_slot),
+                               sus_bk, 0)
+        susp_subject = ids
+        susp_orig = src
 
     v_status = lattice.status_of(viewed_tk)
     mk_suspect = failed & (v_status == 0)
@@ -764,6 +1050,16 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     )
 
 
+def period_randomness(cfg: SwimConfig, key: tuple[int, int], t0: int,
+                      periods: int, device):
+    """RingRandomness of periods t0 .. t0+periods-1 in order, the rotor
+    offsets of all of them copied to the device once."""
+    table = torch.tensor([rotor_offsets(cfg, t0 + i) for i in range(periods)],
+                         dtype=I32, device=device)
+    for i in range(periods):
+        yield draw_period_ring(key, t0 + i, cfg, device, offsets=table[i])
+
+
 def run(cfg: SwimConfig, state: RingState, plan: FaultPlan, seed: int,
         periods: int, *, plain: bool = False) -> RingState:
     """`periods` protocol periods from `state`: the reference's
@@ -773,12 +1069,8 @@ def run(cfg: SwimConfig, state: RingState, plan: FaultPlan, seed: int,
     if periods <= 0:
         return state
     dev = state.win.device
-    t0 = int(state.step)
-    root = threefry.key(seed)
-    table = torch.tensor([rotor_offsets(cfg, t0 + i) for i in range(periods)],
-                         dtype=I32, device=dev)
-    for i in range(periods):
-        rnd = draw_period_ring(root, t0 + i, cfg, dev, offsets=table[i])
+    for rnd in period_randomness(cfg, threefry.key(seed), int(state.step),
+                                 periods, dev):
         state = step(cfg, state, plan, rnd, plain=plain)
     return state
 
@@ -790,8 +1082,9 @@ class RingEngine:
                  device=None):
         check_slice(cfg)
         self.device = devmod.resolve(device)
-        if plan.crash_step.device != self.device:
-            raise ValueError(f"plan lives on {plan.crash_step.device}, "
+        plan_dev = faults.base_of(plan).crash_step.device
+        if plan_dev != self.device:
+            raise ValueError(f"plan lives on {plan_dev}, "
                              f"engine on {self.device}")
         self.cfg = cfg
         self.plan = plan

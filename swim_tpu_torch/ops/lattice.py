@@ -18,10 +18,14 @@ def pack(status, incarnation: torch.Tensor) -> torch.Tensor:
     """status (int tensor or int), incarnation (u32 carrier) -> key."""
     inc = torch.where(u32.ugt(incarnation, INC_MAX),
                       torch.full_like(incarnation, INC_MAX), incarnation)
-    status = torch.as_tensor(status, device=inc.device)
-    dead = torch.where(status == Status.DEAD, u32.SIGN, 0)
-    suspect = (status == Status.SUSPECT).to(torch.int32)
-    return (dead.to(torch.int32) | (inc << 1) | suspect).to(torch.int32)
+    if isinstance(status, torch.Tensor):
+        dead = torch.where(status == Status.DEAD, u32.SIGN, 0)
+        suspect = (status == Status.SUSPECT).to(torch.int32)
+        return (dead.to(torch.int32) | (inc << 1) | suspect).to(torch.int32)
+    # an int status stays on the host: a tensor made from it would be
+    # copied to the card, and that copy waits for the card
+    dead = u32.SIGN if status == Status.DEAD else 0
+    return ((inc << 1) | dead | int(status == Status.SUSPECT)).to(torch.int32)
 
 
 def is_dead(key: torch.Tensor) -> torch.Tensor:

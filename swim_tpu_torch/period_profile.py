@@ -1,11 +1,13 @@
 """Where one ring period's time goes on the card.
 
     python3 -m swim_tpu_torch.period_profile [--nodes N] [--periods P]
-        [--scope period|wave] [--lifeguard]
+        [--scope period|wave] [--lifeguard] [--probe rotor|pull] [--study]
 
-Runs the rotor ring engine (0.1% of nodes crashing over the run) in the
-given selection scope, vanilla or with Lifeguard, on the CUDA card and
-prints one JSON line with
+Runs the ring engine (0.1% of nodes crashing over the run) with the
+given probe, in the given selection scope, vanilla or with Lifeguard,
+on the CUDA card; with `--study`, periods of the streaming detection
+study (`sim/runner.py`: the step plus the census and milestones)
+instead of bare engine periods.  Prints one JSON line with
 
   * wall ms per period of `RingEngine.run` (host clock around a
     synchronised run), and the split between drawing the period's
@@ -15,10 +17,14 @@ prints one JSON line with
     overlap), the idle share 1 - busy / wall, kernel launches per
     period, the aten ops that take the most device time, and the
     device ms per period of the port's own CUDA kernels with their share
-    of the busy time.
+    of the busy time;
+  * the device ms per period of named parts, from CUDA events around
+    each call inside the profiled run: `draw` (the period's threefry
+    draws), `gather_rows` (pull's three selection-row gathers) and,
+    with `--study`, `census` (`live_knower_counts`).
 
 The full profiler table goes to
-chiprun_out/period_profile_<scope>[_lifeguard].txt.
+chiprun_out/period_profile_<probe>_<scope>[_lifeguard][_study].txt.
 """
 from __future__ import annotations
 
@@ -31,9 +37,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from swim_tpu_torch import SwimConfig
-from swim_tpu_torch.measure import card_line
+from swim_tpu_torch.measure import PartTimer, card_line
 from swim_tpu_torch.models import ring
-from swim_tpu_torch.sim import faults
+from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.utils import threefry
 
 
@@ -54,6 +60,8 @@ def main() -> None:
     ap.add_argument("--periods", type=int, default=20)
     ap.add_argument("--scope", choices=("period", "wave"), default="period")
     ap.add_argument("--lifeguard", action="store_true")
+    ap.add_argument("--probe", choices=("rotor", "pull"), default="rotor")
+    ap.add_argument("--study", action="store_true")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -61,21 +69,29 @@ def main() -> None:
     card = card_line()
     n, p = args.nodes, args.periods
     cfg = SwimConfig(n_nodes=n, ring_sel_scope=args.scope,
-                     lifeguard=args.lifeguard)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    plan = faults.with_random_crashes(faults.none(n), gen, 0.001, 0,
-                                      3 + 3 * p)
+                     lifeguard=args.lifeguard, ring_probe=args.probe)
+    plan = faults.with_random_crashes(faults.none(n), threefry.key(1),
+                                      0.001, 0, 3 + 3 * p)
     eng = ring.RingEngine(cfg, plan, seed=0)
-    eng.run(3)
+    key = threefry.key(0)
+
+    def advance(periods):
+        """`periods` periods of the engine, or of the streaming study
+        (which continues from the engine's state and step)."""
+        if args.study:
+            eng.state = runner.run_study_ring_stream(
+                cfg, eng.state, plan, key, periods).state
+            return eng.state
+        return eng.run(periods)
+
+    advance(3)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    eng.run(p)
+    advance(p)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / p
 
-    key = threefry.key(0)
     t_now = int(eng.state.step)
     offs = torch.tensor(ring.rotor_offsets(cfg, t_now), dtype=torch.int32,
                         device="cuda")
@@ -91,10 +107,14 @@ def main() -> None:
     clone_ms = _events_ms(lambda: base.cold.clone(), p)
     step_ms = _events_ms(one_step, p) - clone_ms
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run(p)
+    parts = PartTimer({"draw": (ring, "draw_period_ring"),
+                       "gather_rows": (ring.GlobalOps, "gather_rows"),
+                       "census": (ring, "live_knower_counts")})
+    with parts, profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+        advance(p)
         torch.cuda.synchronize()
+    part_ms = parts.ms(p)
     ka = prof.key_averages()
     cuda_type = torch.autograd.DeviceType.CUDA
     kernels = [e for e in ka if e.device_type == cuda_type]
@@ -114,11 +134,14 @@ def main() -> None:
     own_launches = {name: sum(e.count for e in kernels
                               if f"{name}_kernel" in e.key) / p
                     for name in own}
-    tag = args.scope + ("_lifeguard" if args.lifeguard else "")
+    tag = (f"{args.probe}_{args.scope}" + ("_lifeguard" if args.lifeguard
+                                            else "")
+           + ("_study" if args.study else ""))
     (out / f"period_profile_{tag}.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps(dict(
         card=card, n_nodes=n, periods=p, scope=args.scope,
+        probe=args.probe, study=args.study,
         lifeguard=args.lifeguard, wall_ms_per_period=wall_ms,
         draw_ms=draw_ms, step_ms=step_ms,
         device_busy_ms_per_period=busy_us / 1e3 / p,
@@ -127,6 +150,7 @@ def main() -> None:
         port_kernels_device_ms=own,
         port_kernels_launches_per_period=own_launches,
         port_kernels_busy_share=sum(own.values()) / (busy_us / 1e3 / p),
+        parts=part_ms,
         top_aten_ops_by_self_device_time=top_ops,
         top_kernels=[dict(kernel=e.key[:80],
                           device_ms=e.self_device_time_total / 1e3 / p,

@@ -1,0 +1,215 @@
+"""The ring-engine studies (port of `swim_tpu/sim/experiments.py`).
+
+Each function returns a JSON-able dict, the reference's for the same
+arguments:
+
+  * `detection_study`    - random crash-stop injection -> first-detection
+    time distribution (pull-uniform probing by default: the SWIM paper's
+    e/(e-1)-periods law);
+  * `fp_sweep`           - packet loss (+ optional 2-way partition)
+    -> false-positive rates;
+  * `suspicion_sweep`    - suspicion-multiplier sweep -> detection
+    latency against false positives;
+  * `lifeguard_ablation` - Lifeguard on/off under loss and crashes.
+
+Only the ring engine is ported: `engine` must be "ring" ("auto" picks
+the dense or rumor engine in the reference).  Every study runs on the
+CUDA card unless `device` names another device.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from swim_tpu_torch import device as devmod
+from swim_tpu_torch.config import SwimConfig
+from swim_tpu_torch.models import ring
+from swim_tpu_torch.sim import faults, runner
+from swim_tpu_torch.utils import metrics, threefry
+
+DENSE_MAX = 8192
+
+# detection_study(stream="auto") switches to the streaming O(crashes)
+# runner at and above this N (milestones and series are bitwise equal
+# either way)
+STREAM_AUTO_NODES = 2_000_000
+
+
+def pick_engine(n: int, engine: str = "auto") -> str:
+    if engine != "auto":
+        return engine
+    return "dense" if n <= DENSE_MAX else "rumor"
+
+
+def _require_ring(engine: str) -> None:
+    if engine != "ring":
+        raise NotImplementedError(
+            f"study engine '{engine}' is not ported; pass engine='ring' "
+            "(ROADMAP.md Queue 1: the dense and rumor engines; sharding "
+            "brings 'shard' and 'ringshard')")
+
+
+def _require_no_recorder(flight_record) -> None:
+    if flight_record is not None:
+        raise NotImplementedError(
+            "the flight recorder is not ported (ROADMAP.md Queue 1: "
+            "instruments)")
+
+
+def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
+               dev, stream: bool = False, ckpt=None, chunk: int = 0):
+    state = ring.init_state(cfg, dev)
+    if stream:
+        return runner.run_study_ring_stream(cfg, state, plan, key, periods,
+                                            chunk=chunk, ckpt=ckpt)
+    return runner.run_study_ring(cfg, state, plan, key, periods)
+
+
+def _crash_plan(n: int, seed: int, crash_fraction: float, periods: int,
+                dev):
+    return faults.with_random_crashes(
+        faults.none(n, dev), threefry.key(seed + 1), crash_fraction,
+        2, max(3, periods // 2))
+
+
+def detection_study(n: int = 1000, crash_fraction: float = 0.01,
+                    periods: int = 100, seed: int = 0,
+                    engine: str = "auto",
+                    flight_record: str | None = None,
+                    stream: bool | str = "auto",
+                    checkpoint_dir: str | None = None,
+                    checkpoint_every: int = 0,
+                    chunk: int = 0, device=None,
+                    **cfg_kw) -> dict[str, Any]:
+    """Crash-stop injection -> detection-time distribution.  The ring
+    engine probes pull-uniform here unless `ring_probe` is given: the
+    study measures the e/(e-1) first-detection law, which the rotor
+    probe's bounded detection does not follow (deviation R1)."""
+    engine = pick_engine(n, engine)
+    _require_ring(engine)
+    _require_no_recorder(flight_record)
+    dev = devmod.resolve(device)
+    cfg_kw.setdefault("ring_probe", "pull")
+    cfg = SwimConfig(n_nodes=n, **cfg_kw)
+    ring.check_slice(cfg)
+    # stream="auto": the O(crashes) runner from STREAM_AUTO_NODES on, or
+    # whenever checkpointing is asked for (only it checkpoints)
+    if isinstance(stream, bool):
+        do_stream = stream
+    else:
+        do_stream = n >= STREAM_AUTO_NODES or checkpoint_dir is not None
+    ckpt = None
+    if checkpoint_dir is not None:
+        if not do_stream:
+            raise ValueError("checkpointing needs the streaming study "
+                             "runner; pass stream='auto' or stream=True")
+        ckpt = runner.StudyCheckpointer(checkpoint_dir,
+                                        every=checkpoint_every)
+    plan = _crash_plan(n, seed, crash_fraction, periods, dev)
+    res = _run_study(cfg, plan, threefry.key(seed), periods, dev,
+                     stream=do_stream, ckpt=ckpt, chunk=chunk)
+    out = {"study": "detection", "n": n, "periods": periods,
+           "engine": engine, "crash_fraction": crash_fraction,
+           "suspicion_periods": cfg.suspicion_periods,
+           "ring_probe": cfg.ring_probe, "stream": bool(do_stream)}
+    out.update(runner.detection_summary(res, plan, periods))
+    out.update(metrics.series_digest(res.series))
+    out["overflow"] = int(res.state.overflow)
+    return out
+
+
+def fp_sweep(n: int = 100_000, losses: tuple = (0.0, 0.1, 0.2, 0.3),
+             partition: bool = True, periods: int = 100, seed: int = 0,
+             engine: str = "auto", device=None,
+             **cfg_kw) -> dict[str, Any]:
+    """Loss (+ optional mid-run 2-way partition) -> false-positive
+    rates: live nodes holding a DEAD view of a live node, at the end of
+    the run and at the peak."""
+    engine = pick_engine(n, engine)
+    _require_ring(engine)
+    dev = devmod.resolve(device)
+    points = []
+    for loss in losses:
+        cfg = SwimConfig(n_nodes=n, **cfg_kw)
+        plan = faults.with_loss(faults.none(n, dev), loss)
+        if partition:
+            plan = faults.with_partition(plan, faults.halves(n),
+                                         periods // 3, 2 * periods // 3)
+        res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+        series = runner.host_series(res.series)
+        points.append({
+            "loss": loss,
+            "suspect_views_peak": int(series.suspect_views.max()),
+            "false_dead_views_final": int(series.false_dead_views[-1]),
+            "false_dead_views_peak": int(series.false_dead_views.max()),
+            "max_incarnation": int(series.max_incarnation.max()),
+            "overflow": int(res.state.overflow),
+        })
+    return {"study": "fp_sweep", "n": n, "periods": periods,
+            "engine": engine, "partition": partition, "points": points}
+
+
+def suspicion_sweep(n: int = 1_000_000,
+                    mults: tuple = (2.0, 3.0, 5.0, 8.0),
+                    crash_fraction: float = 0.001, loss: float = 0.05,
+                    losses: tuple | None = None,
+                    periods: int = 100, seed: int = 0,
+                    engine: str = "auto", device=None,
+                    **cfg_kw) -> dict[str, Any]:
+    """Suspicion-timeout multiplier sweep: latency against false
+    positives, at `loss` or over the grid `mults x losses`."""
+    engine = pick_engine(n, engine)
+    _require_ring(engine)
+    dev = devmod.resolve(device)
+    grid = tuple(losses) if losses else (loss,)
+    points = []
+    for lv in grid:
+        for mult in mults:
+            cfg = SwimConfig(n_nodes=n, suspicion_mult=mult, **cfg_kw)
+            plan = faults.with_loss(
+                _crash_plan(n, seed, crash_fraction, periods, dev), lv)
+            res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+            pt = {"suspicion_mult": mult, "loss": lv,
+                  "suspicion_periods": cfg.suspicion_periods}
+            pt.update(runner.detection_summary(res, plan, periods))
+            pt["false_dead_views_peak"] = int(
+                runner.host_series(res.series).false_dead_views.max())
+            points.append(pt)
+    return {"study": "suspicion_sweep", "n": n, "periods": periods,
+            "engine": engine, "losses": list(grid), "points": points}
+
+
+def lifeguard_ablation(n: int = 1_000_000, crash_fraction: float = 0.001,
+                       loss: float = 0.2, periods: int = 100, seed: int = 0,
+                       engine: str = "auto", budget_arms: bool = False,
+                       device=None, **cfg_kw) -> dict[str, Any]:
+    """Lifeguard against vanilla SWIM under lossy churn.
+    `budget_arms=True` adds twins of both arms with a four times larger
+    origination budget (ring_orig_words 2 -> 8)."""
+    engine = pick_engine(n, engine)
+    _require_ring(engine)
+    dev = devmod.resolve(device)
+    arm_defs = [("vanilla", False, {}), ("lifeguard", True, {})]
+    if budget_arms:
+        arm_defs += [("vanilla_ob8", False, {"ring_orig_words": 8}),
+                     ("lifeguard_ob8", True, {"ring_orig_words": 8})]
+    arms = {}
+    for name, lg, extra in arm_defs:
+        cfg = SwimConfig(n_nodes=n, lifeguard=lg, **{**cfg_kw, **extra})
+        plan = faults.with_loss(
+            _crash_plan(n, seed, crash_fraction, periods, dev), loss)
+        res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+        arm = runner.detection_summary(res, plan, periods)
+        arm["false_dead_views_peak"] = int(
+            runner.host_series(res.series).false_dead_views.max())
+        arm["ring_orig_words"] = cfg.ring_orig_words
+        arms[name] = arm
+    return {"study": "lifeguard_ablation", "n": n, "periods": periods,
+            "engine": engine, "loss": loss, "arms": arms}
+
+
+STUDIES: dict[str, Callable[..., dict]] = {
+    "detection": detection_study,
+    "fp_sweep": fp_sweep,
+    "suspicion_sweep": suspicion_sweep,
+    "lifeguard": lifeguard_ablation,
+}

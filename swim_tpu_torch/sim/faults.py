@@ -8,8 +8,12 @@
   * join: `join_step[N]`, the period a node becomes a member.
 
 Builders take the device explicitly (None = the CUDA card).
-`FaultProgram` lanes are not part of this port yet: `split_program`
-raises on anything but a plain FaultPlan.
+
+A `FaultProgram` adds piecewise per-node link and gray-failure segments
+to a FaultPlan (reference faults.py:137-339); `link_lanes` turns them
+into the per-node u16 thresholds the rotor waves add to the loss
+threshold.  `ProgramBatch` / `stack_programs` (the vmapped batch
+studies) are not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 
 from swim_tpu_torch import device as devmod
+from swim_tpu_torch.ops import u32
+from swim_tpu_torch.utils import threefry
 
 NEVER = int(np.int32(2**31 - 1))
 
@@ -76,17 +82,18 @@ def with_crashes(plan: FaultPlan, node_ids, at_step) -> FaultPlan:
     return plan._replace(crash_step=cs)
 
 
-def with_random_crashes(plan: FaultPlan, gen: torch.Generator,
+def with_random_crashes(plan: FaultPlan, key: tuple[int, int],
                         fraction: float, start: int, end: int) -> FaultPlan:
     """Crash ~`fraction` of nodes, each at a uniform period in
-    [start, end).  Draws from `gen` (on the generator's device), so the
-    crash sets differ from the reference's `jax.random` ones."""
+    [start, end): the reference's draw for `key = threefry.key(seed)`
+    (`jax.random.key(seed)`), so both packages crash the same nodes at
+    the same periods."""
     n = plan.crash_step.shape[0]
     dev = plan.crash_step.device
-    hit = torch.rand((n,), generator=gen, device=gen.device) < fraction
-    when = torch.randint(start, max(end, start + 1), (n,), generator=gen,
-                         device=gen.device, dtype=torch.int32)
-    hit, when = hit.to(dev), when.to(dev)
+    k_pick, k_when = threefry.split(key, 2)
+    hit = threefry.uniform(k_pick, (n,), dev) < torch.tensor(
+        np.float32(fraction), device=dev)
+    when = threefry.randint(k_when, (n,), start, max(end, start + 1), dev)
     return plan._replace(crash_step=torch.where(
         hit, torch.minimum(plan.crash_step, when), plan.crash_step))
 
@@ -115,14 +122,160 @@ def halves(n: int) -> np.ndarray:
     return g
 
 
-def split_program(plan) -> tuple[FaultPlan, None]:
-    """(base plan, None).  The reference also accepts a FaultProgram
-    (per-node link/gray lanes); the port does not carry those yet."""
+# ---------------------------------------------------------------------
+# FaultProgram: piecewise per-node link/gray fault schedules
+# ---------------------------------------------------------------------
+
+KIND_NONE = 0        # inert slot (padding)
+KIND_SEND_LOSS = 1   # add to the sender-side loss threshold (all legs)
+KIND_RECV_LOSS = 2   # add to the receiver-side loss threshold (all legs)
+KIND_LINK_LOSS = 3   # symmetric: both send and receive legs
+KIND_GRAY = 4        # reply legs only: the node's acks get lost
+
+SEG_KINDS = {
+    "send_loss": KIND_SEND_LOSS,
+    "recv_loss": KIND_RECV_LOSS,
+    "link_loss": KIND_LINK_LOSS,
+    "gray": KIND_GRAY,
+}
+
+LANE_MAX = 65535  # u16 wire ceiling for one lane
+
+
+class FaultProgram(NamedTuple):
+    """FaultPlan plus a piecewise fault schedule of S segments.  S == 0
+    means "no program": `split_program` strips the wrapper, so the
+    engine runs the plain-plan step.  Lanes are u16 thresholds in the
+    loss legs' integer geometry (`bits >= thr`, thr = ceil(p * 65536)),
+    composed with the loss threshold by addition."""
+
+    base: FaultPlan
+    domain_id: torch.Tensor   # uint8[N] failure-domain labels
+    seg_start: torch.Tensor   # int32[S] first period (inclusive)
+    seg_end: torch.Tensor     # int32[S] last period (exclusive)
+    seg_period: torch.Tensor  # int32[S] flap cycle length, 0 = always on
+    seg_on: torch.Tensor      # int32[S] on-duty periods per cycle
+    seg_domain: torch.Tensor  # int32[S] target domain, -1 = every node
+    seg_kind: torch.Tensor    # int32[S] KIND_*
+    seg_level: torch.Tensor   # u32[S] (int32 carrier) u16 threshold
+
+
+def level_to_threshold(p: float) -> int:
+    """Probability -> u16 lane threshold: ceil(p * 65536), clamped to
+    the u16 wire."""
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"fault level must be in [0, 1]: got {p}")
+    return min(int(np.ceil(p * 65536.0)), LANE_MAX)
+
+
+def empty_program(n: int, device=None) -> FaultProgram:
+    """A FaultProgram with zero segments wrapping a perfect network."""
+    return as_program(none(n, device))
+
+
+def as_program(plan: FaultPlan, domain_id=None,
+               capacity: int = 0) -> FaultProgram:
+    """Wrap a FaultPlan with `capacity` inert segment slots."""
+    n = plan.crash_step.shape[0]
+    dev = plan.crash_step.device
+    if domain_id is None:
+        dom = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    else:
+        dom = torch.as_tensor(np.asarray(domain_id).astype(np.uint8),
+                              device=dev)
+    s = int(capacity)
+    zi = torch.zeros((s,), dtype=torch.int32, device=dev)
+    return FaultProgram(
+        base=plan, domain_id=dom, seg_start=zi, seg_end=zi.clone(),
+        seg_period=zi.clone(), seg_on=zi.clone(),
+        seg_domain=torch.full((s,), -1, dtype=torch.int32, device=dev),
+        seg_kind=zi.clone(), seg_level=zi.clone())
+
+
+def with_segment(prog: FaultProgram, slot: int, *, start: int, end: int,
+                 kind: str, level: float, domain: int = -1,
+                 period: int = 0, on: int = 0) -> FaultProgram:
+    """Fill one segment slot."""
+    if kind not in SEG_KINDS:
+        raise ValueError(
+            f"unknown segment kind {kind!r}; one of {sorted(SEG_KINDS)}")
+    if period > 0 and not 0 < on <= period:
+        raise ValueError(
+            f"flap duty must satisfy 0 < on <= period: {on}/{period}")
+    vals = dict(seg_start=start, seg_end=end, seg_period=period, seg_on=on,
+                seg_domain=domain, seg_kind=SEG_KINDS[kind],
+                seg_level=u32.carrier(level_to_threshold(level)))
+    out = {}
+    for name, v in vals.items():
+        arr = getattr(prog, name).clone()
+        arr[slot] = v
+        out[name] = arr
+    return prog._replace(**out)
+
+
+def pad_program(prog: FaultProgram, capacity: int) -> FaultProgram:
+    """Grow a program's segment axis to `capacity` with inert slots
+    (KIND_NONE at level 0 on domain -1: they add 0 to every lane)."""
+    s = int(prog.seg_kind.shape[0])
+    pad = int(capacity) - s
+    if pad < 0:
+        raise ValueError(
+            f"pad_program: capacity {capacity} < current {s} segments")
+    if pad == 0:
+        return prog
+    dev = prog.seg_kind.device
+    zi = torch.zeros((pad,), dtype=torch.int32, device=dev)
+    cat = torch.cat
+    return prog._replace(
+        seg_start=cat([prog.seg_start, zi]), seg_end=cat([prog.seg_end, zi]),
+        seg_period=cat([prog.seg_period, zi]), seg_on=cat([prog.seg_on, zi]),
+        seg_domain=cat([prog.seg_domain, torch.full_like(zi, -1)]),
+        seg_kind=cat([prog.seg_kind, zi]),
+        seg_level=cat([prog.seg_level, zi]))
+
+
+def split_program(plan) -> tuple[FaultPlan, FaultProgram | None]:
+    """(base plan, program-or-None).  None for a plain FaultPlan and for
+    a FaultProgram with zero segments, so an empty program runs exactly
+    the plain-plan step."""
+    if isinstance(plan, FaultProgram):
+        if plan.seg_kind.shape[0] == 0:
+            return plan.base, None
+        return plan.base, plan
     if isinstance(plan, FaultPlan):
         return plan, None
-    raise NotImplementedError(
-        "FaultProgram lanes are not ported yet (ROADMAP.md Queue 1, "
-        "'FaultProgram lanes'); pass a plain FaultPlan")
+    raise TypeError(f"not a FaultPlan or FaultProgram: {type(plan)!r}")
+
+
+def base_of(plan) -> FaultPlan:
+    return plan.base if isinstance(plan, FaultProgram) else plan
+
+
+def link_lanes(prog: FaultProgram, step):
+    """Per-node (send_thr, recv_thr, reply_thr) lanes at period `step`
+    (a device scalar or int): u32 values in int32 carriers, each the
+    wrapping u32 sum of the active segments' levels on the node's
+    domain, saturated at LANE_MAX.  All S segments at once ([S, N]);
+    an integer sum is the same in any order."""
+    t = torch.as_tensor(step, dtype=torch.int32,
+                        device=prog.seg_kind.device)
+    dom = prog.domain_id.to(torch.int32)
+    in_window = (t >= prog.seg_start) & (t < prog.seg_end)
+    phase = torch.remainder(t - prog.seg_start, prog.seg_period.clamp(min=1))
+    duty = (prog.seg_period == 0) | (phase < prog.seg_on)
+    hit = ((prog.seg_domain < 0)[:, None]
+           | (dom[None, :] == prog.seg_domain[:, None]))         # [S, N]
+    amt = torch.where((in_window & duty)[:, None] & hit,
+                      u32.to_u64(prog.seg_level)[:, None], 0)    # int64
+    kind = prog.seg_kind[:, None]
+
+    def lane(sel):
+        tot = torch.where(sel, amt, 0).sum(dim=0) & u32.MASK32
+        return tot.clamp(max=LANE_MAX).to(torch.int32)
+
+    return (lane((kind == KIND_SEND_LOSS) | (kind == KIND_LINK_LOSS)),
+            lane((kind == KIND_RECV_LOSS) | (kind == KIND_LINK_LOSS)),
+            lane(kind == KIND_GRAY))
 
 
 def crashed_mask(plan: FaultPlan, step) -> torch.Tensor:

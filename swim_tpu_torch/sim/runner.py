@@ -1,0 +1,416 @@
+"""Ring-engine study runners (port of the ring parts of
+`swim_tpu/sim/runner.py`).
+
+Each period, after the engine's step, the runner takes the census of
+live knowers of every ring slot (`ring.live_knower_counts`) and folds
+it into
+
+  * per-crashed-node milestones: first suspicion seen by a live node,
+    first DEAD view, DEAD known by all live nodes (`StudyTrack` over all
+    N nodes, or `CompactTrack` over the subjects that crash within the
+    study);
+  * per-period global counters (`PeriodSeries`): knower-weighted
+    suspect and dead views, false dead views, the largest incarnation.
+
+`run_study_ring` keeps the full track; `run_study_ring_stream` keeps the
+compact one, runs in chunks of periods and can checkpoint between
+chunks (`StudyCheckpointer`) and resume bitwise.  The per-period values
+stay on the device and are stacked at the end (a chunk's end for the
+stream): no host sync inside a chunk.  Counts are int32 with int32
+wrap, as the reference's (the sums are taken in int64 and cut to 32
+bits).
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from swim_tpu_torch.config import SwimConfig
+from swim_tpu_torch.models import ring
+from swim_tpu_torch.obs import analyze
+from swim_tpu_torch.ops import lattice, u32
+from swim_tpu_torch.sim import faults
+from swim_tpu_torch.sim.faults import FaultPlan
+from swim_tpu_torch.utils import checkpoint
+
+NEVER = analyze.NEVER
+I32 = torch.int32
+I64 = torch.int64
+
+
+class StudyTrack(NamedTuple):
+    """Per-crashed-node detection milestones (i32[N], NEVER = not yet)."""
+
+    first_suspect: torch.Tensor    # some live node stops believing ALIVE
+    first_dead_view: torch.Tensor  # some live node holds DEAD
+    disseminated: torch.Tensor     # all live nodes hold DEAD
+
+
+class PeriodSeries(NamedTuple):
+    """Per-period global counters (i32[periods])."""
+
+    suspect_views: torch.Tensor
+    dead_views: torch.Tensor
+    false_dead_views: torch.Tensor
+    max_incarnation: torch.Tensor
+
+
+class RingStudyResult(NamedTuple):
+    state: ring.RingState
+    track: Any                 # StudyTrack or CompactTrack
+    series: PeriodSeries
+    telemetry: Any = None      # the instruments are not ported
+
+
+class CompactTrack(NamedTuple):
+    """Detection milestones restricted to crashed subjects (i32[C])."""
+
+    subjects: torch.Tensor     # node ids with crash_step < periods, asc.
+    crash_step: torch.Tensor   # their crash periods
+    first_suspect: torch.Tensor
+    first_dead_view: torch.Tensor
+    disseminated: torch.Tensor
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 count as the int32 the reference's int32 sum gives."""
+    return u32.from_u64(x)
+
+
+def _view_counts(subject, rkey, knowers, up, gone_dead):
+    """Knower-weighted (suspect, dead) view counts over the rumor table
+    plus the dissemination floor."""
+    used = subject >= 0
+    live_total = up.sum(dtype=I64)
+    sus = torch.where(used & lattice.is_suspect(rkey), knowers, 0)
+    dead = torch.where(used & lattice.is_dead(rkey), knowers, 0)
+    return (_wrap32(sus.sum(dtype=I64)),
+            _wrap32(dead.sum(dtype=I64)
+                    + gone_dead.sum(dtype=I64) * live_total))
+
+
+def _subject_flags(n: int, subject, rkey, knowers, up, gone_not_alive,
+                   gone_dead):
+    """Per-subject (not-alive-seen, dead-seen, dead-disseminated) bool[N]
+    plus the view counts.  The three flags ride one verdict code per
+    subject (bit0 not-alive seen, bit1 dead seen, bit2 disseminated),
+    written by one scatter-max over a spare row: within a period the
+    slot codes form a chain ({0, 1, 3, 7}, or {0, 4} with no live
+    observer), so the max is the per-bit OR."""
+    used = subject >= 0
+    live_total = up.sum(dtype=I64)
+    is_s = lattice.is_suspect(rkey)
+    is_d = lattice.is_dead(rkey)
+    known = used & (knowers > 0)
+    code = ((known & (is_s | is_d)).to(I32)
+            | (known & is_d).to(I32) << 1
+            | (used & is_d & (knowers >= live_total)).to(I32) << 2)
+    sub = torch.where(used, subject, n).to(I64)
+    verdict = torch.zeros((n + 1,), dtype=I32, device=subject.device)
+    verdict = verdict.scatter_reduce_(0, sub, code, "amax")[:n]
+    verdict = (verdict | torch.where(gone_not_alive, 1, 0)
+               | torch.where(gone_dead, 6, 0))
+    return ((verdict & 1) > 0, (verdict & 2) > 0, (verdict & 4) > 0,
+            _view_counts(subject, rkey, knowers, up, gone_dead))
+
+
+def _false_dead_views(subject, rkey, knowers, up, gone_dead):
+    """Knower-weighted DEAD views whose subject is actually alive."""
+    used = subject >= 0
+    live_total = up.sum(dtype=I64)
+    live_subj = up[subject.clamp(min=0).to(I64)]
+    wrong = torch.where(used & lattice.is_dead(rkey) & live_subj, knowers, 0)
+    return _wrap32(wrong.sum(dtype=I64)
+                   + (gone_dead & up).sum(dtype=I64) * live_total)
+
+
+def _max_incarnation(st: ring.RingState) -> torch.Tensor:
+    inc = torch.cat([lattice.incarnation_of(st.rkey), st.inc_self])
+    return u32.flip(u32.flip(inc).max())
+
+
+def _census(cfg: SwimConfig, st: ring.RingState, base: FaultPlan):
+    """What every study body reads after a step: (t, crashed, up,
+    knowers, gone_not_alive, gone_dead) of the period just run."""
+    t = st.step - 1
+    crashed = t >= base.crash_step
+    up = ~crashed & (t >= base.join_step)
+    knowers = ring.live_knower_counts(cfg, st, up)
+    gone = st.gone_key
+    gone_dead = lattice.is_dead(gone)
+    return (t, crashed, up, knowers, lattice.is_suspect(gone) | gone_dead,
+            gone_dead)
+
+
+def _first(cur, cond, crashed, t):
+    return torch.where(cond & crashed & (cur == NEVER), t, cur)
+
+
+def _stepper(cfg: SwimConfig, plan, step_fn):
+    """step_fn(state, plan, rnd) -> state; the engine's step if None.
+    Telemetry (study frames) raises here, with the taps, naming the
+    instruments item."""
+    ring.check_slice(cfg)
+    if step_fn is None:
+        return lambda st, rnd: ring.step(cfg, st, plan, rnd)
+    return lambda st, rnd: step_fn(st, plan, rnd)
+
+
+def _stack(rows: list) -> PeriodSeries:
+    return PeriodSeries(*(torch.stack(col) for col in zip(*rows)))
+
+
+def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
+                   root_key: tuple[int, int], periods: int,
+                   step_fn=None) -> RingStudyResult:
+    """Ring-engine study with the full StudyTrack over all N nodes.
+    `root_key` is a threefry key (`threefry.key(seed)`); `step_fn(state,
+    plan, rnd)` overrides the stepper (e.g. the plain versions of the
+    kernels).  The `disseminated` milestone reads the dissemination floor
+    (gone_key), so it can lag true dissemination by up to the window
+    length (deviation R2); the other two are exact."""
+    stepper = _stepper(cfg, plan, step_fn)
+    n = cfg.n_nodes
+    dev = state.win.device
+    base = faults.base_of(plan)
+    track = StudyTrack(*(torch.full((n,), NEVER, dtype=I32, device=dev)
+                         for _ in range(3)))
+    rows = []
+    for rnd in ring.period_randomness(cfg, root_key, int(state.step),
+                                      periods, dev):
+        state = stepper(state, rnd)
+        t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, state,
+                                                               base)
+        not_alive, dead_seen, dead_all, counts = _subject_flags(
+            n, state.subject, state.rkey, knowers, up, gone_na, gone_dead)
+        track = StudyTrack(
+            first_suspect=_first(track.first_suspect, not_alive, crashed, t),
+            first_dead_view=_first(track.first_dead_view, dead_seen,
+                                   crashed, t),
+            disseminated=_first(track.disseminated, dead_all, crashed, t))
+        rows.append((counts[0], counts[1],
+                     _false_dead_views(state.subject, state.rkey, knowers,
+                                       up, gone_dead),
+                     _max_incarnation(state)))
+    return RingStudyResult(state, track, _stack(rows))
+
+
+def compact_track_init(plan, periods: int) -> CompactTrack:
+    """The subjects that can crash within the study window, ascending
+    (the order of study_milestones' restriction of the full track).
+    Reads the crash schedule to the host once."""
+    base = faults.base_of(plan)
+    dev = base.crash_step.device
+    crash = base.crash_step.cpu().numpy()
+    subjects = np.flatnonzero(crash < periods).astype(np.int32)
+    c = subjects.size
+    return CompactTrack(
+        subjects=torch.from_numpy(subjects).to(dev),
+        crash_step=torch.from_numpy(crash[subjects].astype(np.int32)).to(dev),
+        first_suspect=torch.full((c,), NEVER, dtype=I32, device=dev),
+        first_dead_view=torch.full((c,), NEVER, dtype=I32, device=dev),
+        disseminated=torch.full((c,), NEVER, dtype=I32, device=dev))
+
+
+def _compact_subject_flags(subjects, subject, rkey, knowers, up,
+                           gone_not_alive, gone_dead):
+    """_subject_flags restricted to the crashed-subject list: a [C, R]
+    compare against the rumor table plus [C] floor gathers."""
+    used = subject >= 0
+    live_total = up.sum(dtype=I64)
+    is_s = lattice.is_suspect(rkey)
+    is_d = lattice.is_dead(rkey)
+    known = used & (knowers > 0)
+    eq = subject[None, :] == subjects[:, None]                   # [C, R]
+    sub64 = subjects.to(I64)
+
+    def hit(pred):
+        return (eq & pred[None, :]).any(dim=1)
+
+    not_alive = hit(known & (is_s | is_d)) | gone_not_alive[sub64]
+    dead_seen = hit(known & is_d) | gone_dead[sub64]
+    dead_all = (hit(used & is_d & (knowers >= live_total))
+                | gone_dead[sub64])
+    return not_alive, dead_seen, dead_all
+
+
+def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
+                 stepper):
+    """One period of a streaming study, all on the device (no host
+    read): (state, track, the period's series row)."""
+    state = stepper(state, rnd)
+    t, _, up, knowers, gone_na, gone_dead = _census(cfg, state, base)
+    not_alive, dead_seen, dead_all = _compact_subject_flags(
+        track.subjects, state.subject, state.rkey, knowers, up,
+        gone_na, gone_dead)
+    crashed = t >= track.crash_step
+    track = track._replace(
+        first_suspect=_first(track.first_suspect, not_alive, crashed, t),
+        first_dead_view=_first(track.first_dead_view, dead_seen,
+                               crashed, t),
+        disseminated=_first(track.disseminated, dead_all, crashed, t))
+    counts = _view_counts(state.subject, state.rkey, knowers, up, gone_dead)
+    return state, track, (counts[0], counts[1],
+                          _false_dead_views(state.subject, state.rkey,
+                                            knowers, up, gone_dead),
+                          _max_incarnation(state))
+
+
+def _run_study_ring_chunk(cfg: SwimConfig, state, track: CompactTrack,
+                          plan, root_key, periods: int, stepper):
+    """`periods` periods of a streaming study: (state, track, series of
+    the chunk on the device).  The period clock is state.step, so
+    chained chunks reproduce one long run bitwise."""
+    dev = state.win.device
+    base = faults.base_of(plan)
+    rows = []
+    for rnd in ring.period_randomness(cfg, root_key, int(state.step),
+                                      periods, dev):
+        state, track, row = study_period(cfg, state, track, base, rnd,
+                                         stepper)
+        rows.append(row)
+    return state, track, _stack(rows)
+
+
+class StudyCheckpointer:
+    """Mid-study checkpoint/resume for the streaming runner: {engine
+    state, CompactTrack, series prefix, root key, step} in one `.npz`
+    per snapshot (utils/checkpoint.py), the newest `keep` kept.
+    `restore` puts the engine state on `state_like`'s device; the track
+    and series prefix come back as host arrays."""
+
+    def __init__(self, directory: str, every: int = 0, keep: int = 3):
+        self.directory = directory
+        self.every = every
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def _snaps(self) -> list[str]:
+        return sorted(f for f in os.listdir(self.directory)
+                      if f.startswith("study_") and f.endswith(".npz"))
+
+    def save(self, state, track: CompactTrack, series: PeriodSeries,
+             root_key: tuple[int, int], step: int) -> str:
+        path = os.path.join(self.directory, f"study_{step:012d}.npz")
+        checkpoint.save_placed(path, (state, track, series), root_key, step)
+        for f in self._snaps()[:-self.keep]:
+            os.remove(os.path.join(self.directory, f))
+        return path
+
+    def latest(self) -> str | None:
+        snaps = self._snaps()
+        return os.path.join(self.directory, snaps[-1]) if snaps else None
+
+    def restore(self, state_like):
+        """None when no snapshot exists; else (state, track, series
+        prefix, root_key, step)."""
+        path = self.latest()
+        if path is None:
+            return None
+        track_like = CompactTrack(None, None, None, None, None)
+        series_like = PeriodSeries(None, None, None, None)
+        (state, track, series), root_key, step = checkpoint.restore_placed(
+            path, (state_like, track_like, series_like))
+        return (state, CompactTrack(*track), PeriodSeries(*series),
+                root_key, step)
+
+
+def host_series(series: PeriodSeries) -> PeriodSeries:
+    """The series as numpy arrays."""
+    return PeriodSeries(*(x.cpu().numpy() for x in series))
+
+
+def run_study_ring_stream(cfg: SwimConfig, state, plan,
+                          root_key: tuple[int, int], periods: int,
+                          step_fn=None, chunk: int = 0,
+                          ckpt: StudyCheckpointer | None = None
+                          ) -> RingStudyResult:
+    """Streaming ring study: the CompactTrack, `chunk` periods per chunk
+    (0 = one chunk, or ckpt.every when checkpointing), a snapshot after
+    every chunk but the last.  When `ckpt` holds a snapshot the study
+    resumes from it: callers pass the same (cfg, plan, root_key,
+    periods), and the result is bitwise that of an uninterrupted run;
+    milestones and series equal run_study_ring's (restricted to the
+    crashed subjects)."""
+    if ckpt is not None and cfg.telemetry:
+        raise ValueError("streaming study checkpointing does not cover "
+                         "telemetry frames; disable one of them")
+    stepper = _stepper(cfg, plan, step_fn)
+    dev = state.win.device
+    track = None
+    done = 0
+    series_parts: list = []
+    if ckpt is not None:
+        restored = ckpt.restore(state)
+        if restored is not None:
+            state, track, series_prefix, root_key, done = restored
+            if done > periods:
+                raise ValueError(
+                    f"checkpoint at step {done} is beyond the requested "
+                    f"{periods}-period study")
+            series_parts.append(series_prefix)
+    if track is None:
+        track = compact_track_init(plan, periods)
+    else:
+        # a snapshot's subject list is a function of (plan, periods):
+        # resuming under another pair would drop or invent subjects
+        want = compact_track_init(plan, periods)
+        if not np.array_equal(want.subjects.cpu().numpy(),
+                              np.asarray(track.subjects)):
+            raise ValueError(
+                "checkpointed subject list does not match this "
+                "(plan, periods); resume a study with its original "
+                "arguments")
+        track = CompactTrack(*(torch.from_numpy(np.asarray(a)).to(dev)
+                               for a in track))
+    if chunk <= 0:
+        chunk = (ckpt.every if ckpt is not None and ckpt.every > 0
+                 else periods)
+    while done < periods:
+        csize = min(chunk, periods - done)
+        state, track, series_c = _run_study_ring_chunk(
+            cfg, state, track, plan, root_key, csize, stepper)
+        done += csize
+        series_parts.append(host_series(series_c))
+        if ckpt is not None and done < periods:
+            series_so_far = PeriodSeries(*(np.concatenate(xs) for xs in
+                                           zip(*series_parts)))
+            ckpt.save(state, track, series_so_far, root_key, done)
+    series = PeriodSeries(*(torch.from_numpy(np.concatenate(xs)).to(dev)
+                            for xs in zip(*series_parts)))
+    return RingStudyResult(state, track, series)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def study_milestones(result: RingStudyResult, plan,
+                     periods: int) -> tuple[np.ndarray, dict]:
+    """(crash steps, milestone arrays) restricted to crashed subjects;
+    a CompactTrack already is this restriction (same order)."""
+    names = (("suspect", "first_suspect"), ("dead_view", "first_dead_view"),
+             ("disseminated", "disseminated"))
+    if isinstance(result.track, CompactTrack):
+        milestones = {name: _host(getattr(result.track, f)).astype(np.int64)
+                      for name, f in names}
+        return _host(result.track.crash_step).astype(np.int64), milestones
+    crash = _host(faults.base_of(plan).crash_step)
+    crashed = crash < periods
+    milestones = {
+        name: _host(getattr(result.track, f))[crashed].astype(np.int64)
+        for name, f in names}
+    return crash[crashed].astype(np.int64), milestones
+
+
+def detection_summary(result: RingStudyResult, plan, periods: int) -> dict:
+    """Host-side digest: detection-latency distribution in periods
+    (obs/analyze.py `summarize_detection`)."""
+    crash, milestones = study_milestones(result, plan, periods)
+    if not crash.size:
+        return {"crashed": 0}
+    return analyze.summarize_detection(
+        crash, milestones, int(_host(result.series.false_dead_views)[-1]))

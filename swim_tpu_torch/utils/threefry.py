@@ -19,6 +19,11 @@ hashes, done here on the host in Python ints; only `bits`, the [N] and
                       (0, i), i < num; key i is (out0[i], out1[i]);
   * bits(key, shape): _threefry_random_bits_partitionable — hash of the
                       counters (hi, lo) of the flat index, out0 ^ out1.
+
+On top of `bits`, jax/_src/random.py's `_uniform` (f32 in [0, 1): the
+mantissa bits under exponent 0) and `_randint` (two split keys, u32
+remainders with a 2**16 mod span multiplier) as `uniform` and
+`randint`.
 """
 from __future__ import annotations
 
@@ -76,3 +81,25 @@ def bits(k: tuple[int, int], shape, device) -> torch.Tensor:
     lo = torch.arange(size, dtype=torch.int64, device=device)
     o0, o1 = _hash(k[0], k[1], torch.zeros_like(lo), lo)
     return u32.from_u64(o0 ^ o1).reshape(shape)
+
+
+def uniform(k: tuple[int, int], shape, device) -> torch.Tensor:
+    """float32 `jax.random.uniform(key, shape)` in [0, 1): the top 23
+    bits as the mantissa of a float in [1, 2), minus 1 (exact)."""
+    b = bits(k, shape, device)
+    return (u32.lsr(b, 9) | 0x3F800000).view(torch.float32) - 1.0
+
+
+def randint(k: tuple[int, int], shape, lo: int, hi: int,
+            device) -> torch.Tensor:
+    """int32 `jax.random.randint(key, shape, lo, hi)`: u32 arithmetic,
+    done in int64 and cut to 32 bits after every step."""
+    k1, k2 = split(k, 2)
+    higher = u32.to_u64(bits(k1, shape, device))
+    lower = u32.to_u64(bits(k2, shape, device))
+    span = (hi - lo) & _M if hi > lo else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M) % span
+    off = ((higher % span) * mult) & _M
+    off = ((off + lower % span) & _M) % span
+    return u32.from_u64(off + lo)

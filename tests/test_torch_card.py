@@ -11,8 +11,12 @@ conftest, which imports JAX,
   * each kernel on views 4 bytes past a 16-byte boundary, which take
     the kernels' 4-byte paths;
   * a run on the card equals the same run on the CPU (plain versions),
-    in period scope, in wave scope and with Lifeguard;
-  * the card reproduces the digests of golden.GOLDEN_DIGESTS.
+    in period scope, in wave scope and with Lifeguard, under pull-uniform
+    probing and under a FaultProgram;
+  * kernels equal plain versions on the card under pull and under a
+    program, with the launches a period each path makes;
+  * the card reproduces the digests of golden.GOLDEN_DIGESTS and the
+    study digest.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from test_torch_cases import (
 from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
-from swim_tpu_torch.sim import faults
+from swim_tpu_torch.sim import faults, runner
+from swim_tpu_torch.utils import threefry
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +149,85 @@ def test_card_run_equals_cpu_run(cuda, kw):
 def test_card_run_gives_the_golden_digest(cuda, name):
     assert (golden.digest(golden.golden_run(cuda, name))
             == golden.GOLDEN_DIGESTS[name])
+
+
+def slice_plan(name, n, dev):
+    """The pull path's crash plan, or a three-segment FaultProgram."""
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(n, dev), threefry.key(2), 0.01, 1, 8), 0.05)
+    if name == "pull":
+        return plan
+    prog = faults.as_program(plan, np.arange(n) % 4, capacity=3)
+    prog = faults.with_segment(prog, 0, start=0, end=12, kind="gray",
+                               level=0.3, domain=1)
+    prog = faults.with_segment(prog, 1, start=2, end=12, kind="link_loss",
+                               level=0.2, domain=2, period=6, on=3)
+    return faults.with_segment(prog, 2, start=0, end=12, kind="send_loss",
+                               level=0.05)
+
+
+SLICE_CFGS = {"pull": dict(ring_probe="pull"),
+              "pull_period": dict(ring_probe="pull", ring_sel_scope="period"),
+              "program": {}, "program_period": dict(ring_sel_scope="period")}
+
+
+@pytest.mark.parametrize("name", list(SLICE_CFGS))
+def test_slice_kernels_equal_plain_and_cpu(cuda, name):
+    """Kernels against plain versions on the card, and the card against
+    the CPU, under pull and under a program; launches a period: pull
+    selb 1 and nothing else, the program's rotor path as without it."""
+    n, periods = 20_000, 12
+    cfg = SwimConfig(n_nodes=n, **SLICE_CFGS[name])
+    kind = name.split("_")[0]
+    before = (selb.launches, coldsel.launches, wavemerge.launches)
+    k = ring.run(cfg, ring.init_state(cfg, cuda), slice_plan(kind, n, cuda),
+                 4, periods)
+    made = [a - b for a, b in zip((selb.launches, coldsel.launches,
+                                   wavemerge.launches), before)]
+    p = ring.run(cfg, ring.init_state(cfg, cuda), slice_plan(kind, n, cuda),
+                 4, periods, plain=True)
+    c = ring.run(cfg, ring.init_state(cfg, "cpu"), slice_plan(kind, n, "cpu"),
+                 4, periods)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(getattr(k, f).cpu(), getattr(c, f)), f
+    scope_waves = 1 if cfg.ring_sel_scope == "period" else 14
+    want = ([1, 0, 0] if kind == "pull"
+            else [scope_waves, 1, scope_waves])
+    assert made == [periods * w for w in want]
+
+
+def test_card_study_gives_the_golden_digest(cuda):
+    res = golden.golden_study(cuda)
+    assert (golden.study_digest(res.state, res.track, res.series)
+            == golden.GOLDEN_DIGEST_STUDY)
+
+
+@pytest.mark.parametrize("name", list(SLICE_CFGS))
+def test_study_period_makes_no_host_sync(cuda, name):
+    """A study period (step, census, milestones) under pull and under a
+    program queues its work without waiting for the card: with
+    PyTorch's sync check set to raise, a host sync inside fails."""
+    n = 20_000
+    cfg = SwimConfig(n_nodes=n, **SLICE_CFGS[name])
+    plan = slice_plan(name.split("_")[0], n, cuda)
+    key = threefry.key(4)
+    track = runner.compact_track_init(plan, 12)
+    base = faults.base_of(plan)
+
+    def stepper(st, rnd):
+        return ring.step(cfg, st, plan, rnd)
+
+    # the first period builds the per-(cfg, device) tables
+    state, track, _ = runner.study_period(
+        cfg, ring.init_state(cfg, cuda), track, base,
+        ring.draw_period_ring(key, 0, cfg, cuda), stepper)
+    rnd = ring.draw_period_ring(key, 1, cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, track, row = runner.study_period(cfg, state, track, base,
+                                                rnd, stepper)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.step) == 2 and len(row) == 4

@@ -5,7 +5,8 @@
     `swim_tpu.*` (walked with `ast`; `swim_tpu_torch` itself shares the
     first letters and is allowed);
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
-    imports the port and runs one CPU step;
+    imports the port, runs a few CPU periods of each path and a small
+    streaming study;
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -51,7 +52,8 @@ def imported_modules(path: Path) -> list[str]:
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ring.py", "selb.py", "coldsel.py", "wavemerge.py",
-            "threefry.py", "chip_smoke.py"} <= names
+            "threefry.py", "chip_smoke.py", "runner.py", "experiments.py",
+            "checkpoint.py", "metrics.py", "analyze.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -81,6 +83,16 @@ def test_steps_with_jax_unimportable():
         "    cfg = SwimConfig(n_nodes=20, **kw)\n"
         "    st = ring.run(cfg, ring.init_state(cfg, 'cpu'), plan, 1, 2)\n"
         "    assert int(st.step) == 2\n"
+        "from swim_tpu_torch.sim import runner\n"
+        "from swim_tpu_torch.utils import threefry\n"
+        "cfg = SwimConfig(n_nodes=64, ring_probe='pull')\n"
+        "plan = faults.with_random_crashes(faults.none(64, 'cpu'),\n"
+        "                                  threefry.key(1), 0.1, 1, 3)\n"
+        "res = runner.run_study_ring_stream(\n"
+        "    cfg, ring.init_state(cfg, 'cpu'), plan, threefry.key(0), 4,\n"
+        "    chunk=2)\n"
+        "assert int(res.state.step) == 4\n"
+        "assert res.series.dead_views.numel() == 4\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

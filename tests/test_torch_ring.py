@@ -227,7 +227,7 @@ def test_engine_runs_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ring_probe="pull"), dict(ring_scalar_wire="packed"),
+    dict(profiling=True), dict(ring_scalar_wire="packed"),
     dict(telemetry=True)], ids=["kw1", "kw3", "kw4"])
 def test_out_of_slice_configs_raise(kw):
     cfg = SwimConfig(n_nodes=16, **{"ring_sel_scope": "period", **kw})
@@ -240,12 +240,36 @@ def test_out_of_slice_configs_raise(kw):
 
 @pytest.mark.parametrize("arg", ["ext", "tap", "prof", "program"])
 def test_out_of_slice_arguments_raise(arg):
-    cfg = SwimConfig(n_nodes=16, ring_sel_scope="period")
+    """ext/tap/prof raise naming their ROADMAP item; a FaultProgram
+    under pull-uniform probing raises as the reference does."""
+    probe = "pull" if arg == "program" else "rotor"
+    cfg = SwimConfig(n_nodes=16, ring_sel_scope="period", ring_probe=probe)
     plan = faults.none(16, "cpu")
     state = ring.init_state(cfg, "cpu")
     rnd = ring.draw_period_ring((0, 0), 0, cfg, "cpu")
     kw = {} if arg == "program" else {arg: object()}
+    match = "ROADMAP"
     if arg == "program":
-        plan = (plan, "segments")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        plan = faults.with_segment(faults.as_program(plan, capacity=1), 0,
+                                   start=0, end=4, kind="gray", level=0.5)
+        match = "pull-uniform"
+    with pytest.raises(NotImplementedError, match=match):
         ring.step(cfg, state, plan, rnd, **kw)
+
+
+def test_program_runs_and_empty_program_is_the_plain_plan():
+    """A FaultProgram runs through the engine entry points, and one with
+    zero segments gives the plain plan's run exactly."""
+    n = 32
+    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    plan = faults.with_crashes(faults.none(n, "cpu"), [4], [1])
+    want = ring.run(cfg, ring.init_state(cfg, "cpu"), plan, 3, 6)
+    got = ring.run(cfg, ring.init_state(cfg, "cpu"),
+                   faults.as_program(plan), 3, 6)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    prog = faults.with_segment(faults.as_program(plan, capacity=1), 0,
+                               start=0, end=6, kind="send_loss", level=0.9)
+    eng = ring.RingEngine(cfg, prog, seed=3, device="cpu")
+    lossy = eng.run(6)
+    assert not torch.equal(lossy.win, want.win)

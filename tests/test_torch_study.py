@@ -1,0 +1,244 @@
+"""The port's study runners against `swim_tpu.sim`, bit for bit.
+
+  * `with_random_crashes` gives the reference's crash plan for the same
+    key (threefry uniform and randint reproduced);
+  * `live_knower_counts` against the JAX census, with pair budgets small
+    enough that the chunks split the node axis;
+  * `run_study_ring` and `run_study_ring_stream` (track, series, final
+    state) against the JAX runners, at the shapes `detection_study`
+    compiles (so JAX reuses one compile for both);
+  * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
+    two ValueError refusals of a resume;
+  * `detection_study` and one point of `suspicion_sweep` give the JAX
+    package's dicts; the non-ring engines, telemetry and the flight
+    recorder raise naming their ROADMAP item;
+  * the `study` golden digest from the JAX package and from the port.
+
+Tolerance: exact.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swim_tpu import SwimConfig as JaxSwimConfig
+from swim_tpu.models import ring as jring
+from swim_tpu.sim import experiments as jexperiments
+from swim_tpu.sim import faults as jfaults
+from swim_tpu.sim import runner as jrunner
+from swim_tpu_torch import SwimConfig, convert, golden
+from swim_tpu_torch.models import ring
+from swim_tpu_torch.sim import experiments, faults, runner
+from swim_tpu_torch.utils import threefry
+
+# the shapes of detection_study(n=1000, periods=12, engine="ring")
+N, PERIODS, CHUNK = 1000, 12, 5
+PULL = dict(ring_probe="pull")
+
+
+def np_fields(nt) -> dict:
+    return {f: np.asarray(getattr(nt, f)) for f in nt._fields}
+
+
+def assert_same(port_nt, ref_nt, what):
+    got = convert.tuple_to_numpy(port_nt)
+    for f in ref_nt._fields:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(ref_nt, f)),
+                                      err_msg=f"{what}.{f}")
+
+
+def study_plans(seed=1):
+    """A study plan in both packages: random crashes plus loss."""
+    jplan = jfaults.with_loss(jfaults.with_random_crashes(
+        jfaults.none(N), jax.random.key(seed), 0.02, 2, 6), 0.05)
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(N, "cpu"), threefry.key(seed), 0.02, 2, 6), 0.05)
+    return jplan, plan
+
+
+@pytest.mark.parametrize("seed,n,fraction,start,end", [
+    (0, 1000, 0.01, 2, 50), (1, 4096, 0.05, 2, 20), (7, 333, 0.5, 0, 1),
+    (12345, 70_000, 0.001, 5, 70_005), (3, 64, 0.0, 2, 3)])
+def test_random_crashes_match_the_reference(seed, n, fraction, start, end):
+    want = jfaults.with_random_crashes(jfaults.none(n), jax.random.key(seed),
+                                       fraction, start, end)
+    got = faults.with_random_crashes(faults.none(n, "cpu"),
+                                     threefry.key(seed), fraction, start, end)
+    np.testing.assert_array_equal(got.crash_step.numpy(),
+                                  np.asarray(want.crash_step))
+    if fraction:
+        assert int((got.crash_step < faults.NEVER).sum()) > 0
+
+
+def test_live_knower_counts_match_the_reference():
+    jcfg = JaxSwimConfig(n_nodes=N, **PULL)
+    cfg = SwimConfig(n_nodes=N, **PULL)
+    jplan, _ = study_plans()
+    js = jring.run(jcfg, jring.init_state(jcfg), jplan, jax.random.key(0), 9)
+    ts = convert.state_from_numpy(np_fields(js), "cpu")
+    up = np.random.default_rng(2).random(N) < 0.8
+    want = np.asarray(jring.live_knower_counts(jcfg, js, jnp.asarray(up)))
+    assert want.max() > 0
+    for budget in (1 << 23, 3 * N, N // 2, 37):
+        got = ring.live_knower_counts(cfg, ts, torch.from_numpy(up),
+                                      pair_budget=budget)
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=f"pair_budget={budget}")
+    np.testing.assert_array_equal(
+        convert._to_numpy(ring.resolved_words(cfg, ts), True),
+        np.asarray(jring.resolved_words(jcfg, js)))
+
+
+@pytest.fixture(scope="module")
+def studies():
+    """The JAX and port results of both runners on one study."""
+    jcfg = JaxSwimConfig(n_nodes=N, **PULL)
+    cfg = SwimConfig(n_nodes=N, **PULL)
+    jplan, plan = study_plans()
+    return dict(
+        plan=plan,
+        jfull=jrunner.run_study_ring(jcfg, jring.init_state(jcfg), jplan,
+                                     jax.random.key(0), PERIODS),
+        full=runner.run_study_ring(cfg, ring.init_state(cfg, "cpu"), plan,
+                                   threefry.key(0), PERIODS),
+        jstream=jrunner.run_study_ring_stream(
+            jcfg, jring.init_state(jcfg), jplan, jax.random.key(0), PERIODS,
+            chunk=CHUNK),
+        stream=runner.run_study_ring_stream(
+            cfg, ring.init_state(cfg, "cpu"), plan, threefry.key(0),
+            PERIODS, chunk=CHUNK))
+
+
+def test_run_study_ring_matches_the_reference(studies):
+    j, t = studies["jfull"], studies["full"]
+    assert_same(t.track, j.track, "track")
+    assert_same(t.series, j.series, "series")
+    got = convert.state_to_numpy(t.state)
+    for f in jring.RingState._fields:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(j.state, f)),
+                                      err_msg=f)
+    # the study has teeth: crashes were suspected and views counted
+    assert int((t.track.first_suspect < runner.NEVER).sum()) > 0
+    assert int(t.series.suspect_views.max()) > 0
+
+
+def test_run_study_ring_stream_matches_the_reference(studies):
+    j, t = studies["jstream"], studies["stream"]
+    assert isinstance(t.track, runner.CompactTrack)
+    assert_same(t.track, j.track, "compact track")
+    assert_same(t.series, j.series, "series")
+    got = convert.state_to_numpy(t.state)
+    for f in jring.RingState._fields:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(j.state, f)),
+                                      err_msg=f)
+    # the compact track is the full one restricted to crashed subjects
+    plan = studies["plan"]
+    crash, ms = runner.study_milestones(studies["full"], plan, PERIODS)
+    crash_c, ms_c = runner.study_milestones(t, plan, PERIODS)
+    np.testing.assert_array_equal(crash, crash_c)
+    for k in ms:
+        np.testing.assert_array_equal(ms[k], ms_c[k])
+    assert (runner.detection_summary(t, plan, PERIODS)
+            == jrunner.detection_summary(j, None, PERIODS))
+
+
+class Stop(Exception):
+    pass
+
+
+def test_chunked_oneshot_and_resumed_streams_are_equal(studies, tmp_path):
+    cfg = SwimConfig(n_nodes=N, **PULL)
+    plan = studies["plan"]
+    chunked = studies["stream"]
+    one = runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cpu"),
+                                       plan, threefry.key(0), PERIODS)
+    calls = [0]
+
+    def stopping(st, p, rnd):
+        calls[0] += 1
+        if calls[0] > 2 * CHUNK:
+            raise Stop
+        return ring.step(cfg, st, p, rnd)
+
+    ck = runner.StudyCheckpointer(str(tmp_path), every=CHUNK, keep=1)
+    with pytest.raises(Stop):
+        runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cpu"), plan,
+                                     threefry.key(0), PERIODS,
+                                     step_fn=stopping, ckpt=ck)
+    assert ck.latest().endswith(f"study_{2 * CHUNK:012d}.npz")
+    assert len(ck._snaps()) == 1
+    resumed = runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cpu"),
+                                           plan, threefry.key(0), PERIODS,
+                                           ckpt=ck)
+    for other in (one, resumed):
+        for part in ("track", "series", "state"):
+            a, b = getattr(chunked, part), getattr(other, part)
+            for f in a._fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (part, f)
+    # the refusals: a checkpoint beyond the study, another subject list
+    with pytest.raises(ValueError, match="beyond"):
+        runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cpu"), plan,
+                                     threefry.key(0), 2 * CHUNK - 1, ckpt=ck)
+    other_plan = faults.with_crashes(plan, [N - 1], [3])
+    with pytest.raises(ValueError, match="subject list"):
+        runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cpu"),
+                                     other_plan, threefry.key(0), PERIODS,
+                                     ckpt=ck)
+
+
+def test_detection_study_and_suspicion_sweep_match_the_reference():
+    want = jexperiments.detection_study(n=N, periods=PERIODS, engine="ring")
+    got = experiments.detection_study(n=N, periods=PERIODS, engine="ring",
+                                      device="cpu")
+    assert got == want
+    assert got["ring_probe"] == "pull" and got["suspect_detected"] > 0
+    want = jexperiments.suspicion_sweep(n=N, mults=(3.0,), periods=PERIODS,
+                                        engine="ring")
+    got = experiments.suspicion_sweep(n=N, mults=(3.0,), periods=PERIODS,
+                                      engine="ring", device="cpu")
+    assert got == want
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(engine="auto"), "ROADMAP"), (dict(engine="rumor"), "ROADMAP"),
+    (dict(engine="ringshard"), "ROADMAP"),
+    (dict(engine="ring", telemetry=True), "instruments"),
+    (dict(engine="ring", flight_record="x.jsonl"), "instruments")])
+def test_studies_outside_the_port_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        experiments.detection_study(n=64, periods=2, device="cpu", **kw)
+    if "flight_record" not in kw:
+        with pytest.raises(NotImplementedError, match=match):
+            experiments.fp_sweep(n=64, losses=(0.0,), periods=2,
+                                 device="cpu", **kw)
+
+
+def test_golden_study_digest():
+    c = golden.STUDY_CRASHES
+    jcfg = JaxSwimConfig(n_nodes=golden.GOLDEN_N, **golden.STUDY_CONFIG)
+    jplan = jfaults.with_loss(jfaults.with_random_crashes(
+        jfaults.none(golden.GOLDEN_N), jax.random.key(c["seed"]),
+        c["fraction"], c["start"], c["end"]), golden.GOLDEN_LOSS)
+    j = jrunner.run_study_ring_stream(
+        jcfg, jring.init_state(jcfg), jplan,
+        jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS,
+        chunk=golden.STUDY_CHUNK)
+    assert golden.study_digest(np_fields(j.state), np_fields(j.track),
+                               np_fields(j.series)) == \
+        golden.GOLDEN_DIGEST_STUDY
+    # carried across, the reference's result hashes the same
+    assert golden.study_digest(
+        convert.state_from_numpy(np_fields(j.state), "cpu"),
+        convert.tuple_from_numpy(runner.CompactTrack, np_fields(j.track),
+                                 "cpu"),
+        convert.tuple_from_numpy(runner.PeriodSeries, np_fields(j.series),
+                                 "cpu")) == golden.GOLDEN_DIGEST_STUDY
+    t = golden.golden_study("cpu")
+    assert golden.study_digest(t.state, t.track, t.series) == \
+        golden.GOLDEN_DIGEST_STUDY
+    # the digest pins a study that detected and confirmed crashes
+    assert int((t.track.first_dead_view < runner.NEVER).sum()) > 0
+    assert int(t.series.dead_views.max()) > 0
