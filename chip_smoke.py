@@ -59,7 +59,27 @@ Phases, each printed as one JSON line:
      set to raise (no host sync inside a period); study periods/sec
      and the census's share of the wall time (CUDA events around
      `live_knower_counts`); then one
-     `lifeguard_ablation` arm pair at 1,000,000 nodes, 20 periods.
+     `lifeguard_ablation` arm pair at 1,000,000 nodes, 20 periods;
+ 10. engines: the dense and rumor engines (plain PyTorch: they launch
+     none of the three kernels, and their launch counts are read to
+     show it).  The three engine digests of golden.py on the card; the
+     card against the CPU from the same state and draws, every field
+     after each of 5 periods, dense at 2,048 nodes and rumor at 100,000
+     (1% crashes, loss 0.1), and rumor with Lifeguard, buddy and dynamic
+     suspicion at 100,000 for 4 periods (its row-chunked reductions over
+     several chunks); the studies at full width through their
+     entry points with the default engine: `detection_study()` (dense,
+     1,000 nodes), a `DenseEngine` at DENSE_MAX = 8,192 nodes for 10
+     periods, `fp_sweep()` (rumor, 100,000 nodes),
+     `suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=30)` and
+     `lifeguard_ablation(n=1_000_000, periods=20)` (Lifeguard with
+     buddy); for each, run twice, periods/sec and wall ms from the bare
+     run, device busy ms from a second run under torch.profiler (which
+     must give the same result), and peak memory, and on the runs
+     without loss that crashed subjects were suspected and no live node
+     declared dead;
+     one study period of each engine with PyTorch's sync check set to
+     raise.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -79,11 +99,11 @@ import torch
 from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
 from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.obs import analyze
-from swim_tpu_torch.ops import coldsel, selb, u32, wavemerge
+from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
 from swim_tpu_torch.sim import experiments, faults, runner
-from swim_tpu_torch.utils import threefry
+from swim_tpu_torch.utils import prng, threefry
 
 N = 1_000_000
 PARITY_PERIODS = 3
@@ -688,6 +708,242 @@ def study_phase(card: str) -> None:
          seconds=time.perf_counter() - t0, card=card)
 
 
+# --------------------------------------------------- slice 5: engines
+
+# case -> (engine, nodes, config options, periods); at 100,000 nodes the
+# rumor engine's row-chunked reductions span two ROW_CHUNKs, and
+# Lifeguard's buddy witness over the N * k messages of wave 4 five
+ENGINE_PARITY = {"dense": ("dense", 2048, {}, 5),
+                 "rumor": ("rumor", 100_000, {}, 5),
+                 "rumor_lifeguard": ("rumor", 100_000, {"lifeguard": True},
+                                     4)}
+ENGINES = {"dense": (dense, dense.DenseState, prng.draw_period),
+           "rumor": (rumor, rumor.RumorState, rumor.draw_period_rumor)}
+
+
+def engine_golden_phase() -> None:
+    for name, want in golden.ENGINE_DIGESTS.items():
+        got = golden.digest(golden.engine_run("cuda", name))
+        if got != want:
+            raise AssertionError(f"engine digest '{name}' on the card {got} "
+                                 f"!= {want}")
+        emit(phase="engines", part="golden", config=name, digest=got,
+             n_nodes=golden.ENGINE_N[name], periods=golden.GOLDEN_PERIODS)
+
+
+def _to_cpu(nt):
+    return type(nt)(*(_to_cpu(x) if isinstance(x, tuple) else x.cpu()
+                      for x in nt))
+
+
+def _leaves(nt) -> list:
+    return [y for x in nt for y in (_leaves(x) if isinstance(x, tuple)
+                                    else [x])]
+
+
+def engine_parity_phase(case: str) -> None:
+    """The engine on the card and on the CPU from the same state and the
+    same draws (drawn on the card, copied over): every field equal after
+    every period."""
+    name, n, opts, p = ENGINE_PARITY[case]
+    mod, cls, draw = ENGINES[name]
+    cfg = SwimConfig(n_nodes=n, **opts)
+
+    def plan(dev):
+        return faults.with_loss(faults.with_random_crashes(
+            faults.none(n, dev), threefry.key(1), 0.01, 0, p), 0.1)
+
+    plan_c, plan_h = plan("cuda"), plan("cpu")
+    st_c, st_h = mod.init_state(cfg, "cuda"), mod.init_state(cfg, "cpu")
+    key = threefry.key(0)
+    t0 = time.perf_counter()
+    for t in range(p):
+        rnd = draw(key, t, cfg, "cuda")
+        st_c = mod.step(cfg, st_c, plan_c, rnd)
+        st_h = mod.step(cfg, st_h, plan_h, _to_cpu(rnd))
+        for f in cls._fields:
+            if not torch.equal(getattr(st_c, f).cpu(), getattr(st_h, f)):
+                raise AssertionError(f"{name} engine, period {t}: field {f} "
+                                     "differs between the card and the CPU")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(
+            _leaves(draw(key, p, cfg, "cuda")),
+            _leaves(draw(key, p, cfg, "cpu")))):
+        raise AssertionError(f"{name} draws differ between card and CPU")
+    emit(phase="engines", part="card_vs_cpu", case=case, engine=name,
+         n_nodes=n, periods=p, options=opts, fields_equal=len(cls._fields),
+         seconds=time.perf_counter() - t0)
+
+
+def busy_ms(prof) -> tuple[float, int]:
+    """(device ms, count) of the device activities (kernels, copies,
+    fills) a profile saw, read from its raw events: `key_averages`
+    takes minutes over the million events of a sweep."""
+    cuda_type = torch.autograd.DeviceType.CUDA
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda_type]
+    return sum(ns) / 1e6, len(ns)
+
+
+def timed_study(label: str, periods: int, fn, card: str) -> dict:
+    """Run `fn` twice: first bare, for the wall time and periods/sec,
+    then under torch.profiler (CUDA activity only) for the device busy
+    time, which is set against the bare wall (the profiler adds host time
+    to every launch: `wall_ms_profiled`).  Both runs must give the same
+    result.  Launch counts are zeroed before the first run and read after
+    the second; peak memory from a reset of PyTorch's peak counter (it
+    includes what earlier phases still hold: `allocated_before`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = fn()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    launches = read_launches()
+    if json.dumps(out, sort_keys=True, default=str) != \
+            json.dumps(again, sort_keys=True, default=str):
+        raise AssertionError(f"{label}: the profiled run gave another "
+                             f"result: {out} != {again}")
+    busy, kernels = busy_ms(prof)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak >= total:
+        raise AssertionError(f"{label}: peak memory {peak} >= {total}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: launched the ring kernels "
+                             f"{launches}")
+    row = dict(phase="engines", part="study", run=label, periods=periods,
+               periods_per_sec=periods / wall, wall_ms=wall * 1e3,
+               device_busy_ms=busy, idle_share=1.0 - busy / (wall * 1e3),
+               wall_ms_profiled=wall_prof * 1e3,
+               kernels_per_period=kernels / periods,
+               max_memory_allocated=peak, allocated_before=before,
+               card_memory=total, launches=launches, card=card)
+    return out, row
+
+
+def dense_8192_run():
+    """DENSE_MAX nodes, 1% crashing in periods 0-5, no loss, 10 periods."""
+    cfg = SwimConfig(n_nodes=experiments.DENSE_MAX)
+    plan = crash_plan(cfg, 5, 0.01)
+    eng = dense.DenseEngine(cfg, plan, seed=0)
+    st = eng.run(10)
+    crashed = plan.crash_step <= 9
+    live = ~crashed
+    key = st.key
+    seen = ((lattice.is_suspect(key) | lattice.is_dead(key))
+            & live[:, None]).any(dim=0)
+    false_dead = ((key < 0) & live[:, None] & live[None, :]).sum()
+    return dict(crashed=int(crashed.sum()),
+                suspected=int((seen & crashed).sum()),
+                false_dead_views=int(false_dead), step=int(st.step))
+
+
+def engine_no_sync_period(name: str, n: int) -> None:
+    """Two study periods of the engine, then one more with PyTorch's sync
+    check set to raise (the draws made before)."""
+    mod, _, draw = ENGINES[name]
+    cfg = SwimConfig(n_nodes=n)
+    plan = crash_plan(cfg, 3, 0.01)
+    key = threefry.key(0)
+    if name == "dense":
+        res = runner.run_study(cfg, dense.init_state(cfg, "cuda"), plan, key,
+                               2)
+        period = runner.dense_study_period
+    else:
+        res = runner.run_study_rumor(cfg, rumor.init_state(cfg, "cuda"), plan,
+                                     key, 2)
+        period = runner.rumor_study_period
+    rnd = draw(key, 2, cfg, "cuda")
+    base = faults.base_of(plan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        period(cfg, res.state, res.track, base, rnd,
+               lambda st, r: mod.step(cfg, st, plan, r))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit(phase="engines", part="no_sync", engine=name, n_nodes=n,
+         host_syncs_in_a_period=0)
+
+
+def engines_phase(card: str) -> dict:
+    """Phase 10; returns the ring kernels' launches on the dense and the
+    rumor runs (both 0)."""
+    engine_golden_phase()
+    for case in ENGINE_PARITY:
+        engine_parity_phase(case)
+    launches = {"dense": {}, "rumor": {}}
+
+    def add(engine, row):
+        for kn, c in row["launches"].items():
+            launches[engine][kn] = launches[engine].get(kn, 0) + c
+
+    det, row = timed_study("detection_study()", 100,
+                           experiments.detection_study, card)
+    if det["engine"] != "dense" or det["n"] != 1000:
+        raise AssertionError(f"detection_study() ran {det['engine']}")
+    if det["crashed"] == 0 or det["suspect_detected"] == 0 \
+            or det["false_dead_views_peak"] != 0:
+        raise AssertionError(f"detection_study() without loss: {det}")
+    row.update(n_nodes=1000, engine="dense",
+               **{k: det[k] for k in ("crashed", "suspect_detected",
+                                      "suspect_latency_mean",
+                                      "dead_view_detected",
+                                      "false_dead_views_peak")})
+    add("dense", row)
+    emit(**row)
+
+    d8, row = timed_study("DenseEngine(8192).run(10)", 10, dense_8192_run,
+                          card)
+    if d8["suspected"] == 0 or d8["false_dead_views"] != 0:
+        raise AssertionError(f"dense 8192 without loss: {d8}")
+    row.update(n_nodes=experiments.DENSE_MAX, engine="dense", **d8)
+    add("dense", row)
+    emit(**row)
+
+    fp, row = timed_study("fp_sweep()", 400, experiments.fp_sweep, card)
+    if fp["engine"] != "rumor" or len(fp["points"]) != 4 or \
+            fp["points"][-1]["suspect_views_peak"] == 0:
+        raise AssertionError(f"fp_sweep(): {fp}")
+    row.update(n_nodes=fp["n"], engine=fp["engine"], points=fp["points"])
+    add("rumor", row)
+    emit(**row)
+
+    ss, row = timed_study(
+        "suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=30)", 60,
+        lambda: experiments.suspicion_sweep(n=N, mults=(2.0, 5.0),
+                                            periods=30), card)
+    if ss["engine"] != "rumor" or any(pt["crashed"] == 0
+                                      for pt in ss["points"]):
+        raise AssertionError(f"suspicion_sweep: {ss}")
+    row.update(n_nodes=N, engine=ss["engine"], points=ss["points"])
+    add("rumor", row)
+    emit(**row)
+
+    lg, row = timed_study(
+        "lifeguard_ablation(n=1_000_000, periods=20)", 40,
+        lambda: experiments.lifeguard_ablation(n=N, periods=20), card)
+    if lg["engine"] != "rumor" or any(a["crashed"] == 0
+                                      for a in lg["arms"].values()):
+        raise AssertionError(f"lifeguard_ablation: {lg}")
+    row.update(n_nodes=N, engine=lg["engine"], arms=lg["arms"])
+    add("rumor", row)
+    emit(**row)
+
+    engine_no_sync_period("dense", 1000)
+    engine_no_sync_period("rumor", 100_000)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -715,6 +971,7 @@ def main() -> None:
         "program", SwimConfig(n_nodes=N), program_plan(N),
         {k: float(v) for k, v in expected_launches(path_cfg("wave")).items()})
     study_phase(card)
+    launches.update(engines_phase(card))
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -732,6 +989,8 @@ def main() -> None:
             launches_lifeguard=launches["lifeguard"][name],
             launches_pull=launches["pull"][name],
             launches_program=launches["program"][name],
+            launches_dense=launches["dense"].get(name, 0),
+            launches_rumor=launches["rumor"].get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

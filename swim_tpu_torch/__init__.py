@@ -1,11 +1,13 @@
 """PyTorch port of swim_tpu for one NVIDIA H100.
 
 The JAX package `swim_tpu` is the reference; this package imports
-neither it nor JAX.  It runs the period-scope rotor ring engine
-(models/ring.py) end to end, with the three TPU kernels of that path as
-CUDA kernels (ops/selb.py, ops/coldsel.py, ops/wavemerge.py; sources in
-csrc/).  State lives in torch.int32 tensors holding the u32 bit
-patterns of the reference's arrays (ops/u32.py).
+neither it nor JAX.  It runs the ring engine (models/ring.py), with
+the three TPU kernels of that engine as CUDA kernels (ops/selb.py,
+ops/coldsel.py, ops/wavemerge.py; sources in csrc/), the dense and
+rumor engines in plain PyTorch (models/dense.py, models/rumor.py), and
+the studies of sim/experiments.py on all three.  State lives in
+torch.int32 tensors holding the u32 bit patterns of the reference's
+arrays (ops/u32.py).
 """
 from swim_tpu_torch.config import SwimConfig
 

@@ -58,7 +58,8 @@ import torch
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import rumor
-from swim_tpu_torch.ops import coldsel, lattice, sampling, selb, u32, wavemerge
+from swim_tpu_torch.ops import (coldsel, lattice, sampling, scatter, selb,
+                                u32, wavemerge)
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import threefry
@@ -142,7 +143,7 @@ def check_slice(cfg: SwimConfig) -> None:
                     "sharding)")
     if cfg.telemetry or cfg.profiling:
         todo.append("telemetry/profiling taps (ROADMAP.md Queue 1: "
-                    "instruments)")
+                    "telemetry and the other instruments)")
     if todo:
         raise NotImplementedError(
             "not in the ported slice: " + "; ".join(todo))
@@ -272,26 +273,6 @@ def draw_period_ring(key: tuple[int, int], step: int, cfg: SwimConfig,
 # ------------------------------------------------------ tensor helpers
 
 
-def _set_drop(dst: torch.Tensor, idx: torch.Tensor, val, col=None):
-    """dst[idx] = val (dst[idx, col] = val with `col`), dropping entries
-    whose idx lies outside [0, len(dst)): they write a spare row that is
-    cut off afterwards, so no host sync filters them.  Callers keep the
-    valid indices distinct, so the result is deterministic.  A Python
-    `val` is filled into a tensor on dst's device first: PyTorch makes
-    the value of `t[i] = scalar` on the host for a CUDA `t` and copies it
-    over, which waits for the card."""
-    n = dst.shape[0]
-    ext = torch.cat([dst, dst[:1]])
-    if not isinstance(val, torch.Tensor):
-        val = torch.full((), val, dtype=dst.dtype, device=dst.device)
-    i = torch.where((idx >= 0) & (idx < n), idx, n).to(torch.int64)
-    if col is None:
-        ext[i] = val
-    else:
-        ext[i, col.to(torch.int64)] = val
-    return ext[:n]
-
-
 def _col_select_multi(mat: torch.Tensor, cols: list[torch.Tensor]):
     """[mat[i, c[i]] for c in cols]; an out-of-range c yields 0."""
     w = mat.shape[1]
@@ -300,19 +281,6 @@ def _col_select_multi(mat: torch.Tensor, cols: list[torch.Tensor]):
         v = mat.gather(1, c.clamp(0, w - 1).to(torch.int64)[:, None])[:, 0]
         out.append(torch.where((c >= 0) & (c < w), v, 0))
     return out
-
-
-def _first_true_idx(valid: torch.Tensor, k: int) -> torch.Tensor:
-    """int32[k]: ascending indices of the first k True entries of a 1-D
-    bool vector, missing entries filled with n = len(valid)."""
-    n = valid.shape[0]
-    ids = torch.arange(n, dtype=I32, device=valid.device)
-    key = torch.where(valid, ids, n)
-    idx = torch.topk(key, min(k, n), largest=False, sorted=True).values
-    if k > n:
-        idx = torch.cat([idx, torch.full((k - n,), n, dtype=I32,
-                                         device=valid.device)])
-    return idx
 
 
 def _lane_counts(words: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -403,8 +371,9 @@ def _recip_table(n: int, device) -> torch.Tensor:
 
 class GlobalOps:
     """Cross-node operations of the single-device engine: the rolls,
-    drop-mode scatters, node-wise gathers and heard-bit lookups of the
-    reference's GlobalOps (ring.py:625-756), plus the three kernel
+    the drop-mode scatter-add, node-wise gathers and heard-bit lookups
+    of the reference's GlobalOps (ring.py:625-756; its scatter-max is
+    ops/scatter.py `scatter_max`), plus the three kernel
     steps (their plain versions with `plain`).  Node-id vectors given
     as int64 index without a conversion."""
 
@@ -419,17 +388,6 @@ class GlobalOps:
         device scalar, so the index is computed on the device."""
         idx = torch.remainder(self.ids.to(torch.int64) + d, self.n)
         return x[idx]
-
-    def scatter_max(self, dst, idx, val, unsigned: bool):
-        """dst[idx] <- max(dst[idx], val) (u32 order when `unsigned`);
-        idx outside [0, n) drops (it adds the max identity at 0)."""
-        valid = (idx >= 0) & (idx < dst.shape[0])
-        v = u32.flip(val) if unsigned else val
-        v = torch.where(valid, v, u32.SIGN)
-        d = u32.flip(dst) if unsigned else dst.clone()
-        d.scatter_reduce_(0, torch.where(valid, idx, 0).to(torch.int64), v,
-                          "amax")
-        return u32.flip(d) if unsigned else d
 
     def scatter_add(self, dst, idx, val: int):
         valid = (idx >= 0) & (idx < dst.shape[0])
@@ -501,7 +459,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     if ext is not None or tap is not None or prof is not None:
         raise NotImplementedError(
             "ext/tap/prof are not in the ported slice (ROADMAP.md Queue "
-            "1: serving, which brings ExtOriginations; instruments)")
+            "1: serving, which brings ExtOriginations; telemetry and "
+            "the other instruments)")
     plan, prog = faults.split_program(plan)
     pull = cfg.ring_probe == "pull"
     if pull and prog is not None:
@@ -558,8 +517,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     retire = out_used & ~carry & ~keep
     out_dead = out_used & lattice.is_dead(out_key)
     tomb = retire & out_dissem
-    gone_key = ops.scatter_max(gone_key, torch.where(tomb, out_sub, n),
-                               out_key, unsigned=True)
+    gone_key = scatter.scatter_max(gone_key, torch.where(tomb, out_sub, n),
+                                   out_key, unsigned=True)
     overflow = overflow + _sum32(retire & out_dead & ~out_dissem)
 
     # ---- Phase 0b: invalidate the previous generation of the fresh cols ---
@@ -574,22 +533,23 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     fresh_rows = cold.index_select(0, fresh_word_rows.to(torch.int64))
     inv_knowers = _lane_counts(fresh_rows, active)
     inv_tomb = inv_used & (inv_knowers >= live_total)
-    gone_key = ops.scatter_max(gone_key, torch.where(inv_tomb, inv_sub, n),
-                               inv_key, unsigned=True)
-    subject = _set_drop(subject, torch.where(inv_used, fresh_slots, r_tot),
-                        -1)
+    gone_key = scatter.scatter_max(
+        gone_key, torch.where(inv_tomb, inv_sub, n), inv_key, unsigned=True)
+    subject = scatter.set_drop(
+        subject, torch.where(inv_used, fresh_slots, r_tot), -1)
 
     # ---- Phase 0c: move carried lanes old slot -> same lane of fresh word -
     mv_src = torch.where(carry, out_slots, r_tot).clamp(max=r_tot - 1)
     mv_dst = torch.where(carry, fresh_slots, r_tot)
-    subject = _set_drop(subject, mv_dst, torch.where(carry, out_sub, -1))
-    rkey = _set_drop(rkey, mv_dst, out_key)
-    birth0 = _set_drop(birth0, mv_dst, birth0[mv_src])
-    confirmed = _set_drop(confirmed, mv_dst, confirmed[mv_src])
-    snode = _set_drop(snode, mv_dst, snode[mv_src])
-    stime = _set_drop(stime, mv_dst, stime[mv_src])
-    subject = _set_drop(subject, torch.where(carry | retire, out_slots,
-                                             r_tot), -1)
+    subject = scatter.set_drop(subject, mv_dst,
+                               torch.where(carry, out_sub, -1))
+    rkey = scatter.set_drop(rkey, mv_dst, out_key)
+    birth0 = scatter.set_drop(birth0, mv_dst, birth0[mv_src])
+    confirmed = scatter.set_drop(confirmed, mv_dst, confirmed[mv_src])
+    snode = scatter.set_drop(snode, mv_dst, snode[mv_src])
+    stime = scatter.set_drop(stime, mv_dst, stime[mv_src])
+    subject = scatter.set_drop(
+        subject, torch.where(carry | retire, out_slots, r_tot), -1)
     carry_mask = u32.pack_bits(carry.reshape(g.ow, WORD))      # u32[OW]
 
     # ---- Phase 0d: shift the window, carry bits --------------------------
@@ -614,24 +574,24 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     top_key, top_slot = [], []
     remaining = used
     for _ in range(g.c):
-        bk = ops.scatter_max(torch.zeros_like(ids),
-                             torch.where(remaining, subject, n), rkey,
-                             unsigned=True)
+        bk = scatter.scatter_max(torch.zeros_like(ids),
+                                 torch.where(remaining, subject, n), rkey,
+                                 unsigned=True)
         bk_at_r = bk[subj_cl]
         hit = remaining & (rkey == bk_at_r) & (bk_at_r != 0)
-        bs = ops.scatter_max(torch.full_like(ids, -1),
-                             torch.where(hit, subject, n), rr,
-                             unsigned=False)
+        bs = scatter.scatter_max(torch.full_like(ids, -1),
+                                 torch.where(hit, subject, n), rr,
+                                 unsigned=False)
         top_key.append(bk)
         top_slot.append(bs)
         remaining = remaining & ~(rr == bs[subj_cl])
     n_per_subj = ops.scatter_add(torch.zeros_like(ids), sub_or_n, 1)
     index_overflow = state.index_overflow + _sum32(n_per_subj > g.c)
     sus_hit = used & lattice.is_suspect(rkey)
-    sus_bk = ops.scatter_max(torch.zeros_like(ids),
-                             torch.where(sus_hit, subject, n), rkey,
-                             unsigned=True)
-    sus_slot = ops.scatter_max(
+    sus_bk = scatter.scatter_max(torch.zeros_like(ids),
+                                 torch.where(sus_hit, subject, n), rkey,
+                                 unsigned=True)
+    sus_slot = scatter.scatter_max(
         torch.full_like(ids, -1),
         torch.where(sus_hit & (rkey == sus_bk[subj_cl]), subject, n), rr,
         unsigned=False)
@@ -938,9 +898,9 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     total = _sum32(confirm) + _sum32(refute) + _sum32(suspect)
     kk1 = torch.topk(torch.where(confirm, r_tot - rr, 0), ob).values
     ci1 = torch.where(kk1 > 0, r_tot - kk1, m_cand)
-    ci2 = _first_true_idx(refute, ob)
+    ci2 = scatter.first_true(refute, ob, n)
     ci2 = torch.where(ci2 < n, r_tot + ci2, m_cand)
-    ci3 = _first_true_idx(suspect, ob)
+    ci3 = scatter.first_true(suspect, ob, n)
     ci3 = torch.where(ci3 < n, r_tot + n + ci3, m_cand)
     cand = torch.cat([ci1, ci2, ci3])
     mk_ = torch.topk(torch.where(cand < m_cand, m_cand - cand, 0), ob).values
@@ -999,12 +959,12 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     placed = got & (slot_f >= 0)
 
     wslot = torch.where(alloc_ok, slot_f, r_tot)
-    subject = _set_drop(subject, wslot, subj_c)
-    rkey = _set_drop(rkey, wslot, key_c)
-    birth0 = _set_drop(birth0, wslot, t)
-    confirmed = _set_drop(confirmed, wslot, False)
-    snode = _set_drop(snode, wslot, -1)
-    stime = _set_drop(stime, wslot, 0)
+    subject = scatter.set_drop(subject, wslot, subj_c)
+    rkey = scatter.set_drop(rkey, wslot, key_c)
+    birth0 = scatter.set_drop(birth0, wslot, t)
+    confirmed = scatter.set_drop(confirmed, wslot, False)
+    snode = scatter.set_drop(snode, wslot, -1)
+    stime = scatter.set_drop(stime, wslot, 0)
 
     # originators hear their rumor: add the one-hot into the fresh win
     # cols (add == or: freshly allocated lanes are bit-disjoint)
@@ -1031,11 +991,11 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     j_ok = joiner & (spos < s_cap)
     wr = torch.where(j_ok, tgt_r, r_tot)
     ws = spos.clamp(0, s_cap - 1)
-    snode = _set_drop(snode, wr, orig_c, col=ws)
-    stime = _set_drop(stime, wr, t, col=ws)
+    snode = scatter.set_drop(snode, wr, orig_c, col=ws)
+    stime = scatter.set_drop(stime, wr, t, col=ws)
 
     conf_slot = torch.where(placed & (srcslot_c >= 0), srcslot_c, r_tot)
-    confirmed = _set_drop(confirmed, conf_slot, True)
+    confirmed = scatter.set_drop(confirmed, conf_slot, True)
 
     # inactive nodes are frozen
     inc_self = torch.where(active, inc_self, state.inc_self)

@@ -1,13 +1,18 @@
-"""Where one ring period's time goes on the card.
+"""Where one engine period's time goes on the card.
 
-    python3 -m swim_tpu_torch.period_profile [--nodes N] [--periods P]
-        [--scope period|wave] [--lifeguard] [--probe rotor|pull] [--study]
+    python3 -m swim_tpu_torch.period_profile [--engine ring|dense|rumor]
+        [--nodes N] [--periods P] [--scope period|wave] [--lifeguard]
+        [--probe rotor|pull] [--study] [--target uniform|round_robin]
 
 Runs the ring engine (0.1% of nodes crashing over the run) with the
 given probe, in the given selection scope, vanilla or with Lifeguard,
 on the CUDA card; with `--study`, periods of the streaming detection
 study (`sim/runner.py`: the step plus the census and milestones)
-instead of bare engine periods.  Prints one JSON line with
+instead of bare engine periods.  `--engine dense` (default 8,192 nodes,
+DENSE_MAX) and `--engine rumor` (default 1,000,000 nodes) run those
+engines' periods instead (1% of nodes crashing, loss 0.1; `--lifeguard`
+and `--target`, the probe-target selection, apply).  Prints one JSON
+line with
 
   * wall ms per period of `RingEngine.run` (host clock around a
     synchronised run), and the split between drawing the period's
@@ -21,16 +26,24 @@ instead of bare engine periods.  Prints one JSON line with
   * the device ms per period of named parts, from CUDA events around
     each call inside the profiled run: `draw` (the period's threefry
     draws), `gather_rows` (pull's three selection-row gathers) and,
-    with `--study`, `census` (`live_knower_counts`).
+    with `--study`, `census` (`live_knower_counts`); dense: `piggyback`
+    (the per-wave top-B); rumor: `live_knowers`, `heard_max` (views,
+    self view and buddy witnesses) and `believes_dead` (target
+    resampling);
+  * the peak of PyTorch's allocated device memory;
+  * dense and rumor: the host syncs of one period (`step`), counted
+    with PyTorch's sync check set to warn.
 
 The full profiler table goes to
-chiprun_out/period_profile_<probe>_<scope>[_lifeguard][_study].txt.
+chiprun_out/period_profile_<probe>_<scope>[_lifeguard][_study].txt, or
+period_profile_<engine>[_lifeguard][_round_robin].txt.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -38,9 +51,21 @@ from torch.profiler import ProfilerActivity, profile
 
 from swim_tpu_torch import SwimConfig
 from swim_tpu_torch.measure import PartTimer, card_line
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.sim import faults, runner
-from swim_tpu_torch.utils import threefry
+from swim_tpu_torch.utils import prng, threefry
+
+# engine -> (module, default nodes, its draw, the parts timed in a period)
+ENGINES = {
+    "dense": (dense, 8192, prng.draw_period,
+              {"draw": (dense, "draw_period"),
+               "piggyback": (dense, "_piggyback")}),
+    "rumor": (rumor, 1_000_000, rumor.draw_period_rumor,
+              {"draw": (rumor, "draw_period_rumor"),
+               "live_knowers": (rumor, "live_knowers"),
+               "heard_max": (rumor, "_heard_max"),
+               "believes_dead": (rumor, "_believes_dead")}),
+}
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -54,20 +79,125 @@ def _events_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _profile(advance, p: int):
+    """(torch.profiler key averages, the CUDA kernels among them) of
+    `advance(p)`."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        advance(p)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in ka if e.device_type == cuda_type]
+    return ka, kernels
+
+
+def _summary(ka, kernels, p: int) -> dict:
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    ops = sorted((e for e in ka if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    top_kernels = sorted(kernels, key=lambda e: e.self_device_time_total,
+                         reverse=True)[:12]
+    return dict(
+        device_busy_ms_per_period=busy_us / 1e3 / p,
+        kernel_launches_per_period=sum(e.count for e in kernels) / p,
+        top_aten_ops_by_self_device_time=[
+            dict(op=e.key, device_ms=e.self_device_time_total / 1e3 / p,
+                 calls=e.count / p) for e in ops[:12]],
+        top_kernels=[dict(kernel=e.key[:80],
+                          device_ms=e.self_device_time_total / 1e3 / p,
+                          calls=e.count / p) for e in top_kernels])
+
+
+def _host_syncs(fn) -> int:
+    """Host syncs made by one call of `fn`, counted with PyTorch's sync
+    check set to warn, on the second of two calls: the first call under
+    the check in a process counts one more (on the H100: 1, then 0, for
+    a step that the check set to raise lets pass)."""
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts.append(sum("synchronizing" in str(w.message) for w in seen))
+    return counts[-1]
+
+
+def engine_main(args, card: str) -> None:
+    """--engine dense|rumor: bare periods of that engine."""
+    mod, default_n, draw, part_names = ENGINES[args.engine]
+    n, p = args.nodes or default_n, args.periods
+    cfg = SwimConfig(n_nodes=n, lifeguard=args.lifeguard,
+                     target_selection=args.target)
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(n), threefry.key(1), 0.01, 0, 3 + 3 * p), 0.1)
+    eng = (mod.DenseEngine if args.engine == "dense" else
+           mod.RumorEngine)(cfg, plan, seed=0)
+    eng.run(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run(p)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / p
+    peak = torch.cuda.max_memory_allocated()
+
+    key = threefry.key(0)
+    t_now = int(eng.state.step)
+    draw_ms = _events_ms(lambda: draw(key, t_now, cfg, "cuda"), p)
+    rnd = draw(key, t_now, cfg, "cuda")
+    base = eng.state
+    step_ms = _events_ms(lambda: mod.step(cfg, base, plan, rnd), p)
+    syncs = _host_syncs(lambda: mod.step(cfg, base, plan, rnd))
+
+    parts = PartTimer(part_names)
+    with parts:
+        ka, kernels = _profile(eng.run, p)
+    summary = _summary(ka, kernels, p)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    tag = (args.engine + ("_lifeguard" if args.lifeguard else "")
+           + ("_round_robin" if args.target == "round_robin" else ""))
+    (out / f"period_profile_{tag}.txt").write_text(
+        ka.table(sort_by="self_device_time_total", row_limit=60))
+    busy = summary["device_busy_ms_per_period"]
+    print(json.dumps(dict(
+        card=card, engine=args.engine, n_nodes=n, periods=p,
+        lifeguard=args.lifeguard, target_selection=args.target,
+        wall_ms_per_period=wall_ms, draw_ms=draw_ms, step_ms=step_ms,
+        host_syncs_per_step=syncs, idle_share=1.0 - busy / wall_ms,
+        max_memory_allocated=peak, parts=parts.ms(p), **summary)),
+        flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nodes", type=int, default=1_000_000)
+    ap.add_argument("--engine", choices=("ring", "dense", "rumor"),
+                    default="ring")
+    ap.add_argument("--nodes", type=int, default=0,
+                    help="0: 1,000,000 (ring, rumor) or 8,192 (dense)")
     ap.add_argument("--periods", type=int, default=20)
     ap.add_argument("--scope", choices=("period", "wave"), default="period")
     ap.add_argument("--lifeguard", action="store_true")
     ap.add_argument("--probe", choices=("rotor", "pull"), default="rotor")
     ap.add_argument("--study", action="store_true")
+    ap.add_argument("--target", choices=("uniform", "round_robin"),
+                    default="uniform", help="dense and rumor only")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("period_profile: PyTorch sees no CUDA device")
     card = card_line()
-    n, p = args.nodes, args.periods
+    if args.engine != "ring":
+        engine_main(args, card)
+        return
+    n, p = args.nodes or 1_000_000, args.periods
     cfg = SwimConfig(n_nodes=n, ring_sel_scope=args.scope,
                      lifeguard=args.lifeguard, ring_probe=args.probe)
     plan = faults.with_random_crashes(faults.none(n), threefry.key(1),
@@ -110,22 +240,10 @@ def main() -> None:
     parts = PartTimer({"draw": (ring, "draw_period_ring"),
                        "gather_rows": (ring.GlobalOps, "gather_rows"),
                        "census": (ring, "live_knower_counts")})
-    with parts, profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA]) as prof:
-        advance(p)
-        torch.cuda.synchronize()
-    part_ms = parts.ms(p)
-    ka = prof.key_averages()
-    cuda_type = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in ka if e.device_type == cuda_type]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    ops = sorted((e for e in ka if e.key.startswith("aten::")),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    top_ops = [dict(op=e.key, device_ms=e.self_device_time_total / 1e3 / p,
-                    calls=e.count / p) for e in ops[:12]]
-    top_kernels = sorted(kernels, key=lambda e: e.self_device_time_total,
-                         reverse=True)[:12]
+    with parts:
+        ka, kernels = _profile(advance, p)
+    summary = _summary(ka, kernels, p)
+    busy = summary["device_busy_ms_per_period"]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     own = {name: sum(e.self_device_time_total for e in kernels
@@ -143,19 +261,11 @@ def main() -> None:
         card=card, n_nodes=n, periods=p, scope=args.scope,
         probe=args.probe, study=args.study,
         lifeguard=args.lifeguard, wall_ms_per_period=wall_ms,
-        draw_ms=draw_ms, step_ms=step_ms,
-        device_busy_ms_per_period=busy_us / 1e3 / p,
-        idle_share=1.0 - (busy_us / 1e3 / p) / wall_ms,
-        kernel_launches_per_period=launches / p,
+        draw_ms=draw_ms, step_ms=step_ms, idle_share=1.0 - busy / wall_ms,
         port_kernels_device_ms=own,
         port_kernels_launches_per_period=own_launches,
-        port_kernels_busy_share=sum(own.values()) / (busy_us / 1e3 / p),
-        parts=part_ms,
-        top_aten_ops_by_self_device_time=top_ops,
-        top_kernels=[dict(kernel=e.key[:80],
-                          device_ms=e.self_device_time_total / 1e3 / p,
-                          calls=e.count / p) for e in top_kernels])),
-        flush=True)
+        port_kernels_busy_share=sum(own.values()) / busy,
+        parts=parts.ms(p), **summary)), flush=True)
 
 
 if __name__ == "__main__":

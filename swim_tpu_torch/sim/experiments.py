@@ -1,4 +1,4 @@
-"""The ring-engine studies (port of `swim_tpu/sim/experiments.py`).
+"""The BASELINE studies (port of `swim_tpu/sim/experiments.py`).
 
 Each function returns a JSON-able dict, the reference's for the same
 arguments:
@@ -12,9 +12,11 @@ arguments:
     latency against false positives;
   * `lifeguard_ablation` - Lifeguard on/off under loss and crashes.
 
-Only the ring engine is ported: `engine` must be "ring" ("auto" picks
-the dense or rumor engine in the reference).  Every study runs on the
-CUDA card unless `device` names another device.
+Engine selection as in the reference: "auto" picks the exact dense
+engine up to `DENSE_MAX` nodes and the O(R*N) rumor engine above;
+"ring" is the ring engine.  The sharded engines ("shard",
+"ringshard") are not ported and raise.  Every study runs on the CUDA
+card unless `device` names another device.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Any, Callable
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.utils import metrics, threefry
 
@@ -40,23 +42,38 @@ def pick_engine(n: int, engine: str = "auto") -> str:
     return "dense" if n <= DENSE_MAX else "rumor"
 
 
-def _require_ring(engine: str) -> None:
-    if engine != "ring":
+ENGINES = ("dense", "rumor", "ring")
+
+
+def _require_ported(engine: str) -> None:
+    if engine in ("shard", "ringshard"):
         raise NotImplementedError(
-            f"study engine '{engine}' is not ported; pass engine='ring' "
-            "(ROADMAP.md Queue 1: the dense and rumor engines; sharding "
-            "brings 'shard' and 'ringshard')")
+            f"study engine '{engine}' is not ported (ROADMAP.md Queue 1: "
+            "sharding)")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown study engine '{engine}'")
 
 
 def _require_no_recorder(flight_record) -> None:
     if flight_record is not None:
         raise NotImplementedError(
             "the flight recorder is not ported (ROADMAP.md Queue 1: "
-            "instruments)")
+            "telemetry, then the other instruments)")
 
 
 def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
-               dev, stream: bool = False, ckpt=None, chunk: int = 0):
+               engine: str, dev, stream: bool = False, ckpt=None,
+               chunk: int = 0):
+    if stream and engine != "ring":
+        raise ValueError(
+            f"streaming studies cover the ring engines only, not "
+            f"'{engine}'")
+    if engine == "dense":
+        return runner.run_study(cfg, dense.init_state(cfg, dev), plan, key,
+                                periods)
+    if engine == "rumor":
+        return runner.run_study_rumor(cfg, rumor.init_state(cfg, dev), plan,
+                                      key, periods)
     state = ring.init_state(cfg, dev)
     if stream:
         return runner.run_study_ring_stream(cfg, state, plan, key, periods,
@@ -85,18 +102,20 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     study measures the e/(e-1) first-detection law, which the rotor
     probe's bounded detection does not follow (deviation R1)."""
     engine = pick_engine(n, engine)
-    _require_ring(engine)
+    _require_ported(engine)
     _require_no_recorder(flight_record)
     dev = devmod.resolve(device)
-    cfg_kw.setdefault("ring_probe", "pull")
+    if engine == "ring":
+        cfg_kw.setdefault("ring_probe", "pull")
     cfg = SwimConfig(n_nodes=n, **cfg_kw)
-    ring.check_slice(cfg)
-    # stream="auto": the O(crashes) runner from STREAM_AUTO_NODES on, or
-    # whenever checkpointing is asked for (only it checkpoints)
+    # stream="auto": the ring engine's O(crashes) runner from
+    # STREAM_AUTO_NODES on, or whenever checkpointing is asked for (only
+    # it checkpoints); the dense and rumor runners do not stream
     if isinstance(stream, bool):
         do_stream = stream
     else:
-        do_stream = n >= STREAM_AUTO_NODES or checkpoint_dir is not None
+        do_stream = engine == "ring" and (n >= STREAM_AUTO_NODES
+                                          or checkpoint_dir is not None)
     ckpt = None
     if checkpoint_dir is not None:
         if not do_stream:
@@ -105,15 +124,18 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
         ckpt = runner.StudyCheckpointer(checkpoint_dir,
                                         every=checkpoint_every)
     plan = _crash_plan(n, seed, crash_fraction, periods, dev)
-    res = _run_study(cfg, plan, threefry.key(seed), periods, dev,
+    res = _run_study(cfg, plan, threefry.key(seed), periods, engine, dev,
                      stream=do_stream, ckpt=ckpt, chunk=chunk)
     out = {"study": "detection", "n": n, "periods": periods,
            "engine": engine, "crash_fraction": crash_fraction,
-           "suspicion_periods": cfg.suspicion_periods,
-           "ring_probe": cfg.ring_probe, "stream": bool(do_stream)}
+           "suspicion_periods": cfg.suspicion_periods}
+    if engine == "ring":
+        out["ring_probe"] = cfg.ring_probe
+        out["stream"] = bool(do_stream)
     out.update(runner.detection_summary(res, plan, periods))
     out.update(metrics.series_digest(res.series))
-    out["overflow"] = int(res.state.overflow)
+    if engine != "dense":
+        out["overflow"] = int(res.state.overflow)
     return out
 
 
@@ -125,7 +147,7 @@ def fp_sweep(n: int = 100_000, losses: tuple = (0.0, 0.1, 0.2, 0.3),
     rates: live nodes holding a DEAD view of a live node, at the end of
     the run and at the peak."""
     engine = pick_engine(n, engine)
-    _require_ring(engine)
+    _require_ported(engine)
     dev = devmod.resolve(device)
     points = []
     for loss in losses:
@@ -134,16 +156,19 @@ def fp_sweep(n: int = 100_000, losses: tuple = (0.0, 0.1, 0.2, 0.3),
         if partition:
             plan = faults.with_partition(plan, faults.halves(n),
                                          periods // 3, 2 * periods // 3)
-        res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+        res = _run_study(cfg, plan, threefry.key(seed), periods, engine,
+                         dev)
         series = runner.host_series(res.series)
-        points.append({
+        pt = {
             "loss": loss,
             "suspect_views_peak": int(series.suspect_views.max()),
             "false_dead_views_final": int(series.false_dead_views[-1]),
             "false_dead_views_peak": int(series.false_dead_views.max()),
             "max_incarnation": int(series.max_incarnation.max()),
-            "overflow": int(res.state.overflow),
-        })
+        }
+        if engine != "dense":
+            pt["overflow"] = int(res.state.overflow)
+        points.append(pt)
     return {"study": "fp_sweep", "n": n, "periods": periods,
             "engine": engine, "partition": partition, "points": points}
 
@@ -158,7 +183,7 @@ def suspicion_sweep(n: int = 1_000_000,
     """Suspicion-timeout multiplier sweep: latency against false
     positives, at `loss` or over the grid `mults x losses`."""
     engine = pick_engine(n, engine)
-    _require_ring(engine)
+    _require_ported(engine)
     dev = devmod.resolve(device)
     grid = tuple(losses) if losses else (loss,)
     points = []
@@ -167,7 +192,8 @@ def suspicion_sweep(n: int = 1_000_000,
             cfg = SwimConfig(n_nodes=n, suspicion_mult=mult, **cfg_kw)
             plan = faults.with_loss(
                 _crash_plan(n, seed, crash_fraction, periods, dev), lv)
-            res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+            res = _run_study(cfg, plan, threefry.key(seed), periods,
+                             engine, dev)
             pt = {"suspicion_mult": mult, "loss": lv,
                   "suspicion_periods": cfg.suspicion_periods}
             pt.update(runner.detection_summary(res, plan, periods))
@@ -186,10 +212,13 @@ def lifeguard_ablation(n: int = 1_000_000, crash_fraction: float = 0.001,
     `budget_arms=True` adds twins of both arms with a four times larger
     origination budget (ring_orig_words 2 -> 8)."""
     engine = pick_engine(n, engine)
-    _require_ring(engine)
+    _require_ported(engine)
     dev = devmod.resolve(device)
     arm_defs = [("vanilla", False, {}), ("lifeguard", True, {})]
     if budget_arms:
+        if engine != "ring":
+            raise ValueError("budget_arms sweeps ring_orig_words — ring "
+                             "engines only")
         arm_defs += [("vanilla_ob8", False, {"ring_orig_words": 8}),
                      ("lifeguard_ob8", True, {"ring_orig_words": 8})]
     arms = {}
@@ -197,7 +226,8 @@ def lifeguard_ablation(n: int = 1_000_000, crash_fraction: float = 0.001,
         cfg = SwimConfig(n_nodes=n, lifeguard=lg, **{**cfg_kw, **extra})
         plan = faults.with_loss(
             _crash_plan(n, seed, crash_fraction, periods, dev), loss)
-        res = _run_study(cfg, plan, threefry.key(seed), periods, dev)
+        res = _run_study(cfg, plan, threefry.key(seed), periods, engine,
+                         dev)
         arm = runner.detection_summary(res, plan, periods)
         arm["false_dead_views_peak"] = int(
             runner.host_series(res.series).false_dead_views.max())

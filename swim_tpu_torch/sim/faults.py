@@ -278,6 +278,36 @@ def link_lanes(prog: FaultProgram, step):
             lane(kind == KIND_GRAY))
 
 
+def float_delivery(plan: FaultPlan, prog, step, up: torch.Tensor):
+    """The dense and rumor engines' fault test at period `step`:
+    `delivered(src, dst, u, reply=False)` -> bool[M] for a batch of
+    messages src -> dst with f32 uniforms `u`.  Both ends are up, no
+    active partition separates them, and u clears the threshold: the
+    global loss plus, under a program, the sender's send lane, the
+    receiver's recv lane and, for a reply, the sender's gray lane,
+    summed left to right as the reference's."""
+    part_on = partition_active(plan, step)
+    pid = plan.partition_id
+    loss_f = plan.loss.to(torch.float32)
+    if prog is not None:
+        # u16 lane thresholds -> exact f32 probabilities (the scale is a
+        # power of two)
+        send_f, recv_f, reply_f = (lane.to(torch.float32) * (1.0 / 65536.0)
+                                   for lane in link_lanes(prog, step))
+
+    def delivered(src, dst, u, reply=False):
+        cut = part_on & (pid[src] != pid[dst])
+        thr = loss_f
+        if prog is not None:
+            thr = thr + send_f[src]
+            thr = thr + recv_f[dst]
+            if reply:
+                thr = thr + reply_f[src]
+        return up[src] & up[dst] & ~cut & (u >= thr)
+
+    return delivered
+
+
 def crashed_mask(plan: FaultPlan, step) -> torch.Tensor:
     """bool[N]: which nodes have crash-stopped by period `step`."""
     return plan.crash_step <= step

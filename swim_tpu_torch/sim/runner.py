@@ -1,9 +1,6 @@
-"""Ring-engine study runners (port of the ring parts of
-`swim_tpu/sim/runner.py`).
+"""Study runners (port of `swim_tpu/sim/runner.py`).
 
-Each period, after the engine's step, the runner takes the census of
-live knowers of every ring slot (`ring.live_knower_counts`) and folds
-it into
+Each period, after the engine's step, the runner folds the state into
 
   * per-crashed-node milestones: first suspicion seen by a live node,
     first DEAD view, DEAD known by all live nodes (`StudyTrack` over all
@@ -12,13 +9,16 @@ it into
   * per-period global counters (`PeriodSeries`): knower-weighted
     suspect and dead views, false dead views, the largest incarnation.
 
-`run_study_ring` keeps the full track; `run_study_ring_stream` keeps the
-compact one, runs in chunks of periods and can checkpoint between
-chunks (`StudyCheckpointer`) and resume bitwise.  The per-period values
-stay on the device and are stacked at the end (a chunk's end for the
-stream): no host sync inside a chunk.  Counts are int32 with int32
-wrap, as the reference's (the sums are taken in int64 and cut to 32
-bits).
+One runner per engine: `run_study` (dense: the [N, N] views read
+directly), `run_study_rumor` (rumor: per-rumor counts of live knowers,
+`rumor.live_knowers`, once a period) and `run_study_ring` /
+`run_study_ring_stream` (ring: the census `ring.live_knower_counts`).
+The streaming ring runner keeps the compact track, runs in chunks of
+periods and can checkpoint between chunks (`StudyCheckpointer`) and
+resume bitwise.  The per-period values stay on the device and are
+stacked at the end (a chunk's end for the stream): no host sync inside
+a period.  Counts are int32 with int32 wrap, as the reference's (the
+sums are taken in int64 and cut to 32 bits).
 """
 from __future__ import annotations
 
@@ -29,12 +29,12 @@ import numpy as np
 import torch
 
 from swim_tpu_torch.config import SwimConfig
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.obs import analyze
 from swim_tpu_torch.ops import lattice, u32
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
-from swim_tpu_torch.utils import checkpoint
+from swim_tpu_torch.utils import checkpoint, prng
 
 NEVER = analyze.NEVER
 I32 = torch.int32
@@ -56,6 +56,20 @@ class PeriodSeries(NamedTuple):
     dead_views: torch.Tensor
     false_dead_views: torch.Tensor
     max_incarnation: torch.Tensor
+
+
+class StudyResult(NamedTuple):
+    state: dense.DenseState
+    track: StudyTrack
+    series: PeriodSeries
+    telemetry: Any = None      # the instruments are not ported
+
+
+class RumorStudyResult(NamedTuple):
+    state: rumor.RumorState
+    track: StudyTrack
+    series: PeriodSeries
+    telemetry: Any = None
 
 
 class RingStudyResult(NamedTuple):
@@ -127,7 +141,9 @@ def _false_dead_views(subject, rkey, knowers, up, gone_dead):
                    + (gone_dead & up).sum(dtype=I64) * live_total)
 
 
-def _max_incarnation(st: ring.RingState) -> torch.Tensor:
+def _max_incarnation(st) -> torch.Tensor:
+    """The largest incarnation in the rumor table and the own
+    incarnations (ring and rumor states)."""
     inc = torch.cat([lattice.incarnation_of(st.rkey), st.inc_self])
     return u32.flip(u32.flip(inc).max())
 
@@ -135,9 +151,7 @@ def _max_incarnation(st: ring.RingState) -> torch.Tensor:
 def _census(cfg: SwimConfig, st: ring.RingState, base: FaultPlan):
     """What every study body reads after a step: (t, crashed, up,
     knowers, gone_not_alive, gone_dead) of the period just run."""
-    t = st.step - 1
-    crashed = t >= base.crash_step
-    up = ~crashed & (t >= base.join_step)
+    t, crashed, up = _observers(st, base)
     knowers = ring.live_knower_counts(cfg, st, up)
     gone = st.gone_key
     gone_dead = lattice.is_dead(gone)
@@ -152,7 +166,7 @@ def _first(cur, cond, crashed, t):
 def _stepper(cfg: SwimConfig, plan, step_fn):
     """step_fn(state, plan, rnd) -> state; the engine's step if None.
     Telemetry (study frames) raises here, with the taps, naming the
-    instruments item."""
+    telemetry item."""
     ring.check_slice(cfg)
     if step_fn is None:
         return lambda st, rnd: ring.step(cfg, st, plan, rnd)
@@ -176,8 +190,7 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     n = cfg.n_nodes
     dev = state.win.device
     base = faults.base_of(plan)
-    track = StudyTrack(*(torch.full((n,), NEVER, dtype=I32, device=dev)
-                         for _ in range(3)))
+    track = _new_track(n, dev)
     rows = []
     for rnd in ring.period_randomness(cfg, root_key, int(state.step),
                                       periods, dev):
@@ -196,6 +209,113 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
                                        up, gone_dead),
                      _max_incarnation(state)))
     return RingStudyResult(state, track, _stack(rows))
+
+
+def _new_track(n: int, dev) -> StudyTrack:
+    return StudyTrack(*(torch.full((n,), NEVER, dtype=I32, device=dev)
+                        for _ in range(3)))
+
+
+def _observers(state, base: FaultPlan):
+    """(t, crashed, live) of the period just run."""
+    t = state.step - 1
+    crashed = t >= base.crash_step
+    return t, crashed, ~crashed & (t >= base.join_step)
+
+
+def dense_study_period(cfg: SwimConfig, state: dense.DenseState,
+                       track: StudyTrack, base: FaultPlan, rnd, stepper):
+    """One period of the dense study, all on the device: (state, track,
+    the period's series row).  The views are read off the [N, N] keys;
+    `live` (crash- and join-aware) selects the observers."""
+    state = stepper(state, rnd)
+    t, crashed, live = _observers(state, base)
+    key = state.key
+    live_col = live[:, None]
+    dead = lattice.is_dead(key)
+    susp = lattice.is_suspect(key)
+    track = StudyTrack(
+        first_suspect=_first(track.first_suspect,
+                             ((susp | dead) & live_col).any(dim=0),
+                             crashed, t),
+        first_dead_view=_first(track.first_dead_view,
+                               (dead & live_col).any(dim=0), crashed, t),
+        disseminated=_first(track.disseminated,
+                            (dead | ~live_col).all(dim=0), crashed, t))
+    dead_live = dead & live_col
+    row = (_wrap32((susp & live_col).sum(dtype=I64)),
+           _wrap32(dead_live.sum(dtype=I64)),
+           _wrap32((dead_live & live[None, :]).sum(dtype=I64)),
+           lattice.incarnation_of(key).max())
+    return state, track, row
+
+
+def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
+              root_key: tuple[int, int], periods: int) -> StudyResult:
+    """Dense-engine study with the full StudyTrack over all N nodes.
+    `root_key` is a threefry key (`threefry.key(seed)`).  Reads
+    state.step once."""
+    dense.check_slice(cfg)
+    dev = state.key.device
+    base = faults.base_of(plan)
+    track = _new_track(cfg.n_nodes, dev)
+    rows = []
+    t0 = int(state.step)
+
+    def stepper(st, rnd):
+        return dense.step(cfg, st, plan, rnd)
+
+    for t in range(t0, t0 + periods):
+        state, track, row = dense_study_period(
+            cfg, state, track, base, prng.draw_period(root_key, t, cfg, dev),
+            stepper)
+        rows.append(row)
+    return StudyResult(state, track, _stack(rows))
+
+
+def rumor_study_period(cfg: SwimConfig, state: rumor.RumorState,
+                       track: StudyTrack, base: FaultPlan, rnd, stepper):
+    """One period of the rumor study, all on the device: (state, track,
+    the period's series row).  The live-knower counts of the rumors
+    are taken once; the tombstone floor holds only DEAD keys."""
+    state = stepper(state, rnd)
+    t, crashed, up = _observers(state, base)
+    knowers = rumor.live_knowers(state.knows, up)
+    gone_dead = lattice.is_dead(state.gone_key)
+    not_alive, dead_seen, dead_all, counts = _subject_flags(
+        cfg.n_nodes, state.subject, state.rkey, knowers, up, gone_dead,
+        gone_dead)
+    track = StudyTrack(
+        first_suspect=_first(track.first_suspect, not_alive, crashed, t),
+        first_dead_view=_first(track.first_dead_view, dead_seen, crashed, t),
+        disseminated=_first(track.disseminated, dead_all, crashed, t))
+    return state, track, (counts[0], counts[1],
+                          _false_dead_views(state.subject, state.rkey,
+                                            knowers, up, gone_dead),
+                          _max_incarnation(state))
+
+
+def run_study_rumor(cfg: SwimConfig, state: rumor.RumorState, plan,
+                    root_key: tuple[int, int],
+                    periods: int) -> RumorStudyResult:
+    """Rumor-engine study with the full StudyTrack.  `root_key` is a
+    threefry key (`threefry.key(seed)`).  Reads state.step once."""
+    rumor.check_slice(cfg)
+    dev = state.knows.device
+    base = faults.base_of(plan)
+    track = _new_track(cfg.n_nodes, dev)
+    rows = []
+    t0 = int(state.step)
+
+    def stepper(st, rnd):
+        return rumor.step(cfg, st, plan, rnd)
+
+    for t in range(t0, t0 + periods):
+        state, track, row = rumor_study_period(
+            cfg, state, track, base,
+            rumor.draw_period_rumor(root_key, t, cfg, dev), stepper)
+        rows.append(row)
+    return RumorStudyResult(state, track, _stack(rows))
 
 
 def compact_track_init(plan, periods: int) -> CompactTrack:
@@ -388,10 +508,10 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def study_milestones(result: RingStudyResult, plan,
-                     periods: int) -> tuple[np.ndarray, dict]:
-    """(crash steps, milestone arrays) restricted to crashed subjects;
-    a CompactTrack already is this restriction (same order)."""
+def study_milestones(result, plan, periods: int) -> tuple[np.ndarray, dict]:
+    """(crash steps, milestone arrays) restricted to crashed subjects,
+    from any runner's result; a CompactTrack already is this restriction
+    (same order)."""
     names = (("suspect", "first_suspect"), ("dead_view", "first_dead_view"),
              ("disseminated", "disseminated"))
     if isinstance(result.track, CompactTrack):
@@ -406,7 +526,7 @@ def study_milestones(result: RingStudyResult, plan,
     return crash[crashed].astype(np.int64), milestones
 
 
-def detection_summary(result: RingStudyResult, plan, periods: int) -> dict:
+def detection_summary(result, plan, periods: int) -> dict:
     """Host-side digest: detection-latency distribution in periods
     (obs/analyze.py `summarize_detection`)."""
     crash, milestones = study_milestones(result, plan, periods)

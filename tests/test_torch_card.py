@@ -16,7 +16,11 @@ conftest, which imports JAX,
   * kernels equal plain versions on the card under pull and under a
     program, with the launches a period each path makes;
   * the card reproduces the digests of golden.GOLDEN_DIGESTS and the
-    study digest.
+    study digest;
+  * the dense and rumor engines (plain PyTorch) on the card equal the
+    CPU, under crashes, loss, a partition and a program, vanilla and
+    with Lifeguard; the card reproduces golden.ENGINE_DIGESTS; a study
+    period of each engine makes no host sync.
 """
 from __future__ import annotations
 
@@ -28,10 +32,10 @@ from test_torch_cases import (
     coldsel_input, selb_input, wave_case_input, wavemerge_input)
 
 from swim_tpu_torch import SwimConfig, convert, golden
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
 from swim_tpu_torch.sim import faults, runner
-from swim_tpu_torch.utils import threefry
+from swim_tpu_torch.utils import prng, threefry
 
 pytestmark = pytest.mark.cuda
 
@@ -231,3 +235,66 @@ def test_study_period_makes_no_host_sync(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.step) == 2 and len(row) == 4
+
+
+# ------------------------------------------------ dense and rumor engines
+
+ENGINES = {"dense": (dense, dense.DenseState, prng.draw_period,
+                     runner.run_study, runner.dense_study_period),
+           "rumor": (rumor, rumor.RumorState, rumor.draw_period_rumor,
+                     runner.run_study_rumor, runner.rumor_study_period)}
+
+
+def engine_plan(n, dev):
+    """Crashes, loss 0.1, a partition over periods 3-7 and a program with
+    a gray and a flapping link segment."""
+    plan = faults.with_partition(faults.with_loss(faults.with_random_crashes(
+        faults.none(n, dev), threefry.key(2), 0.05, 1, 6), 0.1),
+        faults.halves(n), 3, 7)
+    prog = faults.as_program(plan, np.arange(n) % 3, capacity=2)
+    prog = faults.with_segment(prog, 0, start=0, end=12, kind="gray",
+                               level=0.3, domain=1)
+    return faults.with_segment(prog, 1, start=2, end=12, kind="link_loss",
+                               level=0.4, domain=2, period=4, on=2)
+
+
+@pytest.mark.parametrize("opts", [{}, {"lifeguard": True},
+                                  {"target_selection": "round_robin"}],
+                         ids=["vanilla", "lifeguard", "round_robin"])
+@pytest.mark.parametrize("name,n", [("dense", 300), ("rumor", 3000)])
+def test_engine_card_run_equals_cpu_run(cuda, name, n, opts):
+    mod, cls = ENGINES[name][:2]
+    cfg = SwimConfig(n_nodes=n, **opts)
+    runs = {}
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = convert.state_to_numpy(
+            mod.run(cfg, mod.init_state(cfg, dev), engine_plan(n, dev), 5,
+                    12))
+    for f in cls._fields:
+        np.testing.assert_array_equal(runs[str(cuda)][f], runs["cpu"][f],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("name", list(golden.ENGINE_DIGESTS))
+def test_card_engine_run_gives_the_golden_digest(cuda, name):
+    assert (golden.digest(golden.engine_run(cuda, name))
+            == golden.ENGINE_DIGESTS[name])
+
+
+@pytest.mark.parametrize("name,n", [("dense", 1000), ("rumor", 20_000)])
+def test_engine_study_period_makes_no_host_sync(cuda, name, n):
+    mod, _, draw, run_study, period = ENGINES[name]
+    cfg = SwimConfig(n_nodes=n, lifeguard=True)
+    plan = engine_plan(n, cuda)
+    key = threefry.key(4)
+    res = run_study(cfg, mod.init_state(cfg, cuda), plan, key, 2)
+    rnd = draw(key, 2, cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _, row = period(cfg, res.state, res.track,
+                               faults.base_of(plan), rnd,
+                               lambda st, r: mod.step(cfg, st, plan, r))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.step) == 3 and len(row) == 4

@@ -1,7 +1,8 @@
 """golden.GOLDEN_DIGESTS holds both packages to one trajectory each.
 
 The JAX package's run and the port's CPU run of each golden config
-(period scope, wave scope, Lifeguard with buddy) must both give the
+(period scope, wave scope, Lifeguard with buddy; the dense engine, the
+rumor engine, the rumor engine with Lifeguard) must both give the
 committed digest; chip_smoke.py asserts that the port on the card gives
 it too, which holds the card to the JAX package without JAX on the
 card's machine.
@@ -11,13 +12,16 @@ from __future__ import annotations
 import jax
 import numpy as np
 import pytest
+from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
+from swim_tpu.models import dense as jdense
 from swim_tpu.models import ring as jring
+from swim_tpu.models import rumor as jrumor
 from swim_tpu.sim import faults as jfaults
 from swim_tpu.types import Status, key_status
 from swim_tpu_torch import convert, golden
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 
 
 def jax_golden_run(name):
@@ -90,3 +94,52 @@ def test_digest_sees_every_field():
         else:
             changed[f] = a + 1
         assert golden.digest(changed) != ref, f
+
+
+def jax_engine_run(name):
+    cfg = golden.engine_config(name)
+    jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes, lifeguard=cfg.lifeguard)
+    nodes, at = golden.ENGINE_CRASHES[name]
+    plan = jfaults.with_loss(
+        jfaults.with_crashes(jfaults.none(cfg.n_nodes), nodes, at),
+        golden.ENGINE_LOSS)
+    mod = jdense if name == "dense" else jrumor
+    st = mod.run(jcfg, mod.init_state(jcfg), plan,
+                 jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS)
+    return {f: np.asarray(getattr(st, f)) for f in st._fields}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("name", sorted(golden.ENGINE_DIGESTS))
+def test_engine_digests_from_both_packages(name):
+    ref = jax_engine_run(name)
+    assert golden.digest(ref) == golden.ENGINE_DIGESTS[name]
+    got = golden.engine_run("cpu", name)
+    assert golden.digest(got) == golden.ENGINE_DIGESTS[name]
+    # the digest pins a run that confirmed deaths (Lifeguard: and moved
+    # the health scores)
+    if name == "dense":
+        assert (ref["key"] >> 31).any()
+    else:
+        assert ((ref["rkey"] >> 31).astype(bool) & (ref["subject"] >= 0)).any()
+    if name == "rumor_lifeguard":
+        assert int(ref["lha"].max()) > 0
+
+
+def test_engine_digests_differ_and_see_every_field():
+    assert len(set(golden.ENGINE_DIGESTS.values())) == 3
+    for mod, cls, n in ((dense, dense.DenseState, 16),
+                        (rumor, rumor.RumorState, 16)):
+        cfg = golden.engine_config("dense").replace(n_nodes=n)
+        base = convert.state_to_numpy(mod.init_state(cfg, "cpu"))
+        ref = golden.digest(base)
+        assert golden.digest(convert.state_from_numpy(base, "cpu", cls)) \
+            == ref
+        for f in cls._fields:
+            changed = {k: v.copy() for k, v in base.items()}
+            a = changed[f].reshape(-1) if changed[f].ndim else changed[f]
+            if changed[f].ndim:
+                a[0] = ~a[0] if a.dtype == np.bool_ else a[0] ^ 1
+            else:
+                changed[f] = a + 1
+            assert golden.digest(changed) != ref, f

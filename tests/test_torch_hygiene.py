@@ -5,8 +5,8 @@
     `swim_tpu.*` (walked with `ast`; `swim_tpu_torch` itself shares the
     first letters and is allowed);
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
-    imports the port, runs a few CPU periods of each path and a small
-    streaming study;
+    imports the port, runs a few CPU periods of each path and engine, a
+    small streaming study and a small study with the default engine;
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -53,7 +53,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ring.py", "selb.py", "coldsel.py", "wavemerge.py",
             "threefry.py", "chip_smoke.py", "runner.py", "experiments.py",
-            "checkpoint.py", "metrics.py", "analyze.py"} <= names
+            "checkpoint.py", "metrics.py", "analyze.py", "dense.py",
+            "rumor.py", "prng.py", "scatter.py", "common.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -93,6 +94,14 @@ def test_steps_with_jax_unimportable():
         "    chunk=2)\n"
         "assert int(res.state.step) == 4\n"
         "assert res.series.dead_views.numel() == 4\n"
+        "from swim_tpu_torch.models import dense, rumor\n"
+        "for mod in (dense, rumor):\n"
+        "    cfg = SwimConfig(n_nodes=64, lifeguard=True)\n"
+        "    st = mod.run(cfg, mod.init_state(cfg, 'cpu'), plan, 1, 3)\n"
+        "    assert int(st.step) == 3\n"
+        "from swim_tpu_torch.sim import experiments\n"
+        "out = experiments.detection_study(n=64, periods=4, device='cpu')\n"
+        "assert out['engine'] == 'dense'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -2,7 +2,8 @@
 
 u32 helpers on int32 carriers (keys with bit 31 set included), the
 lattice, the Feistel sampler, JAX's threefry2x32 (key / fold_in / split
-/ bits in the partitionable layout) and the per-period ring randomness.
+/ bits in the partitionable layout), the per-period ring randomness and
+the sync-free scatters and compaction of ops/scatter.py.
 Inputs come from numpy seeds; tolerance: exact.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from swim_tpu.ops import sampling as jsampling
 from swim_tpu_torch import SwimConfig
 from swim_tpu_torch.convert import randomness_to_numpy
 from swim_tpu_torch.models import ring
-from swim_tpu_torch.ops import lattice, sampling, u32
+from swim_tpu_torch.ops import lattice, sampling, scatter, u32
 from swim_tpu_torch.utils import threefry
 
 
@@ -189,3 +190,34 @@ class TestDrawPeriodRing:
                     err_msg=f"{f} at step {t}")
             assert ring.rotor_offsets(cfg, t) == (
                 [int(want.s_off)] + np.asarray(want.q_off).tolist())
+
+
+@pytest.mark.parametrize("m,size,p", [(37, 8, 0.3), (37, 64, 0.5),
+                                      (1000, 256, 0.01), (5, 5, 1.0),
+                                      (9, 4, 0.0)])
+def test_first_true_is_nonzero_with_size(m, size, p):
+    valid = np.random.default_rng(m + size).random(m) < p
+    want = np.asarray(jnp.nonzero(jnp.asarray(valid), size=size,
+                                  fill_value=m + 7)[0])
+    got = scatter.first_true(torch.from_numpy(valid), size, m + 7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_max_drops_out_of_range_and_orders_unsigned():
+    dst = u32_sample(3, 16)
+    idx = np.array([0, 3, 3, 15, 16, 21, 7], np.int32)
+    val = u32_sample(4, 16)[:7].copy()
+    val[1] = 0x80000000                   # above every key without bit 31
+    want = np.asarray(jnp.asarray(dst).at[jnp.asarray(idx)].max(
+        jnp.asarray(val), mode="drop"))
+    got = scatter.scatter_max(carrier(dst), torch.from_numpy(idx),
+                              carrier(val), unsigned=True)
+    np.testing.assert_array_equal(as_u32(got), want)
+    sdst = dst.view(np.int32)
+    swant = np.asarray(jnp.asarray(sdst).at[jnp.asarray(idx)].max(
+        jnp.asarray(val.view(np.int32)), mode="drop"))
+    sgot = scatter.scatter_max(torch.from_numpy(sdst.copy()),
+                               torch.from_numpy(idx),
+                               torch.from_numpy(val.view(np.int32).copy()),
+                               unsigned=False)
+    np.testing.assert_array_equal(sgot.numpy(), swant)

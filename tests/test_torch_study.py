@@ -10,8 +10,12 @@
   * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
     two ValueError refusals of a resume;
   * `detection_study` and one point of `suspicion_sweep` give the JAX
-    package's dicts; the non-ring engines, telemetry and the flight
+    package's dicts; the sharded engines, telemetry and the flight
     recorder raise naming their ROADMAP item;
+  * the dense and rumor runners (`run_study`, `run_study_rumor`: track,
+    series, final state) against the JAX runners; `pick_engine`; the
+    four studies' dicts with `engine="auto"` (dense) and `"rumor"`;
+    streaming only for the ring engine;
   * the `study` golden digest from the JAX package and from the port.
 
 Tolerance: exact.
@@ -25,12 +29,14 @@ import pytest
 import torch
 
 from swim_tpu import SwimConfig as JaxSwimConfig
+from swim_tpu.models import dense as jdense
 from swim_tpu.models import ring as jring
+from swim_tpu.models import rumor as jrumor
 from swim_tpu.sim import experiments as jexperiments
 from swim_tpu.sim import faults as jfaults
 from swim_tpu.sim import runner as jrunner
 from swim_tpu_torch import SwimConfig, convert, golden
-from swim_tpu_torch.models import ring
+from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.sim import experiments, faults, runner
 from swim_tpu_torch.utils import threefry
 
@@ -203,7 +209,8 @@ def test_detection_study_and_suspicion_sweep_match_the_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(engine="auto"), "ROADMAP"), (dict(engine="rumor"), "ROADMAP"),
+    (dict(engine="shard"), "ROADMAP"),
+    (dict(engine="rumor", telemetry=True), "ROADMAP"),
     (dict(engine="ringshard"), "ROADMAP"),
     (dict(engine="ring", telemetry=True), "instruments"),
     (dict(engine="ring", flight_record="x.jsonl"), "instruments")])
@@ -242,3 +249,94 @@ def test_golden_study_digest():
     # the digest pins a study that detected and confirmed crashes
     assert int((t.track.first_dead_view < runner.NEVER).sum()) > 0
     assert int(t.series.dead_views.max()) > 0
+
+
+# ------------------------------------------------------- dense and rumor
+
+SMALL, SMALL_PERIODS = 64, 14
+
+
+def small_plans(n=SMALL, seed=2):
+    jplan = jfaults.with_loss(jfaults.with_random_crashes(
+        jfaults.none(n), jax.random.key(seed), 0.1, 1, 6), 0.1)
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(n, "cpu"), threefry.key(seed), 0.1, 1, 6), 0.1)
+    return jplan, plan
+
+
+def test_pick_engine_matches_the_reference():
+    for n in (2, 1000, experiments.DENSE_MAX, experiments.DENSE_MAX + 1,
+              1_000_000):
+        for engine in ("auto", "ring", "dense", "rumor"):
+            assert (experiments.pick_engine(n, engine)
+                    == jexperiments.pick_engine(n, engine))
+    assert experiments.pick_engine(1000) == "dense"
+    assert experiments.pick_engine(100_000) == "rumor"
+
+
+@pytest.mark.parametrize("engine", ["dense", "rumor"])
+def test_dense_and_rumor_runners_match_the_reference(engine):
+    jplan, plan = small_plans()
+    jcfg, cfg = JaxSwimConfig(n_nodes=SMALL), SwimConfig(n_nodes=SMALL)
+    if engine == "dense":
+        j = jrunner.run_study(jcfg, jdense.init_state(jcfg), jplan,
+                              jax.random.key(0), SMALL_PERIODS)
+        t = runner.run_study(cfg, dense.init_state(cfg, "cpu"), plan,
+                             threefry.key(0), SMALL_PERIODS)
+        cls = dense.DenseState
+    else:
+        j = jrunner.run_study_rumor(jcfg, jrumor.init_state(jcfg), jplan,
+                                    jax.random.key(0), SMALL_PERIODS)
+        t = runner.run_study_rumor(cfg, rumor.init_state(cfg, "cpu"), plan,
+                                   threefry.key(0), SMALL_PERIODS)
+        cls = rumor.RumorState
+    assert_same(t.track, j.track, "track")
+    assert_same(t.series, j.series, "series")
+    got = convert.state_to_numpy(t.state)
+    for f in cls._fields:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(j.state, f)),
+                                      err_msg=f)
+    assert int((t.track.first_suspect < runner.NEVER).sum()) > 0
+    assert int(t.series.dead_views.max()) > 0
+    assert (runner.detection_summary(t, plan, SMALL_PERIODS)
+            == jrunner.detection_summary(j, jplan, SMALL_PERIODS))
+
+
+@pytest.mark.parametrize("engine", ["auto", "rumor"])
+def test_studies_match_the_reference(engine):
+    """The four studies as their users call them, at a small n: "auto"
+    picks the dense engine there."""
+    kw = dict(n=SMALL, periods=SMALL_PERIODS, engine=engine)
+    crash = dict(crash_fraction=0.1)
+    calls = [
+        ("detection_study", dict(kw)),
+        ("fp_sweep", dict(kw, losses=(0.0, 0.2))),
+        # mult 5.0 is the default: the JAX runner's compile is shared
+        ("suspicion_sweep", dict(kw, mults=(5.0,), **crash)),
+        ("lifeguard_ablation", dict(kw, **crash))]
+    for name, args in calls:
+        want = getattr(jexperiments, name)(**args)
+        got = getattr(experiments, name)(device="cpu", **args)
+        assert got == want, name
+        assert got["engine"] == ("dense" if engine == "auto" else "rumor")
+    assert got["arms"]["lifeguard"]["crashed"] > 0
+
+
+def test_only_the_ring_engine_streams(monkeypatch):
+    """stream="auto" turns streaming on for the ring engine only; an
+    explicit stream with the dense or rumor engine raises, as in the
+    reference."""
+    monkeypatch.setattr(experiments, "STREAM_AUTO_NODES", 32)
+    kw = dict(n=SMALL, periods=4, device="cpu")
+    out = experiments.detection_study(engine="dense", **kw)
+    assert "stream" not in out and out["engine"] == "dense"
+    assert experiments.detection_study(engine="ring", **kw)["stream"]
+    for engine in ("dense", "rumor"):
+        with pytest.raises(ValueError, match="streaming"):
+            experiments.detection_study(engine=engine, stream=True, **kw)
+        with pytest.raises(ValueError, match="checkpointing"):
+            experiments.detection_study(engine=engine, checkpoint_dir="x",
+                                        **kw)
+    with pytest.raises(ValueError, match="ring engines only"):
+        experiments.lifeguard_ablation(engine="rumor", budget_arms=True,
+                                       **kw)

@@ -1,0 +1,115 @@
+"""Shared cases of the dense and rumor engine parity tests
+(tests/test_torch_dense.py, tests/test_torch_rumor.py,
+tests/test_torch_golden.py); it holds no tests itself.
+
+A case is (SwimConfig keywords, fault plan builder, periods).  Plans
+are built with the JAX package's constructors and carried to the port
+through numpy (convert.py), so both packages step the same plan.
+`jax_trajectory` steps the JAX engine one period at a time (one
+compile per config) and keeps every period's randomness and state as
+numpy arrays; `check_port_trajectory` steps the port from the same
+initial state with the same randomness and compares every field after
+every period, with tolerance 0.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from swim_tpu import SwimConfig as JaxSwimConfig
+from swim_tpu.sim import faults as jfaults
+from swim_tpu_torch import SwimConfig, convert
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The port's CPU ops on one thread: these tensors are small, and the
+    test runner shares the cores among its workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def np_fields(nt) -> dict:
+    return {f: np.asarray(getattr(nt, f)) for f in nt._fields}
+
+
+def plan_fields(plan) -> dict:
+    """A FaultPlan or FaultProgram as the mapping convert.py takes."""
+    if isinstance(plan, jfaults.FaultProgram):
+        d = {f: np.asarray(getattr(plan, f)) for f in plan._fields
+             if f != "base"}
+        d["base"] = np_fields(plan.base)
+        return d
+    return np_fields(plan)
+
+
+def port_plan(plan):
+    if isinstance(plan, jfaults.FaultProgram):
+        return convert.program_from_numpy(plan_fields(plan), "cpu")
+    return convert.plan_from_numpy(plan_fields(plan), "cpu")
+
+
+def faults_plan(n: int, periods: int):
+    """Crashes, loss 0.2, a 2-way partition, late joiners, and a program
+    with a gray segment and a flapping link segment."""
+    plan = jfaults.with_crashes(jfaults.none(n), [1, n // 2, n - 3],
+                                [3, 5, 9])
+    plan = jfaults.with_loss(plan, 0.2)
+    plan = jfaults.with_partition(plan, jfaults.halves(n), 6, 14)
+    plan = jfaults.with_joins(plan, [n - 1, n - 2], [4, 7])
+    prog = jfaults.as_program(plan, np.arange(n) % 3, capacity=2)
+    prog = jfaults.with_segment(prog, 0, start=0, end=periods, kind="gray",
+                                level=0.3, domain=1)
+    return jfaults.with_segment(prog, 1, start=2, end=periods,
+                                kind="link_loss", level=0.5, domain=2,
+                                period=5, on=2)
+
+
+def crash_loss_plan(n: int, loss: float, crashes=None):
+    nodes, at = crashes or ([0, n // 3, n - 1], [2, 4, 6])
+    return jfaults.with_loss(
+        jfaults.with_crashes(jfaults.none(n), [x % n for x in nodes], at),
+        loss)
+
+
+def jax_trajectory(mod, draw, cfg_kw: dict, plan, periods: int,
+                   seed: int = 0) -> dict:
+    """The JAX engine `mod` (dense or rumor) stepped period by period:
+    {"init": numpy state, "rnd": [numpy draws], "states": [numpy
+    state after each period]}."""
+    jcfg = JaxSwimConfig(**cfg_kw)
+    step = jax.jit(functools.partial(mod.step, jcfg))
+    st = mod.init_state(jcfg)
+    out = {"init": np_fields(st), "rnd": [], "states": []}
+    key = jax.random.key(seed)
+    for t in range(periods):
+        rnd = draw(key, t, jcfg)
+        out["rnd"].append(rnd)
+        st = step(st, plan, rnd)
+        out["states"].append(np_fields(st))
+    out["rnd"] = [jax.tree_util.tree_map(np.asarray, r) for r in out["rnd"]]
+    return out
+
+
+def check_port_trajectory(mod, cls, rnd_from, cfg_kw: dict, plan,
+                          traj: dict) -> object:
+    """Step the port's `mod` from the trajectory's initial state with
+    its randomness (`rnd_from` turns one period's numpy draws into the
+    port's); every field equal after every period.  Returns the last
+    state."""
+    cfg = SwimConfig(**cfg_kw)
+    st = convert.state_from_numpy(traj["init"], "cpu", cls)
+    tplan = port_plan(plan)
+    for t, (rnd, want) in enumerate(zip(traj["rnd"], traj["states"])):
+        st = mod.step(cfg, st, tplan, rnd_from(rnd))
+        got = convert.state_to_numpy(st)
+        for f in cls._fields:
+            np.testing.assert_array_equal(
+                got[f], want[f], err_msg=f"period {t}, field {f}")
+    return st
