@@ -79,7 +79,35 @@ Phases, each printed as one JSON line:
      without loss that crashed subjects were suspected and no live node
      declared dead;
      one study period of each engine with PyTorch's sync check set to
-     raise.
+     raise;
+ 11. telemetry: the engines' taps, the study runners' frames, the flight
+     recorder and batched studies.  `recorded_ring_run` at 1,000,000
+     nodes in the default wave scope, 0.1% crashing, 20 periods, with
+     the kernels and with the plain versions: all 14 state fields and
+     all 8 frame fields equal, selb 14, wavemerge 14 and coldsel 1
+     launches a period, and the state equal to a tap-off `ring.run`;
+     periods/sec with the tap and without it in alternating pairs, and
+     the device busy ms of each under torch.profiler.  The 1M pull
+     detection study with `telemetry=True` and a flight-recorder dump,
+     by the full-track runner and by the streaming runner in chunks of
+     20: digests and summaries equal, the dumps byte-equal and holding
+     every period's frame, the detection summary reproduced by
+     `analyze` from the dump alone, its error findings printed, and one
+     more telemetry study period with the sync check set to raise; the
+     pull study's tap cost in alternating pairs.  `detection_study(
+     telemetry=True)` with a dump on the dense engine (1,000 nodes) and
+     on the rumor engine (100,000 nodes): the summary equal to the
+     tap-off study's, the digest and health summary printed, the
+     detection summary reproduced from the dump.  The dense and rumor
+     taps: card frames equal to the CPU's in phase 10's card-against-CPU
+     runs (every period), a telemetry study period of each under the
+     sync check, and each tap's cost
+     (wall and busy ms a period, on and off) at dense 8,192 and rumor
+     1,000,000 nodes.  `experiments._run_study_batch` on the ring engine
+     at 1,000,000 nodes, P = 3 programs, 20 periods, telemetry on, and
+     on the rumor engine at 100,000 nodes, P = 2, 10 periods: every lane
+     bitwise equal to its serial run on the card (state, track, series,
+     frames), launches P times the serial ones, and the peak memory.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -101,9 +129,11 @@ from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.obs import analyze
+from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
 from swim_tpu_torch.sim import experiments, faults, runner
 from swim_tpu_torch.utils import prng, threefry
+from swim_tpu_torch.utils.tree import tree_map
 
 N = 1_000_000
 PARITY_PERIODS = 3
@@ -595,7 +625,7 @@ def no_sync_period(res, cfg, _state, plan, key) -> None:
     torch.cuda.set_sync_debug_mode("error")
     try:
         runner.study_period(cfg, res.state, res.track, base, rnd,
-                            lambda st, r: ring.step(cfg, st, plan, r))
+                            runner.make_stepper(cfg, plan, ring.step))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -743,8 +773,10 @@ def _leaves(nt) -> list:
 
 def engine_parity_phase(case: str) -> None:
     """The engine on the card and on the CPU from the same state and the
-    same draws (drawn on the card, copied over): every field equal after
-    every period."""
+    same draws (drawn on the card, copied over), both with the telemetry
+    tap, and on the card also without it: every field of the three
+    states equal, and the card's frame equal to the CPU's, after every
+    period."""
     name, n, opts, p = ENGINE_PARITY[case]
     mod, cls, draw = ENGINES[name]
     cfg = SwimConfig(n_nodes=n, **opts)
@@ -757,20 +789,33 @@ def engine_parity_phase(case: str) -> None:
     st_c, st_h = mod.init_state(cfg, "cuda"), mod.init_state(cfg, "cpu")
     key = threefry.key(0)
     t0 = time.perf_counter()
+    frames = []
     for t in range(p):
         rnd = draw(key, t, cfg, "cuda")
-        st_c = mod.step(cfg, st_c, plan_c, rnd)
-        st_h = mod.step(cfg, st_h, plan_h, _to_cpu(rnd))
+        tap_c, tap_h = {}, {}
+        untapped = mod.step(cfg, st_c, plan_c, rnd)
+        st_c = mod.step(cfg, st_c, plan_c, rnd, tap=tap_c)
+        st_h = mod.step(cfg, st_h, plan_h, _to_cpu(rnd), tap=tap_h)
         for f in cls._fields:
+            if not torch.equal(getattr(st_c, f), getattr(untapped, f)):
+                raise AssertionError(f"{name} engine, period {t}: field {f} "
+                                     "differs with the tap on the card")
             if not torch.equal(getattr(st_c, f).cpu(), getattr(st_h, f)):
                 raise AssertionError(f"{name} engine, period {t}: field {f} "
                                      "differs between the card and the CPU")
+        frame = [int(x) for x in obs_engine.frame_from_tap(tap_c, "cuda")]
+        if frame != [int(x) for x in obs_engine.frame_from_tap(tap_h, "cpu")]:
+            raise AssertionError(f"{name} engine, period {t}: the frame "
+                                 "differs between the card and the CPU")
+        frames.append(frame)
     if not all(torch.equal(a.cpu(), b) for a, b in zip(
             _leaves(draw(key, p, cfg, "cuda")),
             _leaves(draw(key, p, cfg, "cpu")))):
         raise AssertionError(f"{name} draws differ between card and CPU")
     emit(phase="engines", part="card_vs_cpu", case=case, engine=name,
          n_nodes=n, periods=p, options=opts, fields_equal=len(cls._fields),
+         frame_fields_equal=len(obs_engine.EngineFrame._fields),
+         last_frame=dict(zip(obs_engine.EngineFrame._fields, frames[-1])),
          seconds=time.perf_counter() - t0)
 
 
@@ -846,11 +891,13 @@ def dense_8192_run():
                 false_dead_views=int(false_dead), step=int(st.step))
 
 
-def engine_no_sync_period(name: str, n: int) -> None:
+def engine_no_sync_period(name: str, n: int, telemetry: bool = False
+                          ) -> None:
     """Two study periods of the engine, then one more with PyTorch's sync
-    check set to raise (the draws made before)."""
+    check set to raise (the draws made before); with the tap when
+    `telemetry`."""
     mod, _, draw = ENGINES[name]
-    cfg = SwimConfig(n_nodes=n)
+    cfg = SwimConfig(n_nodes=n, telemetry=telemetry)
     plan = crash_plan(cfg, 3, 0.01)
     key = threefry.key(0)
     if name == "dense":
@@ -867,11 +914,12 @@ def engine_no_sync_period(name: str, n: int) -> None:
     torch.cuda.set_sync_debug_mode("error")
     try:
         period(cfg, res.state, res.track, base, rnd,
-               lambda st, r: mod.step(cfg, st, plan, r))
+               runner.make_stepper(cfg, plan, mod.step))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    emit(phase="engines", part="no_sync", engine=name, n_nodes=n,
+    emit(phase="telemetry" if telemetry else "engines", part="no_sync",
+         engine=name, n_nodes=n, telemetry=telemetry,
          host_syncs_in_a_period=0)
 
 
@@ -944,6 +992,314 @@ def engines_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- slice 6: telemetry
+
+TAP_PERIODS = 20        # recorded_ring_run, the batches, the tap costs
+TAP_PAIRS = 3           # alternating tap-off / tap-on timed runs
+BATCH_RUMOR_N = 100_000  # the rumor batch at config 3's size
+TELEMETRY_DIR = Path(__file__).resolve().parent / "_telemetry"
+
+
+def tap_cost(label: str, periods: int, run_off, run_on, card: str) -> dict:
+    """Wall ms a period of `run_off()` and `run_on()` (each does
+    `periods` periods from the same start) in TAP_PAIRS alternating
+    pairs, then the device busy ms a period of one more run of each under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    walls = {"off": [], "on": []}
+    for _ in range(TAP_PAIRS):
+        for which, fn in (("off", run_off), ("on", run_on)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) * 1e3 / periods)
+    busy = {}
+    for which, fn in (("off", run_off), ("on", run_on)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms, kernels = busy_ms(prof)
+        busy[which] = dict(busy_ms=ms / periods,
+                           kernels_per_period=kernels / periods)
+    row = dict(phase="telemetry", part="tap_cost", run=label,
+               periods=periods, wall_ms_off=walls["off"],
+               wall_ms_on=walls["on"],
+               periods_per_sec_off=[1e3 / w for w in walls["off"]],
+               periods_per_sec_on=[1e3 / w for w in walls["on"]],
+               busy_ms_off=busy["off"]["busy_ms"],
+               busy_ms_on=busy["on"]["busy_ms"],
+               kernels_off=busy["off"]["kernels_per_period"],
+               kernels_on=busy["on"]["kernels_per_period"], card=card)
+    emit(**row)
+    return row
+
+
+def require_same(what: str, a, b) -> int:
+    """Every leaf of two NamedTuple trees of tensors equal; the count."""
+    pairs = []
+    tree_map(lambda x, y: pairs.append(torch.equal(x, y)), a, b)
+    if not pairs or not all(pairs):
+        raise AssertionError(f"{what}: leaf {pairs.index(False)} differs")
+    return len(pairs)
+
+
+def recorded_run_phase(card: str) -> dict:
+    """recorded_ring_run at 1M in wave scope: kernels against plain
+    versions, launches, the tap-off run's state, the tap's cost."""
+    cfg = path_cfg("wave")
+    plan = crash_plan(cfg, TAP_PERIODS)
+    key = threefry.key(0)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    rec = obs_engine.recorded_ring_run(cfg, ring.init_state(cfg, "cuda"),
+                                       plan, key, TAP_PERIODS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: TAP_PERIODS * v for k, v in expected_launches(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"recorded_ring_run launches {launches}, "
+                             f"expected {want}")
+    plain = obs_engine.recorded_ring_run(cfg, ring.init_state(cfg, "cuda"),
+                                         plan, key, TAP_PERIODS, plain=True)
+    fields = require_same("recorded_ring_run, kernels against plain", rec,
+                          plain)
+    off = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, TAP_PERIODS)
+    require_same("recorded_ring_run against a tap-off ring.run", rec.state,
+                 off)
+    fr = rec.frames
+    if int(fr.waves_delivered.min()) == 0 or \
+            int(fr.sel_slots_selected.max()) == 0:
+        raise AssertionError(f"recorded_ring_run frames are empty: {fr}")
+    emit(phase="telemetry", part="recorded_ring_run", path="wave",
+         n_nodes=N, periods=TAP_PERIODS, leaves_equal=fields,
+         launches=launches,
+         launches_per_period={k: v / TAP_PERIODS for k, v in
+                              launches.items()},
+         frames_sum={f: int(getattr(fr, f).sum()) for f in fr._fields},
+         frames_last={f: int(getattr(fr, f)[-1]) for f in fr._fields},
+         seconds=time.perf_counter() - t0, card=card)
+    init = ring.init_state(cfg, "cuda")
+
+    def fresh():
+        return init._replace(cold=init.cold.clone())
+
+    tap_cost("ring wave recorded_ring_run", TAP_PERIODS,
+             lambda: ring.run(cfg, fresh(), plan, 0, TAP_PERIODS),
+             lambda: obs_engine.recorded_ring_run(cfg, fresh(), plan, key,
+                                                  TAP_PERIODS), card)
+    return launches
+
+
+def telemetry_study_phase(card: str) -> None:
+    """The 1M pull detection study with telemetry and a dump, by both
+    runners (byte-equal dumps that hold every period's frame); the dump
+    analysed; a telemetry study period without a host sync; the tap's
+    cost on 20 study periods."""
+    kw = dict(n=N, crash_fraction=CRASH_FRACTION, periods=STUDY_PERIODS,
+              seed=0, engine="ring", telemetry=True)
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    TELEMETRY_DIR.mkdir()
+    t0 = time.perf_counter()
+    try:
+        dumps = {w: str(TELEMETRY_DIR / f"{w}.jsonl")
+                 for w in ("full", "stream")}
+        full = experiments.detection_study(stream=False,
+                                           flight_record=dumps["full"], **kw)
+        chunked = experiments.detection_study(
+            stream=True, chunk=STUDY_CHUNK, flight_record=dumps["stream"],
+            **kw)
+        reports = {w: analyze.analyze(p) for w, p in dumps.items()}
+        same_dump = (Path(dumps["full"]).read_bytes()
+                     == Path(dumps["stream"]).read_bytes())
+    finally:
+        shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    drop = {"stream", "flight_record"}
+    if {k: v for k, v in full.items() if k not in drop} != \
+            {k: v for k, v in chunked.items() if k not in drop}:
+        raise AssertionError(f"telemetry study summaries differ: {full} != "
+                             f"{chunked}")
+    if not same_dump or reports["full"] != reports["stream"]:
+        raise AssertionError("the two runners' dumps differ")
+    if reports["full"]["periods"] != STUDY_PERIODS:
+        raise AssertionError(f"the dump holds {reports['full']['periods']} "
+                             f"frames, not {STUDY_PERIODS}")
+    det = reports["full"]["detection"]
+    if det["crashed"] == 0 or any(full[k] != v for k, v in det.items()):
+        raise AssertionError(f"the dump's detection summary {det} is not "
+                             f"the study's")
+    errors = analyze.error_findings(reports["full"])
+    scfg = SwimConfig(n_nodes=N, ring_probe="pull")
+    tcfg = SwimConfig(n_nodes=N, ring_probe="pull", telemetry=True)
+    plan = experiments._crash_plan(N, 0, CRASH_FRACTION, STUDY_PERIODS,
+                                   "cuda")
+    key = threefry.key(0)
+    init = ring.init_state(scfg, "cuda")
+
+    def study(c):
+        st = init._replace(cold=init.cold.clone())
+        return runner.run_study_ring_stream(c, st, plan, key, TAP_PERIODS)
+
+    no_sync_period(study(tcfg), tcfg, None, plan, key)
+    emit(phase="telemetry", part="study", study="detection", n_nodes=N,
+         periods=STUDY_PERIODS, ring_probe=full["ring_probe"],
+         runners=["full", f"stream chunk={STUDY_CHUNK}"],
+         summaries_equal=True, dumps_identical=True,
+         frames_in_dump=reports["full"]["periods"],
+         dump_reproduces_detection=True, host_syncs_in_a_period=0,
+         telemetry=full["telemetry"], health=full["health"],
+         error_findings=errors, report_health=reports["full"]["health"],
+         seconds=wall, card=card)
+    print(analyze.render_report(reports["full"], title="telemetry study"),
+          flush=True)
+    tap_cost("ring pull study (streaming)", TAP_PERIODS,
+             lambda: study(scfg), lambda: study(tcfg), card)
+
+
+def engine_study_phase(name: str, n: int, card: str) -> None:
+    """`detection_study(n, telemetry=True)` on its default engine with a
+    dump: the study's summary equals the tap-off study's, and the dump
+    alone reproduces its detection summary."""
+    TELEMETRY_DIR.mkdir(exist_ok=True)
+    path = str(TELEMETRY_DIR / f"{name}.jsonl")
+    t0 = time.perf_counter()
+    try:
+        on = experiments.detection_study(n=n, telemetry=True,
+                                         flight_record=path)
+        report = analyze.analyze(path)
+    finally:
+        shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    off = experiments.detection_study(n=n)
+    if on["engine"] != name:
+        raise AssertionError(f"detection_study(n={n}) ran {on['engine']}")
+    added = {"telemetry", "health", "flight_record"}
+    if {k: v for k, v in on.items() if k not in added} != off:
+        raise AssertionError(f"{name} study with telemetry {on} differs "
+                             f"from the study without it {off}")
+    if on["telemetry"]["waves_delivered_sum"] == 0:
+        raise AssertionError(f"{name} study frames are empty: {on}")
+    det = report["detection"]
+    if det["crashed"] == 0 or any(on[k] != v for k, v in det.items()):
+        raise AssertionError(f"the {name} dump's detection summary {det} "
+                             f"is not the study's")
+    emit(phase="telemetry", part="engine_study", study="detection",
+         engine=name, n_nodes=n, periods=on["periods"],
+         summary_equals_tap_off=True, dump_reproduces_detection=True,
+         frames_in_dump=report["periods"], telemetry=on["telemetry"],
+         health=on["health"], error_findings=analyze.error_findings(report),
+         seconds=wall, card=card)
+
+
+def engine_loop(name: str, cfg, plan, periods: int, tap: bool):
+    """`periods` periods of the dense or rumor engine from a fresh state,
+    with the tap when `tap` (frames stacked at the end)."""
+    mod, _, draw = ENGINES[name]
+    st = mod.init_state(cfg, "cuda")
+    key = threefry.key(0)
+    frames = []
+    for t in range(periods):
+        taps = {} if tap else None
+        st = mod.step(cfg, st, plan, draw(key, t, cfg, "cuda"), tap=taps)
+        if tap:
+            frames.append(obs_engine.frame_from_tap(taps, "cuda"))
+    return st, (obs_engine.stack_frames(frames) if tap else None)
+
+
+def engine_tap_phase(name: str, n: int, periods: int, card: str) -> None:
+    """The dense or rumor engine with and without its tap: equal states,
+    frames that saw deliveries, and the tap's cost."""
+    cfg = SwimConfig(n_nodes=n)
+    tcfg = SwimConfig(n_nodes=n, telemetry=True)
+    plan = crash_plan(cfg, 5, 0.01)
+    st, frames = engine_loop(name, tcfg, plan, periods, True)
+    off, _ = engine_loop(name, cfg, plan, periods, False)
+    require_same(f"{name} tap state", st, off)
+    if int(frames.waves_delivered.min()) == 0:
+        raise AssertionError(f"{name} tap: no deliveries {frames}")
+    del st, off
+    tap_cost(f"{name} {n}", periods,
+             lambda: engine_loop(name, cfg, plan, periods, False),
+             lambda: engine_loop(name, tcfg, plan, periods, True), card)
+
+
+def batch_phase(name: str, engine: str, n: int, periods: int, progs,
+                card: str) -> dict:
+    """`_run_study_batch` with telemetry on: every lane against its
+    serial run on the card, launches P times the serial ones, peak
+    memory."""
+    cfg = SwimConfig(n_nodes=n, telemetry=True)
+    keys = [threefry.key(20 + p) for p in range(len(progs))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    batched = experiments._run_study_batch(cfg, progs, keys, periods, engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    serial_launches = {}
+    leaves = 0
+    for p, prog in enumerate(progs):
+        reset_launches()
+        serial = experiments._run_study(cfg, prog, keys[p], periods, engine,
+                                        torch.device("cuda"))
+        for k, v in read_launches().items():
+            serial_launches[k] = serial_launches.get(k, 0) + v
+        leaves = require_same(f"{name} batch lane {p}",
+                              runner.lane_result(batched, p), serial)
+    if launches != serial_launches:
+        raise AssertionError(f"{name} batch launches {launches}, serial "
+                             f"lanes {serial_launches}")
+    series = batched.series
+    emit(phase="telemetry", part="batch", run=name, engine=engine,
+         n_nodes=n, lanes=len(progs), periods=periods,
+         segments=[int(p.seg_kind.shape[0]) for p in progs],
+         leaves_equal_per_lane=leaves, launches=launches,
+         launches_serial=serial_launches,
+         suspect_views_peak=[int(x) for x in series.suspect_views.max(1)
+                             .values],
+         waves_delivered_sum=[int(x) for x in
+                              batched.telemetry.waves_delivered.sum(1)],
+         wall_ms=wall * 1e3, max_memory_allocated=peak,
+         allocated_before=before, card=card)
+    return launches
+
+
+def telemetry_phase(card: str) -> dict:
+    """Phase 11; returns the ring kernels' launches in the recorded run
+    and in the ring batch."""
+    t0 = time.perf_counter()
+    launches = {"telemetry": recorded_run_phase(card)}
+    telemetry_study_phase(card)
+    engine_study_phase("dense", 1000, card)
+    engine_study_phase("rumor", BATCH_RUMOR_N, card)
+    engine_no_sync_period("dense", 1000, telemetry=True)
+    engine_no_sync_period("rumor", BATCH_RUMOR_N, telemetry=True)
+    engine_tap_phase("dense", experiments.DENSE_MAX, 10, card)
+    engine_tap_phase("rumor", N, 10, card)
+    prog = program_plan(N)
+    gray = prog._replace(seg_level=prog.seg_level.clone())
+    gray.seg_level[0] = faults.level_to_threshold(0.6)
+    empty = faults.as_program(crash_plan(SwimConfig(n_nodes=N),
+                                         SLICE_PERIODS))
+    launches["batch"] = batch_phase("ring 1M", "ring", N, TAP_PERIODS,
+                                    [prog, gray, empty], card)
+    n_r = BATCH_RUMOR_N
+    launches["batch_rumor"] = batch_phase(
+        "rumor 100k", "rumor", n_r, 10,
+        [program_plan(n_r), faults.as_program(crash_plan(
+            SwimConfig(n_nodes=n_r), 10))], card)
+    emit(phase="telemetry", part="done", seconds=time.perf_counter() - t0,
+         card=card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -972,6 +1328,7 @@ def main() -> None:
         {k: float(v) for k, v in expected_launches(path_cfg("wave")).items()})
     study_phase(card)
     launches.update(engines_phase(card))
+    launches.update(telemetry_phase(card))
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -991,6 +1348,8 @@ def main() -> None:
             launches_program=launches["program"][name],
             launches_dense=launches["dense"].get(name, 0),
             launches_rumor=launches["rumor"].get(name, 0),
+            launches_telemetry=launches["telemetry"][name],
+            launches_batch=launches["batch"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -14,12 +14,13 @@ from swim_tpu_torch.utils import threefry
 
 
 def check_slice(cfg: SwimConfig) -> None:
-    """Raise NotImplementedError for the taps, naming their ROADMAP.md
-    item (the dense and rumor engines run every other configuration)."""
-    if cfg.telemetry or cfg.profiling:
+    """Raise NotImplementedError for the profiling tap, naming its
+    ROADMAP.md item (the dense and rumor engines run every other
+    configuration)."""
+    if cfg.profiling:
         raise NotImplementedError(
-            "not in the ported slice: telemetry/profiling taps (ROADMAP.md "
-            "Queue 1: telemetry and the other instruments)")
+            "not in the ported slice: the profiling tap (ROADMAP.md Queue "
+            "1: the other instruments)")
 
 
 def repeat(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -111,12 +111,16 @@ def _apply_forced(sel_idx, sel_valid, forced):
 def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
          rnd: PeriodRandomness, *, tap=None, prof=None) -> DenseState:
     """One protocol period for all N nodes (reference dense.py:104-344).
-    The incoming state is left untouched."""
+    The incoming state is left untouched.  `tap`, a dict, receives the
+    period's EngineFrame fields (obs/engine.py; no overflow fields) as
+    int32 device scalars; the selection statistics are those of the
+    first wave's piggyback pass, which reads the start-of-period
+    retransmit counts."""
     check_slice(cfg)
-    if tap is not None or prof is not None:
+    if prof is not None:
         raise NotImplementedError(
-            "tap/prof are not in the ported slice (ROADMAP.md Queue 1: "
-            "telemetry and the other instruments)")
+            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
+            "other instruments)")
     n, k = cfg.n_nodes, cfg.k_indirect
     plan, prog = faults.split_program(plan)
     t = state.step
@@ -161,6 +165,7 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
         return torch.where(lattice.is_suspect(cur_key[src, dst]), dst, -1)
 
     susp_periods = cfg.suspicion_periods
+    first_valid = []        # the first wave's sel_valid [N, B], for the tap
 
     def wave(carry, src, dst, sent, u_loss, forced, reply=False):
         """One message wave over flat [M] message arrays; returns the
@@ -168,6 +173,8 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
         key, retransmit, deadline = carry
         src64, dst64 = src.to(I64), dst.to(I64)
         sel_idx, sel_valid = _piggyback(cfg, retransmit)  # wave-start state
+        if tap is not None and not first_valid:
+            first_valid.append(sel_valid)
         msel, mval = _apply_forced(sel_idx[src64], sel_valid[src64], forced)
         mval = mval & sent[:, None]
         msel64 = msel.to(I64)
@@ -256,6 +263,18 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
                       key)
     retransmit = torch.where(expire, 0, retransmit)
     deadline = torch.where(expire, NO_DEADLINE, deadline)
+
+    if tap is not None:
+        b = min(cfg.max_piggyback, n)
+        row_bits = first_valid[0].sum(dim=-1, dtype=I32)         # [N]
+        tap["sel_slots_selected"] = row_bits.sum(dtype=I32)
+        tap["sel_rows_saturated"] = ((row_bits >= b) & up).sum(dtype=I32)
+        tap["sel_slots_max"] = row_bits.max()
+        tap["win_occupancy"] = (state.retransmit
+                                < cfg.retransmit_limit).sum(dtype=I32)
+        tap["waves_delivered"] = torch.cat(
+            [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
+        tap["probes_failed"] = failed.sum(dtype=I32)
 
     # inactive (crashed or not yet joined) nodes are frozen
     frozen = ~up[:, None]

@@ -141,9 +141,9 @@ def check_slice(cfg: SwimConfig) -> None:
     if cfg.ring_scalar_wire != "wide":
         todo.append("ring_scalar_wire='packed' (ROADMAP.md Queue 1: "
                     "sharding)")
-    if cfg.telemetry or cfg.profiling:
-        todo.append("telemetry/profiling taps (ROADMAP.md Queue 1: "
-                    "telemetry and the other instruments)")
+    if cfg.profiling:
+        todo.append("the profiling tap (ROADMAP.md Queue 1: the other "
+                    "instruments)")
     if todo:
         raise NotImplementedError(
             "not in the ported slice: " + "; ".join(todo))
@@ -454,13 +454,18 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     """One protocol period (reference ring.py:759-1841: the rotor branch
     in either selection scope, with or without Lifeguard, with a plain
     FaultPlan or a FaultProgram; or the pull branch).  Consumes
-    `state.cold` (updated in place)."""
+    `state.cold` (updated in place).  `tap`, a dict, receives the
+    period's EngineFrame fields (obs/engine.py) as int32 device scalars;
+    the returned state is the same with or without it."""
     check_slice(cfg)
-    if ext is not None or tap is not None or prof is not None:
+    if ext is not None:
         raise NotImplementedError(
-            "ext/tap/prof are not in the ported slice (ROADMAP.md Queue "
-            "1: serving, which brings ExtOriginations; telemetry and "
-            "the other instruments)")
+            "ext is not in the ported slice (ROADMAP.md Queue 1: serving, "
+            "which brings ExtOriginations)")
+    if prof is not None:
+        raise NotImplementedError(
+            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
+            "other instruments)")
     plan, prog = faults.split_program(plan)
     pull = cfg.ring_probe == "pull"
     if pull and prog is not None:
@@ -621,6 +626,12 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         r_tot).to(torch.int64)
     elig = used[win_slots_lin].reshape(g.ww, WORD)
     elig_mask = u32.pack_bits(elig)                            # u32[WW]
+    if tap is not None:
+        # the start-of-period occupancy, before any delivery ORs into
+        # `win` in place; the first B of a row select min(occ, B) slots
+        occ_bits = u32.popcount(win & elig_mask[None, :]).sum(
+            dim=-1, dtype=I32)                                 # i32[N]
+        tap_oks = []            # every wave's delivery mask
     # Piggyback-selection freshness (deviation R5).  Period scope: one
     # selection from the start-of-period window, reused by every wave,
     # and the 2+4k deliveries fuse into one merge (at most 32 waves).
@@ -685,6 +696,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
             """One wave: receiver i ORs sel row (i + d) mod n under ok."""
             nonlocal win
             d = d.to(I32)
+            if tap is not None:
+                tap_oks.append(ok)
             if fused:
                 waves.append((ok, d, cv))
                 return
@@ -830,6 +843,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         win |= torch.where(ack_gossip_ok[:, None],
                            ops.gather_rows(sel_all, aq), 0)
         failed = probe_live & ~(acked_lane | relayed_lane)
+        if tap is not None:
+            tap_oks = [d_fwd_ok, px_deliver, ack_gossip_ok]
         # src's view of j: the subject is the viewer's own row, so only
         # the heard-bit lookup crosses nodes
         viewed_tk = u32.umax(lattice.alive_key(torch.zeros_like(gone_key)),
@@ -1001,6 +1016,17 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     inc_self = torch.where(active, inc_self, state.inc_self)
     if cfg.lifeguard:
         lha = torch.where(active, lha, state.lha)
+
+    if tap is not None:
+        row_bits = occ_bits.clamp(max=b_pig)
+        tap["sel_slots_selected"] = _sum32(row_bits)
+        tap["sel_rows_saturated"] = _sum32((row_bits >= b_pig) & active)
+        tap["sel_slots_max"] = row_bits.max()
+        tap["win_occupancy"] = _sum32(occ_bits)
+        tap["waves_delivered"] = _sum32(torch.stack(tap_oks))
+        tap["probes_failed"] = _sum32(failed)
+        tap["overflow"] = overflow
+        tap["index_overflow"] = index_overflow
 
     return RingState(
         win=win, cold=cold, inc_self=inc_self, lha=lha, gone_key=gone_key,

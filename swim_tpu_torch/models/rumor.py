@@ -282,12 +282,15 @@ def _select_first_b(kn: torch.Tensor, cand_idx: torch.Tensor, b: int):
 def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
          rnd: RumorRandomness, *, tap=None, prof=None) -> RumorState:
     """One protocol period for all N nodes (reference rumor.py:212-649).
-    The incoming state is left untouched."""
+    The incoming state is left untouched.  `tap`, a dict, receives the
+    period's EngineFrame fields (obs/engine.py; no index_overflow) as
+    int32 device scalars; the selection statistics are those of the
+    first wave's selection, which reads the start-of-period heard-bits."""
     check_slice(cfg)
-    if tap is not None or prof is not None:
+    if prof is not None:
         raise NotImplementedError(
-            "tap/prof are not in the ported slice (ROADMAP.md Queue 1: "
-            "telemetry and the other instruments)")
+            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
+            "other instruments)")
     n, k, r_cap = cfg.n_nodes, cfg.k_indirect, cfg.rumor_slots
     s_cap = cfg.sentinels
     plan, prog = faults.split_program(plan)
@@ -385,6 +388,7 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     kbuf[n] = False
     knows = kbuf[:n]
     true = torch.ones((), dtype=torch.bool, device=dev)
+    first_val = []          # the first wave's val [N, B], for the tap
 
     def wave(src, dst, sent, u_loss, forced, reply=False):
         """One message wave: per-sender first-B selection, then the
@@ -392,6 +396,8 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
         src64, dst64 = src.to(I64), dst.to(I64)
         kn = knows.index_select(1, cand64) & cand_valid[None, :]
         sel, val = _select_first_b(kn, cand_idx, b_pig)
+        if tap is not None and not first_val:
+            first_val.append(val)
         ok = sent & delivered(src64, dst64, u_loss, reply)
         upd = val[src64] & ok[:, None]                        # [M, B]
         rows = torch.where(upd, dst64[:, None], n)
@@ -565,6 +571,22 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     # mark the confirmed suspicions whose DEAD rumor landed
     confirmed = scatter.set_drop(
         confirmed, torch.where(placed & (src_c >= 0), src_c, r_cap), True)
+
+    if tap is not None:
+        row_bits = first_val[0].sum(dim=-1, dtype=I32)           # [N]
+        tap["sel_slots_selected"] = row_bits.sum(dtype=I32)
+        tap["sel_rows_saturated"] = ((row_bits >= b_pig) & up).sum(
+            dtype=I32)
+        tap["sel_slots_max"] = row_bits.max()
+        # heard (node, eligible rumor) pairs at period start: per-rumor
+        # heard counts (< 2**31), summed with the reference's int32 wrap
+        heard = live_knowers(state.knows, torch.ones_like(up))
+        tap["win_occupancy"] = u32.from_u64(
+            torch.where(eligible, heard, 0).sum(dtype=I64))
+        tap["waves_delivered"] = torch.cat(
+            [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
+        tap["probes_failed"] = failed.sum(dtype=I32)
+        tap["overflow"] = overflow
 
     # inactive nodes are frozen (their heard-bits of reused slots are
     # still cleared above)

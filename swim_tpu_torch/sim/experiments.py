@@ -17,14 +17,24 @@ engine up to `DENSE_MAX` nodes and the O(R*N) rumor engine above;
 "ring" is the ring engine.  The sharded engines ("shard",
 "ringshard") are not ported and raise.  Every study runs on the CUDA
 card unless `device` names another device.
+
+`detection_study(telemetry=True)` adds the per-period EngineFrame
+digest and a health summary, and dumps the flight recorder on an
+error-severity finding or when `flight_record` names a path.
+`_run_study_batch` runs one study per fault program of a library and
+stacks the results along a leading P axis.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
+
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import dense, ring, rumor
+from swim_tpu_torch.obs.health import HealthMonitor
+from swim_tpu_torch.obs.recorder import FlightRecorder
 from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.utils import metrics, threefry
 
@@ -54,13 +64,6 @@ def _require_ported(engine: str) -> None:
         raise ValueError(f"unknown study engine '{engine}'")
 
 
-def _require_no_recorder(flight_record) -> None:
-    if flight_record is not None:
-        raise NotImplementedError(
-            "the flight recorder is not ported (ROADMAP.md Queue 1: "
-            "telemetry, then the other instruments)")
-
-
 def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
                engine: str, dev, stream: bool = False, ckpt=None,
                chunk: int = 0):
@@ -79,6 +82,39 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
         return runner.run_study_ring_stream(cfg, state, plan, key, periods,
                                             chunk=chunk, ckpt=ckpt)
     return runner.run_study_ring(cfg, state, plan, key, periods)
+
+
+def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
+                     engine: str, capacity: int | None = None,
+                     device=None):
+    """`len(progs)` studies of one configuration, one per FaultProgram
+    (all of one N), stacked along a leading P axis.  The programs are
+    padded to one segment capacity (the library's largest, or
+    `capacity` if larger) and stacked (`faults.stack_programs`); lane p
+    runs the serial study on `faults.lane_program(batch, p)` and its own
+    threefry key `keys[p]`, from a fresh state.  De-interleave with
+    `runner.lane_result`: each lane is its serial run bit for bit
+    (inert padding slots add 0 to every lane threshold).  The lanes run
+    one after another."""
+    if engine == "shard":
+        raise ValueError("batched studies: the exchange-sharded engine "
+                         "has no fault-program path; use rumor, ring, "
+                         "or ringshard")
+    _require_ported(engine)
+    dev = devmod.resolve(device)
+    progs = list(progs)
+    keys = list(keys)
+    if len(keys) != len(progs):
+        raise ValueError(
+            f"batched studies: {len(progs)} lanes need {len(progs)} root "
+            f"keys, got {len(keys)}")
+    cap = max(int(p.seg_kind.shape[0]) for p in progs)
+    if capacity is not None:
+        cap = max(cap, int(capacity))
+    batch = faults.stack_programs(progs, cap)
+    return runner.batch_states(
+        [_run_study(cfg, faults.lane_program(batch, p), key, periods,
+                    engine, dev) for p, key in enumerate(keys)])
 
 
 def _crash_plan(n: int, seed: int, crash_fraction: float, periods: int,
@@ -100,10 +136,20 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     """Crash-stop injection -> detection-time distribution.  The ring
     engine probes pull-uniform here unless `ring_probe` is given: the
     study measures the e/(e-1) first-detection law, which the rotor
-    probe's bounded detection does not follow (deviation R1)."""
+    probe's bounded detection does not follow (deviation R1).
+
+    With `telemetry=True` (a SwimConfig option in cfg_kw) the result
+    gains a `telemetry` digest of the per-period EngineFrame series and
+    a `health` summary of the sliding-window rules (obs/health.py), and
+    the flight recorder dumps its last periods as JSONL when an
+    error-severity finding fires (reason "health:<rule>"; the file
+    "flight_record.jsonl" in the working directory unless
+    `flight_record` names one) or whenever `flight_record` names a
+    path.  The dump header embeds the crashed subjects' milestones, so
+    `obs/analyze.py` reproduces the detection summary from the dump
+    alone."""
     engine = pick_engine(n, engine)
     _require_ported(engine)
-    _require_no_recorder(flight_record)
     dev = devmod.resolve(device)
     if engine == "ring":
         cfg_kw.setdefault("ring_probe", "pull")
@@ -136,6 +182,33 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     out.update(metrics.series_digest(res.series))
     if engine != "dense":
         out["overflow"] = int(res.state.overflow)
+    if res.telemetry is not None:
+        out["telemetry"] = metrics.series_digest(res.telemetry)
+        monitor = HealthMonitor(window=min(16, max(2, periods)), n_nodes=n)
+        rec = FlightRecorder(cfg=cfg, capacity=min(64, periods),
+                             monitor=monitor)
+        false_dead = runner.host_series(res.series).false_dead_views
+        rec.record_stacked(res.telemetry,
+                           aux={"false_dead_views": false_dead})
+        out["health"] = {"worst": monitor.worst() or "ok",
+                         "findings": len(monitor.findings())}
+        reason = rec.auto_dump_reason()
+        if flight_record or reason:
+            crash, milestones = runner.study_milestones(res, plan, periods)
+            # the probe regime of the law check: only the ring engine
+            # can deviate (rotor, R1); dense and rumor probe uniformly
+            study = {"n": n, "periods": periods, "engine": engine,
+                     "probe": cfg.ring_probe if engine == "ring" else "pull",
+                     "crash_step": crash.tolist(),
+                     "false_dead_views_final": int(np.asarray(
+                         false_dead)[-1])}
+            for name, arr in milestones.items():
+                study[f"first_{name}" if name != "disseminated"
+                      else name] = arr.tolist()
+            path = flight_record or "flight_record.jsonl"
+            rec.dump(path, reason=reason or "on_demand",
+                     extra={"study": study})
+            out["flight_record"] = path
     return out
 
 

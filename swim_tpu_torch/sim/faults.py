@@ -12,8 +12,9 @@ Builders take the device explicitly (None = the CUDA card).
 A `FaultProgram` adds piecewise per-node link and gray-failure segments
 to a FaultPlan (reference faults.py:137-339); `link_lanes` turns them
 into the per-node u16 thresholds the rotor waves add to the loss
-threshold.  `ProgramBatch` / `stack_programs` (the vmapped batch
-studies) are not ported yet (ROADMAP.md Queue 1).
+threshold.  A `ProgramBatch` stacks P programs of one N along a leading
+P axis, padded to one segment capacity (`experiments._run_study_batch`
+runs a study per lane).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.ops import u32
 from swim_tpu_torch.utils import threefry
+from swim_tpu_torch.utils.tree import tree_map
 
 NEVER = int(np.int32(2**31 - 1))
 
@@ -234,6 +236,46 @@ def pad_program(prog: FaultProgram, capacity: int) -> FaultProgram:
         seg_level=cat([prog.seg_level, zi]))
 
 
+class ProgramBatch(NamedTuple):
+    """`size` FaultPrograms stacked leaf-wise along a new leading P
+    axis, all of one N and padded to one segment capacity S: inert
+    padding slots add 0 to every lane, so a padded lane runs as its
+    program does."""
+
+    program: FaultProgram  # leaves stacked: base [P, N] / [P], segs [P, S]
+    size: int              # P
+
+
+def stack_programs(progs, capacity: int | None = None) -> ProgramBatch:
+    """Stack a program library into one ProgramBatch.  All members share
+    one node count; segment axes are padded to `capacity` (default: the
+    library's largest)."""
+    progs = list(progs)
+    if not progs:
+        raise ValueError("stack_programs: empty program list")
+    ns = {int(p.domain_id.shape[0]) for p in progs}
+    if len(ns) != 1:
+        raise ValueError(
+            f"stack_programs: mixed node counts {sorted(ns)}; a batch "
+            f"shares one N")
+    cap = max(int(p.seg_kind.shape[0]) for p in progs)
+    if capacity is not None:
+        if int(capacity) < cap:
+            raise ValueError(
+                f"stack_programs: capacity {capacity} < library max {cap}")
+        cap = int(capacity)
+    padded = [pad_program(p, cap) for p in progs]
+    return ProgramBatch(program=tree_map(lambda *xs: torch.stack(xs),
+                                         *padded), size=len(progs))
+
+
+def lane_program(batch: ProgramBatch, p: int) -> FaultProgram:
+    """Lane `p`'s FaultProgram (indexes every stacked leaf)."""
+    if not 0 <= p < batch.size:
+        raise IndexError(f"lane {p} out of range for batch of {batch.size}")
+    return tree_map(lambda x: x[p], batch.program)
+
+
 def split_program(plan) -> tuple[FaultPlan, FaultProgram | None]:
     """(base plan, program-or-None).  None for a plain FaultPlan and for
     a FaultProgram with zero segments, so an empty program runs exactly
@@ -315,3 +357,8 @@ def crashed_mask(plan: FaultPlan, step) -> torch.Tensor:
 
 def partition_active(plan: FaultPlan, step) -> torch.Tensor:
     return (plan.partition_start <= step) & (plan.partition_end > step)
+
+
+def to_numpy(plan: FaultPlan) -> FaultPlan:
+    """The plan's fields as numpy arrays in the reference's dtypes."""
+    return FaultPlan(*(x.cpu().numpy() for x in plan))

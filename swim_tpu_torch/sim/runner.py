@@ -19,6 +19,14 @@ resume bitwise.  The per-period values stay on the device and are
 stacked at the end (a chunk's end for the stream): no host sync inside
 a period.  Counts are int32 with int32 wrap, as the reference's (the
 sums are taken in int64 and cut to 32 bits).
+
+With `cfg.telemetry` every runner steps the engine with its tap and
+returns the period-stacked `EngineFrame` (obs/engine.py) as the
+result's `telemetry`; else that field is None.
+
+`batch_states` stacks the results of P studies of one configuration
+along a leading P axis (`experiments._run_study_batch`); `lane_result`
+takes one lane back out.
 """
 from __future__ import annotations
 
@@ -31,10 +39,13 @@ import torch
 from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.obs import analyze
+from swim_tpu_torch.obs.engine import (concat_frames, frame_from_tap,
+                                       stack_frames)
 from swim_tpu_torch.ops import lattice, u32
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import checkpoint, prng
+from swim_tpu_torch.utils.tree import tree_map
 
 NEVER = analyze.NEVER
 I32 = torch.int32
@@ -62,21 +73,22 @@ class StudyResult(NamedTuple):
     state: dense.DenseState
     track: StudyTrack
     series: PeriodSeries
-    telemetry: Any = None      # the instruments are not ported
+    # [periods]-stacked obs.engine.EngineFrame when cfg.telemetry, else None
+    telemetry: Any = None
 
 
 class RumorStudyResult(NamedTuple):
     state: rumor.RumorState
     track: StudyTrack
     series: PeriodSeries
-    telemetry: Any = None
+    telemetry: Any = None      # as StudyResult.telemetry
 
 
 class RingStudyResult(NamedTuple):
     state: ring.RingState
     track: Any                 # StudyTrack or CompactTrack
     series: PeriodSeries
-    telemetry: Any = None      # the instruments are not ported
+    telemetry: Any = None      # as StudyResult.telemetry
 
 
 class CompactTrack(NamedTuple):
@@ -163,18 +175,33 @@ def _first(cur, cond, crashed, t):
     return torch.where(cond & crashed & (cur == NEVER), t, cur)
 
 
-def _stepper(cfg: SwimConfig, plan, step_fn):
-    """step_fn(state, plan, rnd) -> state; the engine's step if None.
-    Telemetry (study frames) raises here, with the taps, naming the
-    telemetry item."""
-    ring.check_slice(cfg)
-    if step_fn is None:
-        return lambda st, rnd: ring.step(cfg, st, plan, rnd)
-    return lambda st, rnd: step_fn(st, plan, rnd)
+def make_stepper(cfg: SwimConfig, plan, engine_step, step_fn=None):
+    """(state, rnd) -> (state, EngineFrame or None): `engine_step(cfg,
+    state, plan, rnd)`, with its tap when cfg.telemetry.
+    `step_fn(state, plan, rnd)` overrides it; under telemetry it returns
+    (state, frame) itself, as in the reference."""
+    if step_fn is not None:
+        if cfg.telemetry:
+            return lambda st, rnd: step_fn(st, plan, rnd)
+        return lambda st, rnd: (step_fn(st, plan, rnd), None)
+    if not cfg.telemetry:
+        return lambda st, rnd: (engine_step(cfg, st, plan, rnd), None)
+
+    def tapped(st, rnd):
+        tap: dict = {}
+        st = engine_step(cfg, st, plan, rnd, tap=tap)
+        return st, frame_from_tap(tap, st.step.device)
+    return tapped
 
 
 def _stack(rows: list) -> PeriodSeries:
     return PeriodSeries(*(torch.stack(col) for col in zip(*rows)))
+
+
+def _frames(frames: list):
+    """The stacked telemetry of a run, None when the tap was off."""
+    return stack_frames(frames) if frames and frames[0] is not None \
+        else None
 
 
 def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
@@ -186,15 +213,17 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     kernels).  The `disseminated` milestone reads the dissemination floor
     (gone_key), so it can lag true dissemination by up to the window
     length (deviation R2); the other two are exact."""
-    stepper = _stepper(cfg, plan, step_fn)
+    ring.check_slice(cfg)
+    stepper = make_stepper(cfg, plan, ring.step, step_fn)
     n = cfg.n_nodes
     dev = state.win.device
     base = faults.base_of(plan)
     track = _new_track(n, dev)
-    rows = []
+    rows, frames = [], []
     for rnd in ring.period_randomness(cfg, root_key, int(state.step),
                                       periods, dev):
-        state = stepper(state, rnd)
+        state, frame = stepper(state, rnd)
+        frames.append(frame)
         t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, state,
                                                                base)
         not_alive, dead_seen, dead_all, counts = _subject_flags(
@@ -208,7 +237,7 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
                      _false_dead_views(state.subject, state.rkey, knowers,
                                        up, gone_dead),
                      _max_incarnation(state)))
-    return RingStudyResult(state, track, _stack(rows))
+    return RingStudyResult(state, track, _stack(rows), _frames(frames))
 
 
 def _new_track(n: int, dev) -> StudyTrack:
@@ -226,9 +255,10 @@ def _observers(state, base: FaultPlan):
 def dense_study_period(cfg: SwimConfig, state: dense.DenseState,
                        track: StudyTrack, base: FaultPlan, rnd, stepper):
     """One period of the dense study, all on the device: (state, track,
-    the period's series row).  The views are read off the [N, N] keys;
+    the period's series row, its EngineFrame or None); `stepper` as
+    `make_stepper` makes it.  The views are read off the [N, N] keys;
     `live` (crash- and join-aware) selects the observers."""
-    state = stepper(state, rnd)
+    state, frame = stepper(state, rnd)
     t, crashed, live = _observers(state, base)
     key = state.key
     live_col = live[:, None]
@@ -247,7 +277,7 @@ def dense_study_period(cfg: SwimConfig, state: dense.DenseState,
            _wrap32(dead_live.sum(dtype=I64)),
            _wrap32((dead_live & live[None, :]).sum(dtype=I64)),
            lattice.incarnation_of(key).max())
-    return state, track, row
+    return state, track, row, frame
 
 
 def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
@@ -259,26 +289,25 @@ def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
     dev = state.key.device
     base = faults.base_of(plan)
     track = _new_track(cfg.n_nodes, dev)
-    rows = []
+    rows, frames = [], []
     t0 = int(state.step)
-
-    def stepper(st, rnd):
-        return dense.step(cfg, st, plan, rnd)
-
+    stepper = make_stepper(cfg, plan, dense.step)
     for t in range(t0, t0 + periods):
-        state, track, row = dense_study_period(
+        state, track, row, frame = dense_study_period(
             cfg, state, track, base, prng.draw_period(root_key, t, cfg, dev),
             stepper)
         rows.append(row)
-    return StudyResult(state, track, _stack(rows))
+        frames.append(frame)
+    return StudyResult(state, track, _stack(rows), _frames(frames))
 
 
 def rumor_study_period(cfg: SwimConfig, state: rumor.RumorState,
                        track: StudyTrack, base: FaultPlan, rnd, stepper):
     """One period of the rumor study, all on the device: (state, track,
-    the period's series row).  The live-knower counts of the rumors
-    are taken once; the tombstone floor holds only DEAD keys."""
-    state = stepper(state, rnd)
+    the period's series row, its EngineFrame or None).  The live-knower
+    counts of the rumors are taken once; the tombstone floor holds only
+    DEAD keys."""
+    state, frame = stepper(state, rnd)
     t, crashed, up = _observers(state, base)
     knowers = rumor.live_knowers(state.knows, up)
     gone_dead = lattice.is_dead(state.gone_key)
@@ -292,7 +321,7 @@ def rumor_study_period(cfg: SwimConfig, state: rumor.RumorState,
     return state, track, (counts[0], counts[1],
                           _false_dead_views(state.subject, state.rkey,
                                             knowers, up, gone_dead),
-                          _max_incarnation(state))
+                          _max_incarnation(state)), frame
 
 
 def run_study_rumor(cfg: SwimConfig, state: rumor.RumorState, plan,
@@ -304,18 +333,16 @@ def run_study_rumor(cfg: SwimConfig, state: rumor.RumorState, plan,
     dev = state.knows.device
     base = faults.base_of(plan)
     track = _new_track(cfg.n_nodes, dev)
-    rows = []
+    rows, frames = [], []
     t0 = int(state.step)
-
-    def stepper(st, rnd):
-        return rumor.step(cfg, st, plan, rnd)
-
+    stepper = make_stepper(cfg, plan, rumor.step)
     for t in range(t0, t0 + periods):
-        state, track, row = rumor_study_period(
+        state, track, row, frame = rumor_study_period(
             cfg, state, track, base,
             rumor.draw_period_rumor(root_key, t, cfg, dev), stepper)
         rows.append(row)
-    return RumorStudyResult(state, track, _stack(rows))
+        frames.append(frame)
+    return RumorStudyResult(state, track, _stack(rows), _frames(frames))
 
 
 def compact_track_init(plan, periods: int) -> CompactTrack:
@@ -360,8 +387,9 @@ def _compact_subject_flags(subjects, subject, rkey, knowers, up,
 def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
                  stepper):
     """One period of a streaming study, all on the device (no host
-    read): (state, track, the period's series row)."""
-    state = stepper(state, rnd)
+    read): (state, track, the period's series row, its EngineFrame or
+    None)."""
+    state, frame = stepper(state, rnd)
     t, _, up, knowers, gone_na, gone_dead = _census(cfg, state, base)
     not_alive, dead_seen, dead_all = _compact_subject_flags(
         track.subjects, state.subject, state.rkey, knowers, up,
@@ -376,23 +404,25 @@ def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
     return state, track, (counts[0], counts[1],
                           _false_dead_views(state.subject, state.rkey,
                                             knowers, up, gone_dead),
-                          _max_incarnation(state))
+                          _max_incarnation(state)), frame
 
 
 def _run_study_ring_chunk(cfg: SwimConfig, state, track: CompactTrack,
                           plan, root_key, periods: int, stepper):
-    """`periods` periods of a streaming study: (state, track, series of
-    the chunk on the device).  The period clock is state.step, so
-    chained chunks reproduce one long run bitwise."""
+    """`periods` periods of a streaming study: (state, track, series and
+    stacked frames (or None) of the chunk on the device).  The period
+    clock is state.step, so chained chunks reproduce one long run
+    bitwise."""
     dev = state.win.device
     base = faults.base_of(plan)
-    rows = []
+    rows, frames = [], []
     for rnd in ring.period_randomness(cfg, root_key, int(state.step),
                                       periods, dev):
-        state, track, row = study_period(cfg, state, track, base, rnd,
-                                         stepper)
+        state, track, row, frame = study_period(cfg, state, track, base,
+                                                rnd, stepper)
         rows.append(row)
-    return state, track, _stack(rows)
+        frames.append(frame)
+    return state, track, _stack(rows), _frames(frames)
 
 
 class StudyCheckpointer:
@@ -458,11 +488,13 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
     if ckpt is not None and cfg.telemetry:
         raise ValueError("streaming study checkpointing does not cover "
                          "telemetry frames; disable one of them")
-    stepper = _stepper(cfg, plan, step_fn)
+    ring.check_slice(cfg)
+    stepper = make_stepper(cfg, plan, ring.step, step_fn)
     dev = state.win.device
     track = None
     done = 0
     series_parts: list = []
+    frame_parts: list = []
     if ckpt is not None:
         restored = ckpt.restore(state)
         if restored is not None:
@@ -491,17 +523,40 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
                  else periods)
     while done < periods:
         csize = min(chunk, periods - done)
-        state, track, series_c = _run_study_ring_chunk(
+        state, track, series_c, frames_c = _run_study_ring_chunk(
             cfg, state, track, plan, root_key, csize, stepper)
         done += csize
         series_parts.append(host_series(series_c))
+        if frames_c is not None:
+            frame_parts.append(frames_c)
         if ckpt is not None and done < periods:
             series_so_far = PeriodSeries(*(np.concatenate(xs) for xs in
                                            zip(*series_parts)))
             ckpt.save(state, track, series_so_far, root_key, done)
     series = PeriodSeries(*(torch.from_numpy(np.concatenate(xs)).to(dev)
                             for xs in zip(*series_parts)))
-    return RingStudyResult(state, track, series)
+    frames = concat_frames(frame_parts) if frame_parts else None
+    return RingStudyResult(state, track, series, frames)
+
+
+# ---------------------------------------------------------------------
+# Batched studies: P studies of one configuration along a leading P axis
+# ---------------------------------------------------------------------
+
+
+def batch_states(states) -> Any:
+    """Stack per-lane states (or any NamedTuples of one structure)
+    leaf-wise along a new leading P axis."""
+    states = list(states)
+    if not states:
+        raise ValueError("batch_states: empty state list")
+    return tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def lane_result(result, p: int):
+    """Lane `p` of a batched result (indexes every stacked leaf; a None
+    telemetry slot stays None)."""
+    return tree_map(lambda x: x[p], result)
 
 
 def _host(x) -> np.ndarray:

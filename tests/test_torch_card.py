@@ -20,7 +20,13 @@ conftest, which imports JAX,
   * the dense and rumor engines (plain PyTorch) on the card equal the
     CPU, under crashes, loss, a partition and a program, vanilla and
     with Lifeguard; the card reproduces golden.ENGINE_DIGESTS; a study
-    period of each engine makes no host sync.
+    period of each engine makes no host sync;
+  * a telemetry study period of each engine (ring: the default wave
+    scope, with its three kernels) at 20,000 nodes makes no host sync
+    and gives int32 frames on the card that saw deliveries (card frames
+    against the CPU's: chip_smoke.py's engine parity, dense 2,048 and
+    rumor 100,000 nodes); the lanes of a P = 2 ring batch with
+    telemetry equal their serial runs on the card.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from test_torch_cases import (
 from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
-from swim_tpu_torch.sim import faults, runner
+from swim_tpu_torch.sim import experiments, faults, runner
 from swim_tpu_torch.utils import prng, threefry
+from swim_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -218,20 +225,17 @@ def test_study_period_makes_no_host_sync(cuda, name):
     key = threefry.key(4)
     track = runner.compact_track_init(plan, 12)
     base = faults.base_of(plan)
-
-    def stepper(st, rnd):
-        return ring.step(cfg, st, plan, rnd)
-
+    stepper = runner.make_stepper(cfg, plan, ring.step)
     # the first period builds the per-(cfg, device) tables
-    state, track, _ = runner.study_period(
+    state, track, _, _ = runner.study_period(
         cfg, ring.init_state(cfg, cuda), track, base,
         ring.draw_period_ring(key, 0, cfg, cuda), stepper)
     rnd = ring.draw_period_ring(key, 1, cfg, cuda)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, track, row = runner.study_period(cfg, state, track, base,
-                                                rnd, stepper)
+        state, track, row, _ = runner.study_period(cfg, state, track,
+                                                   base, rnd, stepper)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.step) == 2 and len(row) == 4
@@ -292,9 +296,69 @@ def test_engine_study_period_makes_no_host_sync(cuda, name, n):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, _, row = period(cfg, res.state, res.track,
-                               faults.base_of(plan), rnd,
-                               lambda st, r: mod.step(cfg, st, plan, r))
+        state, _, row, _ = period(cfg, res.state, res.track,
+                                  faults.base_of(plan), rnd,
+                                  runner.make_stepper(cfg, plan, mod.step))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.step) == 3 and len(row) == 4
+
+
+# ------------------------------------------------- telemetry and batches
+
+TAPPED = {"dense": (dense, prng.draw_period, runner.dense_study_period),
+          "rumor": (rumor, rumor.draw_period_rumor,
+                    runner.rumor_study_period),
+          "ring": (ring, ring.draw_period_ring, runner.study_period)}
+
+
+@pytest.mark.parametrize("name", list(TAPPED))
+def test_telemetry_study_period_makes_no_host_sync(cuda, name):
+    """Two telemetry study periods on the card, the second with
+    PyTorch's sync check set to raise; each gives an int32 frame."""
+    n = 20_000
+    cfg = SwimConfig(n_nodes=n, telemetry=True)
+    mod, draw, period = TAPPED[name]
+    plan = engine_plan(n, cuda)
+    stepper = runner.make_stepper(cfg, plan, mod.step)
+    track = (runner.compact_track_init(plan, 8) if name == "ring"
+             else runner._new_track(n, cuda))
+    state = mod.init_state(cfg, cuda)
+    frames = []
+    for t in range(2):
+        rnd = draw(threefry.key(6), t, cfg, cuda)
+        torch.cuda.synchronize()
+        if t:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, track, row, frame = period(
+                cfg, state, track, faults.base_of(plan), rnd, stepper)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        frames.append(frame)
+    assert int(state.step) == 2 and len(row) == 4
+    assert all(x.dtype == torch.int32 and x.device == state.step.device
+               for f in frames for x in f)
+    assert int(frames[1].waves_delivered) > 0
+
+
+def test_ring_batch_lanes_equal_serial_on_the_card(cuda):
+    n, periods = 20_000, 6
+    cfg = SwimConfig(n_nodes=n, telemetry=True)
+    progs = [slice_plan("program", n, cuda),
+             faults.pad_program(faults.as_program(
+                 slice_plan("pull", n, cuda)), 3)]
+    keys = [threefry.key(11), threefry.key(12)]
+    before = (selb.launches, coldsel.launches, wavemerge.launches)
+    batched = experiments._run_study_batch(cfg, progs, keys, periods,
+                                           "ring", device=cuda)
+    made = [a - b for a, b in zip((selb.launches, coldsel.launches,
+                                   wavemerge.launches), before)]
+    assert made == [2 * periods * 14, 2 * periods, 2 * periods * 14]
+    for p in range(2):
+        serial = experiments._run_study(cfg, progs[p], keys[p], periods,
+                                        "ring", cuda)
+        pairs = []
+        tree_map(lambda a, b: pairs.append(torch.equal(a, b)),
+                 runner.lane_result(batched, p), serial)
+        assert pairs and all(pairs), f"lane {p}"

@@ -6,7 +6,10 @@
     `step` gives the JAX package's DenseState after every period, in all
     five fields, for: crashes, loss 0.2, a partition, late joiners and a
     FaultProgram (gray and flapping link segments); Lifeguard with buddy;
-    round-robin targets; n = 2 and n = 3 (no proxies).  (`run` from a
+    round-robin targets; n = 2 and n = 3 (no proxies).  The JAX step
+    runs with its telemetry tap, the port's without and with it: both
+    states equal, and the eight EngineFrame fields equal the JAX frame,
+    every period.  (`run` from a
     seed is held to the JAX `run` by tests/test_torch_golden.py.)
 
 The JAX engine runs as plain XLA on the CPU, one period at a time (one

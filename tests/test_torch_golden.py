@@ -23,6 +23,8 @@ from swim_tpu.types import Status, key_status
 from swim_tpu_torch import convert, golden
 from swim_tpu_torch.models import dense, ring, rumor
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def jax_golden_run(name):
     cfg, nodes, at = golden.golden_config(name)
@@ -109,7 +111,6 @@ def jax_engine_run(name):
     return {f: np.asarray(getattr(st, f)) for f in st._fields}
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("name", sorted(golden.ENGINE_DIGESTS))
 def test_engine_digests_from_both_packages(name):
     ref = jax_engine_run(name)

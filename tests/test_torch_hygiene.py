@@ -6,7 +6,9 @@
     first letters and is allowed);
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
     imports the port, runs a few CPU periods of each path and engine, a
-    small streaming study and a small study with the default engine;
+    small streaming study, a small study with the default engine and
+    telemetry, its flight-recorder dump read back by the analyzer, and
+    a batch of two fault programs;
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -54,7 +56,8 @@ def test_port_files_found():
     assert {"ring.py", "selb.py", "coldsel.py", "wavemerge.py",
             "threefry.py", "chip_smoke.py", "runner.py", "experiments.py",
             "checkpoint.py", "metrics.py", "analyze.py", "dense.py",
-            "rumor.py", "prng.py", "scatter.py", "common.py"} <= names
+            "rumor.py", "prng.py", "scatter.py", "common.py", "engine.py",
+            "health.py", "recorder.py", "tree.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -100,8 +103,19 @@ def test_steps_with_jax_unimportable():
         "    st = mod.run(cfg, mod.init_state(cfg, 'cpu'), plan, 1, 3)\n"
         "    assert int(st.step) == 3\n"
         "from swim_tpu_torch.sim import experiments\n"
-        "out = experiments.detection_study(n=64, periods=4, device='cpu')\n"
-        "assert out['engine'] == 'dense'\n"
+        "import tempfile, os\n"
+        "from swim_tpu_torch.obs import analyze\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    path = os.path.join(d, 'fr.jsonl')\n"
+        "    out = experiments.detection_study(\n"
+        "        n=64, periods=4, device='cpu', telemetry=True,\n"
+        "        flight_record=path)\n"
+        "    assert analyze.analyze(path)['periods'] == 4\n"
+        "assert out['engine'] == 'dense' and 'telemetry' in out\n"
+        "progs = [faults.as_program(plan), faults.as_program(plan, capacity=2)]\n"
+        "res = experiments._run_study_batch(SwimConfig(n_nodes=64), progs,\n"
+        "    [threefry.key(0), threefry.key(1)], 3, 'ring', device='cpu')\n"
+        "assert tuple(res.series.dead_views.shape) == (2, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

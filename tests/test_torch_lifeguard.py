@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
 from test_torch_ring import (
     LIFEGUARD_STEP_CASES, case_id, check_run_parity, check_step_parity)
 
@@ -20,6 +21,8 @@ from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import rumor as jrumor
 from swim_tpu_torch import SwimConfig
 from swim_tpu_torch.models import rumor
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("cfg_name,name,n,periods,seed", LIFEGUARD_STEP_CASES,

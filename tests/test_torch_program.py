@@ -7,7 +7,9 @@ step under it against `swim_tpu.models.ring`, bit for bit.
     overlapping segments on one domain and a saturating sum;
   * the rotor step under a three-segment program (gray, flapping link
     loss, send loss on every node), all 14 RingState fields per period,
-    in period and wave scope;
+    in period and wave scope; the JAX step runs with its telemetry tap,
+    the port's without and with it, both states equal the JAX state and
+    the eight EngineFrame fields the JAX frame;
   * a program with zero segments runs exactly the plain plan's step;
     pull-uniform probing with a program raises, as the reference does.
 
@@ -19,6 +21,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_engine_cases import (assert_same_frame, jax_tapped_step,
+                                one_torch_thread, port_step_both)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import ring as jring
@@ -26,6 +30,8 @@ from swim_tpu.sim import faults as jfaults
 from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.sim import faults
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 48
 
@@ -125,23 +131,25 @@ def test_program_step_parity(scope):
     jp = build(jfaults, jplan, SEGMENTS)
     tp = build(faults, plan, SEGMENTS)
     key = jax.random.key(3)
-    jstep = jax.jit(lambda s, r: jring.step(jcfg, s, jp, r))
+    jstep = jax_tapped_step(jring, jcfg)
     jdraw = jax.jit(lambda t: jring.draw_period_ring(key, t, jcfg))
     js = jring.init_state(jcfg)
     ts = ring.init_state(cfg, "cpu")
     plain = ring.init_state(cfg, "cpu")
     for t in range(12):
         rnd = jdraw(t)
-        js = jstep(js, rnd)
+        js, jframe = jstep(js, jp, rnd)
         trnd = convert.randomness_from_numpy(
             {f: np.asarray(getattr(rnd, f)) for f in rnd._fields
              if f != "pull"}, "cpu")
-        ts = ring.step(cfg, ts, tp, trnd)
+        untapped, ts, frame = port_step_both(ring, cfg, ts, tp, trnd)
         plain = ring.step(cfg, plain, plan, trnd)
-        got = convert.state_to_numpy(ts)
-        for f in jring.RingState._fields:
-            np.testing.assert_array_equal(got[f], np.asarray(getattr(js, f)),
-                                          err_msg=f"{f} @ {t}")
+        assert_same_frame(frame, jframe, f"period {t}")
+        for s in (untapped, ts):
+            got = convert.state_to_numpy(s)
+            for f in jring.RingState._fields:
+                np.testing.assert_array_equal(
+                    got[f], np.asarray(getattr(js, f)), err_msg=f"{f} @ {t}")
     # the lanes changed the run: it differs from the plain plan's
     assert not torch.equal(ts.win, plain.win)
 

@@ -7,8 +7,11 @@ bit.
     rotor offsets, the empty u16 legs) against the JAX draw;
   * the pull step per period, all 14 RingState fields, for a crash
     plan, a loss + partition plan and a join plan, in period and wave
-    scope; each JAX step is compiled once per config and takes the plan
-    as an argument;
+    scope; each JAX step is compiled once per config, takes the plan
+    as an argument and runs with its telemetry tap; the port steps
+    without and with the tap, both states equal the JAX state and the
+    eight EngineFrame fields (the pull path's three gossip deliveries)
+    the JAX frame;
   * pull with Lifeguard is refused by both packages' SwimConfig.
 
 Tolerance: exact.
@@ -22,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_engine_cases import (assert_same_frame, jax_tapped_step,
+                                one_torch_thread, port_step_both)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import ring as jring
@@ -29,6 +34,8 @@ from swim_tpu.sim import faults as jfaults
 from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.utils import threefry
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 32
 SCOPES = {"period": dict(ring_probe="pull", ring_sel_scope="period"),
@@ -55,8 +62,8 @@ def assert_same_state(port, ref, where):
 
 @functools.lru_cache(maxsize=None)
 def jax_step(scope):
-    jcfg = JaxSwimConfig(n_nodes=N, **SCOPES[scope])
-    return jax.jit(lambda s, p, r: jring.step(jcfg, s, p, r))
+    """(state, plan, rnd) -> (state, EngineFrame)."""
+    return jax_tapped_step(jring, JaxSwimConfig(n_nodes=N, **SCOPES[scope]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,17 +150,22 @@ def test_pull_step_parity(scope, name, seed):
     plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
     js = jring.init_state(JaxSwimConfig(n_nodes=N, **SCOPES[scope]))
     ts = ring.init_state(cfg, "cpu")
-    suspected = 0
+    suspected = delivered = 0
     for t in range(periods):
         rnd = jax_draw(scope, seed)(t)
-        js = jax_step(scope)(js, jplan, rnd)
-        ts = ring.step(cfg, ts, plan,
-                       convert.randomness_from_numpy(rnd_fields(rnd), "cpu"))
-        assert_same_state(ts, js, f"{scope} {name} period {t}")
+        js, jframe = jax_step(scope)(js, jplan, rnd)
+        plain, ts, frame = port_step_both(
+            ring, cfg, ts, plan,
+            convert.randomness_from_numpy(rnd_fields(rnd), "cpu"))
+        where = f"{scope} {name} period {t}"
+        assert_same_state(plain, js, f"{where} (untapped)")
+        assert_same_state(ts, js, where)
+        assert_same_frame(frame, jframe, where)
+        delivered += int(frame.waves_delivered)
         suspected = max(suspected, int(((ts.subject >= 0)
                                         & ((ts.rkey & 1) == 1)).sum()))
     # the runs have teeth: a suspicion was raised and spread
-    assert suspected > 0
+    assert suspected > 0 and delivered > 0
     assert int(ts.win.ne(0).sum()) > 0
 
 

@@ -3,7 +3,11 @@
 Step-by-step parity: JAX's `draw_period_ring` draws each period's
 randomness, it is carried across (convert.randomness_from_numpy), both
 engines step, and all 14 RingState fields must be equal after every
-period.  The port follows the engine, not the oracle, so stale freed
+period.  The JAX step runs with its telemetry tap (its state is the
+untapped one, as the reference pins); the port steps without the tap
+(the kernels' plain versions, `plain=True`) and with it (through the
+kernel wrappers), both states must equal the JAX state and the eight
+EngineFrame fields the JAX frame.  The port follows the engine, not the oracle, so stale freed
 table slots and every `cold` column are compared too.  The configs:
 period scope (one selection a period, waves fused), wave scope (the
 default: a selection and a delivery per wave), `k_indirect=8` (period
@@ -16,10 +20,14 @@ teeth.  Whole-run parity holds the port's own threefry against
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_engine_cases import (assert_same_frame, jax_tapped_step,
+                                one_torch_thread)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import ring as jring
@@ -27,8 +35,11 @@ from swim_tpu.sim import faults as jfaults
 from swim_tpu.types import Status, key_status
 from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.models import ring
+from swim_tpu_torch.obs.engine import frame_from_tap
 from swim_tpu_torch.ops import wavemerge
 from swim_tpu_torch.sim import faults
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def np_fields(nt) -> dict:
@@ -103,18 +114,26 @@ def case_id(case):
     return tail if case[0] == "period" else f"{case[0]}-{tail}"
 
 
+@functools.lru_cache(maxsize=None)
+def jax_draw(jcfg):
+    """JAX's `draw_period_ring` for `jcfg`, jitted with the key and the
+    period as arguments (one compile per config)."""
+    return jax.jit(lambda key, t: jring.draw_period_ring(key, t, jcfg))
+
+
 def step_both(cfg_name, name, n, periods, seed, monkeypatch):
-    """Step both engines in lockstep; returns (JAX state, port state,
-    stats) with the forced buddy bits delivered and the largest health
-    score seen over the run."""
+    """Step both engines in lockstep, the port without and with the tap;
+    returns (JAX state, port state, stats) with the forced buddy bits
+    delivered (counted on the tapped step) and the largest health score
+    seen over the run."""
     kw = CONFIGS[cfg_name]
     jcfg = JaxSwimConfig(n_nodes=n, **kw)
     cfg = SwimConfig(n_nodes=n, **kw)
     jplan = jax_plan(name, n)
     plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
     key = jax.random.key(seed)
-    jstep = jax.jit(lambda s, r: jring.step(jcfg, s, jplan, r))
-    jdraw = jax.jit(lambda t: jring.draw_period_ring(key, t, jcfg))
+    jtapped = jax_tapped_step(jring, jcfg)
+    jdraw = jax_draw(jcfg)
     js = jring.init_state(jcfg)
     ts = ring.init_state(cfg, "cpu")
     stats = dict(forced=0, forced_rows=0, merges=0, lha_max=0)
@@ -128,11 +147,17 @@ def step_both(cfg_name, name, n, periods, seed, monkeypatch):
 
     monkeypatch.setattr(wavemerge, "merge_waves", spy)
     for t in range(periods):
-        rnd = jdraw(t)
-        js = jstep(js, rnd)
-        ts = ring.step(cfg, ts, plan,
-                       convert.randomness_from_numpy(np_fields(rnd), "cpu"))
-        assert_same_state(ts, js, f"{cfg_name} {name} period {t}")
+        rnd = jdraw(key, t)
+        js, jframe = jtapped(js, jplan, rnd)
+        trnd = convert.randomness_from_numpy(np_fields(rnd), "cpu")
+        where = f"{cfg_name} {name} period {t}"
+        plain = ring.step(cfg, ts._replace(cold=ts.cold.clone()), plan, trnd,
+                          plain=True)
+        tap = {}
+        ts = ring.step(cfg, ts, plan, trnd, tap=tap)
+        assert_same_state(plain, js, f"{where} (untapped)")
+        assert_same_state(ts, js, where)
+        assert_same_frame(frame_from_tap(tap, "cpu"), jframe, where)
         stats["lha_max"] = max(stats["lha_max"], int(ts.lha.max()))
     return js, ts, stats
 
@@ -228,8 +253,10 @@ def test_engine_runs_on_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(profiling=True), dict(ring_scalar_wire="packed"),
-    dict(telemetry=True)], ids=["kw1", "kw3", "kw4"])
+    dict(telemetry=True, profiling=True)], ids=["kw1", "kw3", "kw4"])
 def test_out_of_slice_configs_raise(kw):
+    """The profiling tap and the packed wire raise naming their ROADMAP
+    item; telemetry, which runs, does not lift the profiling refusal."""
     cfg = SwimConfig(n_nodes=16, **{"ring_sel_scope": "period", **kw})
     plan = faults.none(16, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,19 +267,22 @@ def test_out_of_slice_configs_raise(kw):
 
 @pytest.mark.parametrize("arg", ["ext", "tap", "prof", "program"])
 def test_out_of_slice_arguments_raise(arg):
-    """ext/tap/prof raise naming their ROADMAP item; a FaultProgram
-    under pull-uniform probing raises as the reference does."""
+    """ext and prof raise naming their own ROADMAP item, prof also
+    beside a tap (which runs); a FaultProgram under pull-uniform probing
+    raises as the reference does."""
     probe = "pull" if arg == "program" else "rotor"
     cfg = SwimConfig(n_nodes=16, ring_sel_scope="period", ring_probe=probe)
     plan = faults.none(16, "cpu")
     state = ring.init_state(cfg, "cpu")
     rnd = ring.draw_period_ring((0, 0), 0, cfg, "cpu")
-    kw = {} if arg == "program" else {arg: object()}
-    match = "ROADMAP"
+    kw, match = {
+        "ext": ({"ext": object()}, "ROADMAP.*serving"),
+        "prof": ({"prof": object()}, "ROADMAP.*instruments"),
+        "tap": ({"tap": {}, "prof": object()}, "ROADMAP.*instruments"),
+        "program": ({}, "pull-uniform")}[arg]
     if arg == "program":
         plan = faults.with_segment(faults.as_program(plan, capacity=1), 0,
                                    start=0, end=4, kind="gray", level=0.5)
-        match = "pull-uniform"
     with pytest.raises(NotImplementedError, match=match):
         ring.step(cfg, state, plan, rnd, **kw)
 

@@ -9,7 +9,10 @@
     and dynamic suspicion; round-robin targets; n = 2 and n = 3 (no
     proxies); a crash-only run with a small rumor capacity (budget
     overflow, slot reuse) long enough for DEAD rumors to retire into
-    `gone_key`; max_piggyback = 24 (the top-k selection);
+    `gone_key`; max_piggyback = 24 (the top-k selection); the JAX step
+    runs with its telemetry tap, the port's without and with it: both
+    states equal, and the eight EngineFrame fields equal the JAX frame,
+    every period;
   * the row-chunked reductions with the chunk shrunk to a few rows give
     the unchunked states;
   * `view_matrix` and `opinion_of` against the JAX functions (`run`

@@ -10,8 +10,8 @@
   * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
     two ValueError refusals of a resume;
   * `detection_study` and one point of `suspicion_sweep` give the JAX
-    package's dicts; the sharded engines, telemetry and the flight
-    recorder raise naming their ROADMAP item;
+    package's dicts; the sharded engines and the profiling tap raise
+    naming their ROADMAP item;
   * the dense and rumor runners (`run_study`, `run_study_rumor`: track,
     series, final state) against the JAX runners; `pick_engine`; the
     four studies' dicts with `engine="auto"` (dense) and `"rumor"`;
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import dense as jdense
@@ -39,6 +40,8 @@ from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.sim import experiments, faults, runner
 from swim_tpu_torch.utils import threefry
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the shapes of detection_study(n=1000, periods=12, engine="ring")
 N, PERIODS, CHUNK = 1000, 12, 5
@@ -210,11 +213,15 @@ def test_detection_study_and_suspicion_sweep_match_the_reference():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(engine="shard"), "ROADMAP"),
-    (dict(engine="rumor", telemetry=True), "ROADMAP"),
+    (dict(engine="rumor", profiling=True), "ROADMAP"),
     (dict(engine="ringshard"), "ROADMAP"),
-    (dict(engine="ring", telemetry=True), "instruments"),
-    (dict(engine="ring", flight_record="x.jsonl"), "instruments")])
+    (dict(engine="ring", telemetry=True, profiling=True), "instruments"),
+    (dict(engine="dense", flight_record="x.jsonl", telemetry=True,
+          profiling=True), "instruments")])
 def test_studies_outside_the_port_raise(kw, match):
+    """Telemetry and the flight recorder run (tests/test_torch_telemetry.py,
+    tests/test_torch_observatory.py); beside them the profiling tap still
+    raises, on every engine."""
     with pytest.raises(NotImplementedError, match=match):
         experiments.detection_study(n=64, periods=2, device="cpu", **kw)
     if "flight_record" not in kw:

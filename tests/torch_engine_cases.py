@@ -6,10 +6,13 @@ A case is (SwimConfig keywords, fault plan builder, periods).  Plans
 are built with the JAX package's constructors and carried to the port
 through numpy (convert.py), so both packages step the same plan.
 `jax_trajectory` steps the JAX engine one period at a time (one
-compile per config) and keeps every period's randomness and state as
-numpy arrays; `check_port_trajectory` steps the port from the same
-initial state with the same randomness and compares every field after
-every period, with tolerance 0.
+compile per config), with its telemetry tap, and keeps every period's
+randomness, state and EngineFrame as numpy arrays (the reference pins
+the tapped state bitwise to the untapped one).  `check_port_trajectory`
+steps the port from the same initial state with the same randomness,
+without and with the tap, and compares every field of both states and
+the eight frame fields (values and int32 dtype) after every period,
+with tolerance 0.
 """
 from __future__ import annotations
 
@@ -21,14 +24,18 @@ import pytest
 import torch
 
 from swim_tpu import SwimConfig as JaxSwimConfig
+from swim_tpu.obs.engine import frame_from_tap as jax_frame_from_tap
 from swim_tpu.sim import faults as jfaults
 from swim_tpu_torch import SwimConfig, convert
+from swim_tpu_torch.obs.engine import EngineFrame, frame_from_tap
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def one_torch_thread():
-    """The port's CPU ops on one thread: these tensors are small, and the
-    test runner shares the cores among its workers."""
+    """The port's CPU ops on one thread for a whole test module (its
+    module-scoped fixtures included): these tensors are small, and the
+    test runner shares the cores among its workers, where every thread
+    pool the size of the machine oversubscribes it."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -78,21 +85,59 @@ def crash_loss_plan(n: int, loss: float, crashes=None):
         loss)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_tapped_step(mod, jcfg):
+    """The JAX engine's step with its telemetry tap, jitted: (state,
+    plan, rnd) -> (state, EngineFrame).  One per (engine, config), so
+    cases that differ only in their plan share one compile."""
+    def tapped(st, plan, rnd):
+        tap: dict = {}
+        st = mod.step(jcfg, st, plan, rnd, tap=tap)
+        return st, jax_frame_from_tap(tap)
+    return jax.jit(tapped)
+
+
+def assert_same_frame(got, want, where: str) -> None:
+    """The port's EngineFrame of 0-d tensors against the JAX frame: all
+    eight fields, int32, equal."""
+    for f in EngineFrame._fields:
+        g, w = getattr(got, f), np.asarray(getattr(want, f))
+        assert g.dtype == torch.int32 and w.dtype == np.int32, \
+            f"{f} dtype @ {where}"
+        assert g.shape == w.shape and int(g) == int(w), \
+            f"{f} @ {where}: {int(g)} != {int(w)}"
+
+
+def port_step_both(mod, cfg, st, plan, rnd, **kw):
+    """The port's step from `st` without and with the tap: (untapped
+    state, tapped state, frame).  A ring state's `cold` (updated in
+    place) is cloned for the untapped step."""
+    if hasattr(st, "cold"):
+        plain_st = mod.step(cfg, st._replace(cold=st.cold.clone()), plan,
+                            rnd, **kw)
+    else:
+        plain_st = mod.step(cfg, st, plan, rnd, **kw)
+    tap: dict = {}
+    tapped = mod.step(cfg, st, plan, rnd, tap=tap)
+    return plain_st, tapped, frame_from_tap(tap, st.step.device)
+
+
 def jax_trajectory(mod, draw, cfg_kw: dict, plan, periods: int,
                    seed: int = 0) -> dict:
-    """The JAX engine `mod` (dense or rumor) stepped period by period:
-    {"init": numpy state, "rnd": [numpy draws], "states": [numpy
-    state after each period]}."""
+    """The JAX engine `mod` (dense or rumor) stepped period by period
+    with its tap: {"init": numpy state, "rnd": [numpy draws], "states":
+    [numpy state after each period], "frames": [its EngineFrame]}."""
     jcfg = JaxSwimConfig(**cfg_kw)
-    step = jax.jit(functools.partial(mod.step, jcfg))
+    step = jax_tapped_step(mod, jcfg)
     st = mod.init_state(jcfg)
-    out = {"init": np_fields(st), "rnd": [], "states": []}
+    out = {"init": np_fields(st), "rnd": [], "states": [], "frames": []}
     key = jax.random.key(seed)
     for t in range(periods):
         rnd = draw(key, t, jcfg)
         out["rnd"].append(rnd)
-        st = step(st, plan, rnd)
+        st, frame = step(st, plan, rnd)
         out["states"].append(np_fields(st))
+        out["frames"].append(jax.tree_util.tree_map(np.asarray, frame))
     out["rnd"] = [jax.tree_util.tree_map(np.asarray, r) for r in out["rnd"]]
     return out
 
@@ -101,15 +146,20 @@ def check_port_trajectory(mod, cls, rnd_from, cfg_kw: dict, plan,
                           traj: dict) -> object:
     """Step the port's `mod` from the trajectory's initial state with
     its randomness (`rnd_from` turns one period's numpy draws into the
-    port's); every field equal after every period.  Returns the last
+    port's), without and with the tap; every field of both states and
+    every frame field equal after every period.  Returns the last
     state."""
     cfg = SwimConfig(**cfg_kw)
     st = convert.state_from_numpy(traj["init"], "cpu", cls)
     tplan = port_plan(plan)
-    for t, (rnd, want) in enumerate(zip(traj["rnd"], traj["states"])):
-        st = mod.step(cfg, st, tplan, rnd_from(rnd))
-        got = convert.state_to_numpy(st)
-        for f in cls._fields:
-            np.testing.assert_array_equal(
-                got[f], want[f], err_msg=f"period {t}, field {f}")
+    for t, (rnd, want, frame) in enumerate(zip(
+            traj["rnd"], traj["states"], traj["frames"])):
+        plain_st, st, got_frame = port_step_both(mod, cfg, st, tplan,
+                                                 rnd_from(rnd))
+        assert_same_frame(got_frame, frame, f"period {t}")
+        for which, s in (("untapped", plain_st), ("tapped", st)):
+            got = convert.state_to_numpy(s)
+            for f in cls._fields:
+                np.testing.assert_array_equal(
+                    got[f], want[f], err_msg=f"period {t}, {which}, {f}")
     return st
