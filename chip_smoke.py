@@ -109,12 +109,35 @@ Phases, each printed as one JSON line:
      bitwise equal to its serial run on the card (state, track, series,
      frames), launches P times the serial ones, and the peak memory.
 
+ 12. scenario: the scenario library and the search (sim/scenario.py,
+     sim/search.py).  `rack_outage`, `flap`, `flap_boundary` and
+     `gray_10pct` (ring, packed scalar wire, Lifeguard with buddy, 256
+     nodes, 40-48 periods), `baseline_config3` (rumor, 100,000 nodes, 4
+     arms x 100 periods) and `lean_fidelity` (the ring pull study, 4,096
+     nodes, 24 periods) through `scenario.run` on the card, serial and
+     with `batch=True`: equal verdict bytes (out_dir normalised), and for
+     the four ring specs and `lean_fidelity` equal to the port's verdict
+     on the CPU; each spec's verdict, checks, walls, the bill of its
+     packed arms, and its launches per ring period (a packed ring arm
+     with a program: selb 1, wavemerge 1, coldsel 1; the pull study selb
+     1; rumor none), zeroed before and read after each run;
+     `replay_storm` raises naming ROADMAP item 4.  `gray_10pct`'s
+     program and Lifeguard arm rescaled to 1,000,000 nodes (`blocks:10`,
+     about 100,000 gray nodes) for 20 periods: the packed wire with the
+     kernels, with the plain versions and the wide wire all give equal
+     state in every field, launches 1 / 1 / 1 a period; periods/sec
+     packed and wide in 3 alternating pairs; the 8-way bill of both
+     wires.  `search.search()` at its defaults (4 generations x 16
+     lanes, then `refine_boundary`) twice: equal report bytes, wall,
+     wall per generation, the boundary.
+
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
 is then nonzero and the last line is not printed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import sys
@@ -128,10 +151,11 @@ from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
 from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import dense, ring, rumor
-from swim_tpu_torch.obs import analyze
+from swim_tpu_torch.obs import analyze, ici
 from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
-from swim_tpu_torch.sim import experiments, faults, runner
+from swim_tpu_torch.sim import (experiments, faults, runner, scenario,
+                                search)
 from swim_tpu_torch.utils import prng, threefry
 from swim_tpu_torch.utils.tree import tree_map
 
@@ -1300,6 +1324,182 @@ def telemetry_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ slice 7: scenarios
+
+
+SCENARIO_DIR = Path(__file__).resolve().parent / "_scenarios"
+LIB_RING = ("rack_outage", "flap", "flap_boundary", "gray_10pct")
+LIB_CPU = LIB_RING + ("lean_fidelity",)  # card verdict == the port's CPU's
+PACKED_PERIODS = 20
+PACKED_PAIRS = 3
+
+
+def verdict_text(path: str, out_dir: Path) -> str:
+    with open(path) as fh:
+        return fh.read().replace(str(out_dir), "OUT")
+
+
+def run_scenario(sc, mode: str, device: str, batch: bool):
+    """One scenario run into its own directory: (verdict, normalised
+    verdict text, wall seconds, kernel launches)."""
+    out = SCENARIO_DIR / f"{sc.name}_{mode}"
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    verdict, path = scenario.run(sc, out_dir=str(out), batch=batch,
+                                 device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return verdict, verdict_text(path, out), wall, read_launches()
+
+
+def library_phase(card: str) -> dict:
+    """The library at its own sizes, serial and batched on the card (and
+    on the CPU for the 256-node ring specs and lean_fidelity): equal
+    verdict bytes; a packed ring arm with a program launches selb,
+    wavemerge and coldsel once a period; replay_storm raises.  Returns
+    the kernels' launches over the ring specs' serial card runs."""
+    total = {"selb": 0, "coldsel": 0, "wavemerge": 0}
+    for name in LIB_RING + ("baseline_config3", "lean_fidelity"):
+        sc = scenario.get(name)
+        verdict, text, wall, launches = run_scenario(sc, "card", "cuda",
+                                                     False)
+        _, text_b, wall_b, launches_b = run_scenario(sc, "batch", "cuda",
+                                                     True)
+        if text_b != text:
+            raise AssertionError(f"{name}: batched verdict differs from "
+                                 "the serial one on the card")
+        if launches_b != launches:
+            raise AssertionError(f"{name}: batched launches {launches_b}, "
+                                 f"serial {launches}")
+        row = dict(phase="scenario", part="library", name=name,
+                   n_nodes=sc.n, periods=sc.periods,
+                   arms=list(verdict["arms"]), verdict=verdict["verdict"],
+                   checks=[[c["check"], c.get("arm"), c["ok"]]
+                           for c in verdict["checks"]],
+                   wall_s=wall, wall_s_batch=wall_b, launches=launches)
+        if name in LIB_CPU:
+            _, text_c, wall_c, _ = run_scenario(sc, "cpu", "cpu", False)
+            if text_c != text:
+                raise AssertionError(f"{name}: the card's verdict differs "
+                                     "from the CPU's")
+            row["wall_s_cpu"] = wall_c
+        ring_periods = sc.periods * len(verdict["arms"])
+        if name in LIB_RING:
+            want = {k: ring_periods for k in total}
+            bill = {a: v["ici"] for a, v in verdict["arms"].items()
+                    if "ici" in v}
+            row["ici"] = bill
+            for k, v in launches.items():
+                total[k] += v
+        elif name == "lean_fidelity":
+            want = {"selb": sc.periods, "coldsel": 0, "wavemerge": 0}
+        else:
+            want = {k: 0 for k in total}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        row["launches_per_ring_period"] = {
+            k: v / ring_periods for k, v in launches.items()}
+        row["card"] = card
+        emit(**row)
+    try:
+        scenario.run(scenario.get("replay_storm"),
+                     out_dir=str(SCENARIO_DIR / "replay_storm"))
+    except NotImplementedError as e:
+        if "item 4" not in str(e):
+            raise
+        emit(phase="scenario", part="library", name="replay_storm",
+             raises=str(e))
+    else:
+        raise AssertionError("replay_storm ran; it needs the host layer")
+    return total
+
+
+def packed_phase(card: str) -> dict:
+    """gray_10pct's program and Lifeguard arm at 1,000,000 nodes: the
+    packed wire with the kernels, with the plain versions and the wide
+    wire with the kernels give equal state; periods/sec packed and wide
+    in alternating runs; the bill's bytes on both wires."""
+    sc = dataclasses.replace(scenario.get("gray_10pct"), n=N,
+                             periods=PACKED_PERIODS)
+    _, cfg, prog = scenario._arm_prepare(sc, {}, "cuda")
+    wide = cfg.replace(ring_scalar_wire="wide")
+    t0 = time.perf_counter()
+
+    def run(c, plain=False):
+        return ring.run(c, ring.init_state(c, "cuda"), prog, sc.seed,
+                        PACKED_PERIODS, plain=plain)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    k = run(cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fields = require_same("packed 1M: kernels vs plain", k, run(cfg, True))
+    require_same("packed 1M: packed vs wide wire", k, run(wide))
+    if launches != {x: PACKED_PERIODS for x in launches}:
+        raise AssertionError(f"packed 1M launches {launches}")
+    gray = int((faults.link_lanes(prog, 10)[2] > 0).sum())
+    pps = {"packed": [], "wide": []}
+    for _ in range(PACKED_PAIRS):
+        for name, c in (("packed", cfg), ("wide", wide)):
+            st = ring.init_state(c, "cuda")
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            ring.run(c, st, prog, sc.seed, PACKED_PERIODS)
+            torch.cuda.synchronize()
+            pps[name].append(PACKED_PERIODS / (time.perf_counter() - a))
+    bills = {name: ici.trace_ici_bytes(c, d=8, plan=prog)
+             for name, c in (("packed", cfg), ("wide", wide))}
+    emit(phase="scenario", part="packed_1m", n_nodes=N,
+         periods=PACKED_PERIODS, gray_nodes=gray, fields_equal=fields,
+         launches=launches, suspects=int((k.rkey & 1).sum()),
+         lha_max=int(k.lha.max()), periods_per_sec=pps, bill_d8=bills,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
+def search_phase(card: str) -> None:
+    """search.search() at its defaults, twice: equal report bytes; wall,
+    wall per generation, the boundary."""
+    walls, texts = [], []
+    for i in range(2):
+        path = SCENARIO_DIR / f"search_{i}.json"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = search.search(out=str(path))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        texts.append(path.read_bytes())
+    if texts[0] != texts[1]:
+        raise AssertionError("search: two runs wrote different reports")
+    gens = rep["explore"]["generations"] + len(rep["boundary"]["history"])
+    b = rep["boundary"]
+    emit(phase="scenario", part="search", generations=gens,
+         pop=rep["explore"]["pop"], lanes=gens * rep["explore"]["pop"],
+         wall_s=walls, wall_s_per_generation=[w / gens for w in walls],
+         archive=len(rep["explore"]["archive"]),
+         violations=len(rep["explore"]["violations"]),
+         boundary={k: b.get(k) for k in ("found", "clean_level",
+                                          "violation_level", "width")},
+         card=card)
+
+
+def scenario_phase(card: str) -> dict:
+    """Phase 12; returns the kernels' launches in the library's ring
+    specs and in the 1M packed run."""
+    t0 = time.perf_counter()
+    SCENARIO_DIR.mkdir(exist_ok=True)
+    launches = {"scenario": library_phase(card),
+                "packed": packed_phase(card)}
+    search_phase(card)
+    emit(phase="scenario", part="done", seconds=time.perf_counter() - t0,
+         card=card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -1329,6 +1529,7 @@ def main() -> None:
     study_phase(card)
     launches.update(engines_phase(card))
     launches.update(telemetry_phase(card))
+    launches.update(scenario_phase(card))
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -1350,6 +1551,8 @@ def main() -> None:
             launches_rumor=launches["rumor"].get(name, 0),
             launches_telemetry=launches["telemetry"][name],
             launches_batch=launches["batch"][name],
+            launches_scenario=launches["scenario"][name],
+            launches_packed_1m=launches["packed"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -1,7 +1,7 @@
 """Ring engine (port of `swim_tpu/models/ring.py`).
 
 One protocol period for all N nodes, as the reference's `step` computes
-it with the wide scalar wire, vanilla or with Lifeguard (local health,
+it on either scalar wire, vanilla or with Lifeguard (local health,
 buddy, dynamic suspicion): Phase 0 (judge the outgoing window words,
 recycle the spreading ones, shift the window), the per-subject top-C
 index, the first-B piggyback selection, the probes, Phase C
@@ -13,7 +13,10 @@ queries; with `ring_sel_scope="period"` the selection runs once and the
 waves fuse into one window merge (up to 32 waves); with "wave", the
 default, and beyond 32 waves, the selection (wave scope) and a one-wave
 merge run before and for every wave.  A FaultProgram's per-node link
-and gray lanes add to each wave's loss threshold.  Pull-uniform
+and gray lanes add to each wave's loss threshold.  The packed scalar
+wire (`ring_scalar_wire="packed"`, fused period scope only) rolls each
+wave's scalars narrowed and bundled, as the reference's single-device
+GlobalOps does; its state equals the wide wire's.  Pull-uniform
 (`ring_probe="pull"`, what the detection study runs): cold is flushed
 in Phase 0, and every node pulls one probe lane from random peers by
 row gathers (deviations P1-P4 of the reference).  The reference's
@@ -39,6 +42,10 @@ Layouts and dtypes follow the reference; u32 arrays are int32 carriers
 cold-ring flush, as the reference's kernel aliases it); every other
 field of the incoming state is left untouched.
 
+Every cross-node movement goes through `GlobalOps`, under the
+reference's seam names and roll labels, so that obs/ici.py can tally
+the bytes a sharded layout would move.
+
 Host syncs: none inside `step`.  `run` reads `state.step` once and
 copies the whole run's rotor offsets to the device once;
 `draw_period_ring` without `offsets` copies them per call.  The
@@ -59,7 +66,7 @@ from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import rumor
 from swim_tpu_torch.ops import (coldsel, lattice, sampling, scatter, selb,
-                                u32, wavemerge)
+                                u32, wavemerge, wavepack)
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import threefry
@@ -137,16 +144,10 @@ def init_state(cfg: SwimConfig, device=None) -> RingState:
 def check_slice(cfg: SwimConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     run yet, naming the ROADMAP.md item that brings it."""
-    todo = []
-    if cfg.ring_scalar_wire != "wide":
-        todo.append("ring_scalar_wire='packed' (ROADMAP.md Queue 1: "
-                    "sharding)")
     if cfg.profiling:
-        todo.append("the profiling tap (ROADMAP.md Queue 1: the other "
-                    "instruments)")
-    if todo:
         raise NotImplementedError(
-            "not in the ported slice: " + "; ".join(todo))
+            "not in the ported slice: the profiling tap (ROADMAP.md Queue "
+            "1: the other instruments)")
 
 
 # ----------------------------------------------------------- randomness
@@ -370,12 +371,18 @@ def _recip_table(n: int, device) -> torch.Tensor:
 
 
 class GlobalOps:
-    """Cross-node operations of the single-device engine: the rolls,
-    the drop-mode scatter-add, node-wise gathers and heard-bit lookups
-    of the reference's GlobalOps (ring.py:625-756; its scatter-max is
-    ops/scatter.py `scatter_max`), plus the three kernel
-    steps (their plain versions with `plain`).  Node-id vectors given
-    as int64 index without a conversion."""
+    """Cross-node operations of the single-device engine: the seams of
+    the reference's GlobalOps (ring.py:625-756; its scatter-max is
+    ops/scatter.py `scatter_max`), plus the three kernel steps (their
+    plain versions with `plain`).  `step` routes through these the
+    reference's rolls (with its labels), global sums, gathers by node
+    id, heard-bit lookups and first-k compactions; on one device each
+    is the plain PyTorch op it names, and obs/ici.py's CountingOps
+    overrides them to tally the bytes of the sharded layout.  A roll's
+    `itemsize` is the bytes per value of the reference's wire dtype
+    where this port carries the values in a wider one (a u16 lane in
+    int32).  Node-id vectors given as int64 index without a
+    conversion."""
 
     def __init__(self, cfg: SwimConfig, device, plain: bool = False):
         self.n = cfg.n_nodes
@@ -383,18 +390,40 @@ class GlobalOps:
         self.plain = plain
         self.ids = torch.arange(self.n, dtype=I32, device=device)
 
-    def roll_from(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-        """Value of x at node (i + d) mod n for every row i; `d` is a
-        device scalar, so the index is computed on the device."""
+    # -- reductions -------------------------------------------------------
+    def gsum(self, partial: torch.Tensor) -> torch.Tensor:
+        """Global sum given this device's partial: the partial itself."""
+        return partial
+
+    # -- communication ----------------------------------------------------
+    def _roll(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         idx = torch.remainder(self.ids.to(torch.int64) + d, self.n)
         return x[idx]
 
+    def roll_from(self, x: torch.Tensor, d: torch.Tensor, label=None,
+                  itemsize=None) -> torch.Tensor:
+        """Value of x at node (i + d) mod n for every row i; `d` is a
+        device scalar, so the index is computed on the device.  `label`
+        names the roll in the byte tally."""
+        return self._roll(x, d)
+
+    def roll_bundle(self, parts, d, labels=None, itemsizes=None):
+        """roll_from over several same-offset node vectors: the packed
+        wire's fusion seam (one payload per wave when sharded); here
+        each part just rolls."""
+        return tuple(self._roll(x, d) for x in parts)
+
+    # -- node-axis scatter/gather by global node id -----------------------
     def scatter_add(self, dst, idx, val: int):
         valid = (idx >= 0) & (idx < dst.shape[0])
         out = dst.clone()
         out.scatter_add_(0, torch.where(valid, idx, 0).to(torch.int64),
                          torch.where(valid, val, 0).to(dst.dtype))
         return out
+
+    def gather(self, arr, idx):
+        """arr[idx] for a node-axis arr; idx replicated, in [0, n)."""
+        return arr[idx.to(torch.int64)]
 
     def gather_nodewise(self, arr, idx):
         """arr[idx] for a node-axis arr and node-axis global ids."""
@@ -421,6 +450,17 @@ class GlobalOps:
                            cold[word_r.to(torch.int64), rows])
         return (slot >= 0) & u32.bit_of(word, bit)
 
+    def knows_sentinels(self, win, cold, slot_pos, rows, slot):
+        """The sentinel probes' heard-bits: the full-batch branch of the
+        reference's `lax.cond` (ring.py:1612-1631), bitwise equal to its
+        compacted branch and free of a data-dependent branch."""
+        return self.knows_words(win, cold, slot_pos, rows, slot)
+
+    def first_true_nodes(self, valid, k):
+        """Ascending global ids of the first k True entries of a
+        node-axis bool vector; missing entries fill with n."""
+        return scatter.first_true(valid, k, self.n)
+
     # -- the three kernel steps ------------------------------------------
     def select_first_b(self, win_masked, b):
         if self.plain:
@@ -432,9 +472,7 @@ class GlobalOps:
               else coldsel.cold_update_select)
         return fn(cold, flush_rows, flush_vals, q_rows)
 
-    def merge_waves(self, win, sel, oks, offs, bcols=(), bvals=()):
-        """`win` (updated in place) with the waves (oks[w], offs[w]) of
-        `sel` and the receiver-aligned forced-bit rows ORed in."""
+    def _merge(self, win, sel, oks, offs, bcols, bvals):
         if bcols:
             bcol, bval = torch.stack(bcols), torch.stack(bvals)
         else:
@@ -444,19 +482,39 @@ class GlobalOps:
               else wavemerge.merge_waves)
         return fn(win, sel, torch.stack(oks), torch.stack(offs), bcol, bval)
 
+    def merge_waves(self, win, sel, oks, offs, bcols=(), bvals=()):
+        """The fused period-scope delivery: `win` (updated in place) with
+        the waves (oks[w], offs[w]) of `sel` and the receiver-aligned
+        forced-bit rows ORed in."""
+        return self._merge(win, sel, oks, offs, bcols, bvals)
+
+    def merge_wave(self, win, sel, ok, d, cv=None):
+        """One wave delivered in-line (wave scope, and period scope past
+        MAX_WAVES): receiver i ORs sel row (i + d) mod n under ok, with
+        the sender-side forced bit `cv` = (col, val) rolled along.  The
+        reference rolls `sel | forced` as one [N, WW] block here; the
+        kernel takes the forced bit as one compact row."""
+        bcols = bvals = ()
+        if cv is not None:
+            bcols = [self._roll(cv[0], d)]
+            bvals = [torch.where(ok, self._roll(cv[1], d), 0)]
+        return self._merge(win, sel, [ok], [d], bcols, bvals)
+
 
 # ---------------------------------------------------------------- step
 
 
 def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
-         rnd: RingRandomness, *, plain: bool = False, ext=None, tap=None,
-         prof=None) -> RingState:
+         rnd: RingRandomness, *, plain: bool = False, ops=None, ext=None,
+         tap=None, prof=None) -> RingState:
     """One protocol period (reference ring.py:759-1841: the rotor branch
-    in either selection scope, with or without Lifeguard, with a plain
-    FaultPlan or a FaultProgram; or the pull branch).  Consumes
-    `state.cold` (updated in place).  `tap`, a dict, receives the
-    period's EngineFrame fields (obs/engine.py) as int32 device scalars;
-    the returned state is the same with or without it."""
+    in either selection scope, on either scalar wire, with or without
+    Lifeguard, with a plain FaultPlan or a FaultProgram; or the pull
+    branch).  Consumes `state.cold` (updated in place).  `tap`, a dict,
+    receives the period's EngineFrame fields (obs/engine.py) as int32
+    device scalars; the returned state is the same with or without it.
+    `ops` replaces the GlobalOps(cfg, device, plain) the step builds
+    (obs/ici.py passes its byte-counting subclass)."""
     check_slice(cfg)
     if ext is not None:
         raise NotImplementedError(
@@ -476,7 +534,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
             "FaultProgram link/gray segments are not supported by "
             "pull-uniform probing; use ring_probe='rotor'")
     dev = state.win.device
-    ops = GlobalOps(cfg, dev, plain=plain)
+    if ops is None:
+        ops = GlobalOps(cfg, dev, plain=plain)
     g = geometry(cfg)
     n, k = cfg.n_nodes, cfg.k_indirect
     r_tot, s_cap = g.rw * WORD, cfg.sentinels
@@ -489,7 +548,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     joined = plan.join_step <= t
     active = ~crashed & joined
     part_on = faults.partition_active(plan, t)
-    live_total = _sum32(active)
+    live_total = ops.gsum(_sum32(active))
 
     subject, rkey, birth0 = state.subject, state.rkey, state.birth0
     snode, stime = state.sent_node, state.sent_time
@@ -503,7 +562,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
 
     # ---- Phase 0a: judge the outgoing words (entry win cols [0, OW)) ------
     out_cols = state.win[:, :g.ow]                             # u32[N, OW]
-    out_knowers = _lane_counts(out_cols.T, active)             # i32[OB]
+    out_knowers = ops.gsum(_lane_counts(out_cols.T, active))   # i32[OB]
     out_rcol = torch.remainder(entry_gw0 + lanes // WORD, g.rw)
     out_slots = (out_rcol * WORD + lanes % WORD).to(torch.int64)
     out_sub = subject[out_slots]
@@ -514,7 +573,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     glob_refuted = (
         ((subject[None, :] == out_sub[:, None]) & (subject >= 0)[None, :]
          & u32.ugt(rkey[None, :], out_key[:, None])).any(dim=-1)
-        | u32.ugt(gone_key[out_sub.clamp(min=0).to(torch.int64)], out_key))
+        | u32.ugt(ops.gather(gone_key, out_sub.clamp(min=0)), out_key))
     pending = (out_used & lattice.is_suspect(out_key)
                & ~confirmed[out_slots] & ~glob_refuted)
     carry = out_used & ~out_dissem & in_budget
@@ -536,7 +595,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     fresh_word_rows = torch.remainder(
         fresh_gw0 + torch.arange(g.ow, dtype=I32, device=dev), g.rw)
     fresh_rows = cold.index_select(0, fresh_word_rows.to(torch.int64))
-    inv_knowers = _lane_counts(fresh_rows, active)
+    inv_knowers = ops.gsum(_lane_counts(fresh_rows, active))
     inv_tomb = inv_used & (inv_knowers >= live_total)
     gone_key = scatter.scatter_max(
         gone_key, torch.where(inv_tomb, inv_sub, n), inv_key, unsigned=True)
@@ -582,23 +641,25 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         bk = scatter.scatter_max(torch.zeros_like(ids),
                                  torch.where(remaining, subject, n), rkey,
                                  unsigned=True)
-        bk_at_r = bk[subj_cl]
+        bk_at_r = ops.gather(bk, subj_cl)
         hit = remaining & (rkey == bk_at_r) & (bk_at_r != 0)
         bs = scatter.scatter_max(torch.full_like(ids, -1),
                                  torch.where(hit, subject, n), rr,
                                  unsigned=False)
         top_key.append(bk)
         top_slot.append(bs)
-        remaining = remaining & ~(rr == bs[subj_cl])
+        remaining = remaining & ~(rr == ops.gather(bs, subj_cl))
     n_per_subj = ops.scatter_add(torch.zeros_like(ids), sub_or_n, 1)
-    index_overflow = state.index_overflow + _sum32(n_per_subj > g.c)
+    index_overflow = state.index_overflow + ops.gsum(
+        _sum32(n_per_subj > g.c))
     sus_hit = used & lattice.is_suspect(rkey)
     sus_bk = scatter.scatter_max(torch.zeros_like(ids),
                                  torch.where(sus_hit, subject, n), rkey,
                                  unsigned=True)
     sus_slot = scatter.scatter_max(
         torch.full_like(ids, -1),
-        torch.where(sus_hit & (rkey == sus_bk[subj_cl]), subject, n), rr,
+        torch.where(sus_hit & (rkey == ops.gather(sus_bk, subj_cl)),
+                    subject, n), rr,
         unsigned=False)
 
     def slot_pos(slot):
@@ -652,45 +713,106 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     if not pull:
         s_off = rnd.s_off
         target = torch.remainder(ids + s_off, n)
-        prober = active & ops.roll_from(joined, s_off)
-        waves = []              # fused: (ok, off, buddy (col, val) | None)
+        prober = active & ops.roll_from(joined, s_off,
+                                        label="roll_probe_gate")
+        waves = []              # fused: (ok, off, buddy cv | None)
+        # Scalar wave wire.  "packed" narrows every per-wave scalar to its
+        # information content (ok chains 1 bit a node, buddy columns and
+        # bit codes a byte, slot + 1 codes in code_dtype(R)) and rolls a
+        # wave's scalars as one roll_bundle; the values after the rolls
+        # are the wide wire's.  Validation pins it to the fused
+        # period-scope path.
+        scalar_packed = cfg.ring_scalar_wire == "packed"
+        slot_code = wavepack.code_dtype(r_tot)     # slot + 1, 0 = no slot
+        col_code = wavepack.code_dtype(g.ww - 1)
+        lane_code = wavepack.code_dtype(faults.LANE_MAX)   # u16 lanes
 
         def buddy_cv(d):
-            """(col i32[N], val u32[N]) per sender i: the forced window bit
-            of the suspect rumor about subject (i + d) mod n, when sender i
-            knows it and it is in the window (val 0 = inert)."""
+            """Per sender i, the forced window bit of the suspect rumor
+            about subject (i + d) mod n, when sender i knows it and it is
+            in the window.  Wide wire: (col i32, val u32; val 0 = inert).
+            Packed wire: (col in col_code, u8 code = bit + 1; 0 = inert),
+            which the receiver decodes as val = 1 << (code - 1)."""
             if not buddy_on:
                 return None
-            slot = ops.roll_from(sus_slot, d)
+            if scalar_packed:
+                slot = ops.roll_from(
+                    (sus_slot + 1).to(slot_code.carrier), d,
+                    label="roll_buddy_slots",
+                    itemsize=slot_code.itemsize).to(I32) - 1
+            else:
+                slot = ops.roll_from(sus_slot, d, label="roll_buddy_slots")
             in_win, wcol, _, bit = slot_pos(slot)
             (wword,) = _col_select_multi(sel_src if period_scope else win,
                                          [wcol])
             usebit = (slot >= 0) & u32.bit_of(wword, bit) & in_win
+            if scalar_packed:
+                return (wcol.to(col_code.carrier),
+                        torch.where(usebit, bit + 1, 0).to(torch.uint8))
             one = torch.ones_like(bit, dtype=torch.int64)
             return wcol, torch.where(
                 usebit, u32.from_u64(one << bit.to(torch.int64)), 0)
 
-        def wave_ok(flag_at_sender, d, u, reply=False):
-            """bool[N] per receiver i: the message from (i + d) arrived.
-            Under a program, `reply` (ack legs) rolls the send+reply
-            lane instead of the send lane."""
-            flag_r = ops.roll_from(flag_at_sender, d)
-            pid_r = ops.roll_from(pid, d)
-            thr = loss_thr
+        def wave_ok(flag_at_sender, d, u, cv=None, reply=False):
+            """(ok bool[N], cv') per receiver i: the message from (i + d)
+            arrived.  Under a program, `reply` (ack legs) rolls the
+            send+reply lane instead of the send lane (a u16 on the
+            reference's wire).  The packed wire rolls the flag, the
+            partition ids, the lane and the buddy cv as one bundle, so
+            cv' comes back receiver-aligned; the wide wire rolls each
+            apart and passes cv through sender-aligned."""
+            lane = None
             if prog is not None:
                 lane = resp_thr if reply else send_thr
-                thr = loss_thr + ops.roll_from(lane, d) + recv_thr
-            return (flag_r & active & ~(part_on & (pid_r != pid))
-                    & (u >= thr))
+            if scalar_packed:
+                parts = [flag_at_sender, pid]
+                labels = ["roll_ok_waves", "roll_pid_waves"]
+                sizes = [None, None]
+                if lane is not None:
+                    parts.append(lane)
+                    labels.append("roll_link_thr")
+                    sizes.append(lane_code.itemsize)
+                if cv is not None:
+                    parts.extend(cv)
+                    labels.extend(["roll_buddy_cols", "roll_buddy_vals"])
+                    sizes.extend([col_code.itemsize, None])
+                rolled = ops.roll_bundle(tuple(parts), d,
+                                         labels=tuple(labels),
+                                         itemsizes=tuple(sizes))
+                flag_r, pid_r = rolled[0], rolled[1]
+                if lane is not None:
+                    lane_r = rolled[2]
+                cvr = tuple(rolled[-2:]) if cv is not None else None
+            else:
+                flag_r = ops.roll_from(flag_at_sender, d,
+                                       label="roll_ok_waves")
+                pid_r = ops.roll_from(pid, d, label="roll_pid_waves")
+                if lane is not None:
+                    lane_r = ops.roll_from(lane, d, label="roll_link_thr",
+                                           itemsize=lane_code.itemsize)
+                cvr = cv
+            thr = loss_thr if lane is None else loss_thr + lane_r + recv_thr
+            ok = (flag_r & active & ~(part_on & (pid_r != pid))
+                  & (u >= thr))
+            return ok, cvr
 
         def staged(ok, d, cv):
-            """The sender-side forced bit as receiver-aligned rows, masked
-            by the wave's delivery (roll(sel | forced) == roll(sel) |
-            roll(forced))."""
-            if cv is None:
-                return [], []
-            return ([ops.roll_from(cv[0], d)],
-                    [torch.where(ok, ops.roll_from(cv[1], d), 0)])
+            """A fused wave's forced bit as a receiver-aligned compact row
+            (col i32, val u32) masked by the wave's delivery (roll(sel |
+            forced) == roll(sel) | roll(forced)).  Wide wire: roll the
+            sender-side (col, val) now.  Packed wire: (col, code) came
+            receiver-aligned in the wave's bundle; decode the value."""
+            if scalar_packed:
+                col_r, code_r = cv
+                code = code_r.to(torch.int64)
+                val = torch.ones_like(code) << (code - 1).clamp(min=0)
+                return (col_r.to(I32),
+                        torch.where(ok & (code > 0), u32.from_u64(val), 0))
+            col, val = cv
+            return (ops.roll_from(col, d, label="roll_buddy_cols"),
+                    torch.where(ok, ops.roll_from(val, d,
+                                                  label="roll_buddy_vals"),
+                                0))
 
         def deliver(ok, d, cv=None):
             """One wave: receiver i ORs sel row (i + d) mod n under ok."""
@@ -703,13 +825,13 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
                 return
             sel_w = (sel_base if period_scope else
                      ops.select_first_b(win & elig_mask[None, :], b_pig))
-            win = ops.merge_waves(win, sel_w, [ok], [d], *staged(ok, d, cv))
+            win = ops.merge_wave(win, sel_w, ok, d, cv)
 
         # W1: ping i -> i+s (carries the buddy bit); W2: the ack back
-        cv1 = buddy_cv(s_off)
-        ok1 = wave_ok(prober & active, -s_off, rnd.loss_w1)
+        ok1, cv1 = wave_ok(prober & active, -s_off, rnd.loss_w1,
+                           buddy_cv(s_off))
         deliver(ok1, -s_off, cv1)
-        ok2 = wave_ok(ok1, s_off, rnd.loss_w2, reply=True)
+        ok2, _ = wave_ok(ok1, s_off, rnd.loss_w2, reply=True)
         deliver(ok2, s_off)
         acked = ok2 & prober
         need = prober & ~acked
@@ -717,22 +839,25 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         for a in range(k):
             q = rnd.q_off[a]
             d4 = s_off - q
-            ok3 = wave_ok(need, -q, rnd.loss_w3[:, a])       # W3 ping-req
+            ok3, _ = wave_ok(need, -q, rnd.loss_w3[:, a])     # W3 ping-req
             deliver(ok3, -q)
-            cv4 = buddy_cv(d4)
-            ok4 = wave_ok(ok3, -d4, rnd.loss_w4[:, a])       # W4 proxy ping
+            ok4, cv4 = wave_ok(ok3, -d4, rnd.loss_w4[:, a],   # W4 proxy ping
+                               buddy_cv(d4))
             deliver(ok4, -d4, cv4)
-            ok5 = wave_ok(ok4, d4, rnd.loss_w5[:, a], True)  # W5 target ack
+            ok5, _ = wave_ok(ok4, d4, rnd.loss_w5[:, a],      # W5 target ack
+                             reply=True)
             deliver(ok5, d4)
-            ok6 = wave_ok(ok5, q, rnd.loss_w6[:, a], True)   # W6 relay ack
+            ok6, _ = wave_ok(ok5, q, rnd.loss_w6[:, a],       # W6 relay ack
+                             reply=True)
             deliver(ok6, q)
             relayed = relayed | (ok6 & need)
         if fused:
             bcols, bvals = [], []
             for ok, d, cv in waves:
-                bc, bv = staged(ok, d, cv)
-                bcols += bc
-                bvals += bv
+                if cv is not None:
+                    bc, bv = staged(ok, d, cv)
+                    bcols.append(bc)
+                    bvals.append(bv)
             win = ops.merge_waves(win, sel_base, [w[0] for w in waves],
                                   [w[1] for w in waves], bcols, bvals)
 
@@ -749,7 +874,15 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
             lha = torch.where(prober, (lha + bump).clamp(0, cfg.lha_max), lha)
             failed = failed & (rnd.lha_u * (1 + state.lha) < 65536)
         # view_of(ids, target) + Phase C's self-suspicion word: C+1 queries
-        q_slots = [ops.roll_from(top_slot[lvl], s_off) for lvl in range(g.c)]
+        if scalar_packed:
+            q_slots = [ops.roll_from((top_slot[lvl] + 1).to(slot_code.carrier),
+                                     s_off, label="roll_view_slots",
+                                     itemsize=slot_code.itemsize).to(I32) - 1
+                       for lvl in range(g.c)]
+        else:
+            q_slots = [ops.roll_from(top_slot[lvl], s_off,
+                                     label="roll_view_slots")
+                       for lvl in range(g.c)]
         q_slots.append(sus_slot)
         q_pos = [slot_pos(s) for s in q_slots]
         q_win = _col_select_multi(win, [p[1] for p in q_pos])
@@ -760,13 +893,17 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         for (ok, _, _, bit), wv, cv, s in zip(q_pos, q_win, q_cold, q_slots):
             word = torch.where(ok, wv, cv)
             q_kn.append((s >= 0) & u32.bit_of(word, bit))
-        kn_back = [ops.roll_from(q_kn[lvl], -s_off) for lvl in range(g.c)]
+        # the C known-bits go back to the subject (1 bit each on the
+        # packed wire), the key max folds there, one verdict rolls forward
+        kn_back = (ops.roll_bundle(tuple(q_kn[:g.c]), -s_off,
+                                   labels=("roll_view_known",) * g.c)
+                   if g.c else ())
         tk_subj = u32.umax(lattice.alive_key(torch.zeros_like(gone_key)),
                            gone_key)
         for lvl in range(g.c):
             tk_subj = u32.umax(tk_subj,
                                torch.where(kn_back[lvl], top_key[lvl], 0))
-        viewed_tk = ops.roll_from(tk_subj, s_off)
+        viewed_tk = ops.roll_from(tk_subj, s_off, label="roll_view_verdict")
         self_key = torch.where(q_kn[g.c], sus_bk, 0)
         susp_subject = target
         susp_orig = ids
@@ -781,7 +918,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         pr = rnd.pull
         sel_all = (sel_base if period_scope else
                    ops.select_first_b(win & elig_mask[None, :], b_pig))
-        members = _sum32(joined)
+        members = ops.gsum(_sum32(joined))
         lj = live_total - active.to(I32)
         # 1/(M-1) from the host-divided table, never a device divide
         di = (members - 1).clamp(1, n - 1).reshape(1).to(torch.int64)
@@ -880,23 +1017,22 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     else:
         timeout = cfg.suspicion_periods
     snode_cl = snode.clamp(min=0).to(torch.int64)
-    sent_alive = (snode >= 0) & (plan.crash_step[snode_cl] > t)
+    sent_alive = (snode >= 0) & (ops.gather(plan.crash_step, snode_cl) > t)
     deadline_hit = sent_alive & (t >= stime + timeout)
     is_susp_r = lattice.is_suspect(rkey)
     subj_r = subject.clamp(min=0).to(torch.int64)
-    gone_at_r = gone_key[subj_r]
+    gone_at_r = ops.gather(gone_key, subj_r)
     higher_known = u32.ugt(gone_at_r, rkey)[:, None].expand(snode.shape)
     oslots, cands = [], []
     for lvl in range(g.c):
-        oslot = top_slot[lvl][subj_r]
-        okey = top_key[lvl][subj_r]
+        oslot = ops.gather(top_slot[lvl], subj_r)
+        okey = ops.gather(top_key[lvl], subj_r)
         cands.append((u32.ugt(okey, rkey) & (oslot >= 0))[:, None])
         oslots.append(oslot[:, None].expand(snode.shape))
     s_lanes = snode.shape[1]
     rows_b = torch.cat([snode_cl] * g.c, dim=1)                # [R, S*C]
     slots_b = torch.cat(oslots, dim=1)
-    # the reference's full-batch branch of its sentinel-probe lax.cond
-    kn_b = ops.knows_words(win, cold, slot_pos, rows_b, slots_b)
+    kn_b = ops.knows_sentinels(win, cold, slot_pos, rows_b, slots_b)
     for lvl in range(g.c):
         kn = kn_b[:, lvl * s_lanes:(lvl + 1) * s_lanes]
         higher_known = higher_known | (cands[lvl] & kn)
@@ -910,12 +1046,13 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     # ---- Phase D: new originations into the free fresh lanes --------------
     suspect = mk_suspect | re_suspect
     m_cand = r_tot + 2 * n
-    total = _sum32(confirm) + _sum32(refute) + _sum32(suspect)
+    total = (_sum32(confirm) + ops.gsum(_sum32(refute))
+             + ops.gsum(_sum32(suspect)))
     kk1 = torch.topk(torch.where(confirm, r_tot - rr, 0), ob).values
     ci1 = torch.where(kk1 > 0, r_tot - kk1, m_cand)
-    ci2 = scatter.first_true(refute, ob, n)
+    ci2 = ops.first_true_nodes(refute, ob)
     ci2 = torch.where(ci2 < n, r_tot + ci2, m_cand)
-    ci3 = scatter.first_true(suspect, ob, n)
+    ci3 = ops.first_true_nodes(suspect, ob)
     ci3 = torch.where(ci3 < n, r_tot + n + ci3, m_cand)
     cand = torch.cat([ci1, ci2, ci3])
     mk_ = torch.topk(torch.where(cand < m_cand, m_cand - cand, 0), ob).values
@@ -927,16 +1064,16 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     j2 = (ci - r_tot).clamp(0, n - 1)
     is3 = got & ~is1 & ~is2 & (ci < r_tot + 2 * n)
     j3 = (ci - r_tot - n).clamp(0, n - 1).to(torch.int64)
-    sub3 = susp_subject[j3]
-    key3 = susp_key[j3]
-    org3 = susp_orig[j3]
+    sub3 = ops.gather(susp_subject, j3)
+    key3 = ops.gather(susp_key, j3)
+    org3 = ops.gather(susp_orig, j3)
     subj_c = torch.where(
         got, torch.where(is1, subject[i1], torch.where(is2, j2, sub3)), -1)
     key_c = torch.where(
         got, torch.where(
             is1, dead_key_r[i1],
             torch.where(is2,
-                        lattice.alive_key(new_inc[j2.to(torch.int64)]),
+                        lattice.alive_key(ops.gather(new_inc, j2)),
                         key3)), 0)
     orig_c = torch.where(
         got, torch.where(is1, conf_node[i1].clamp(min=0),

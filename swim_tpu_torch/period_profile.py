@@ -3,6 +3,7 @@
     python3 -m swim_tpu_torch.period_profile [--engine ring|dense|rumor]
         [--nodes N] [--periods P] [--scope period|wave] [--lifeguard]
         [--probe rotor|pull] [--study] [--target uniform|round_robin]
+        [--scenario NAME]
 
 Runs the ring engine (0.1% of nodes crashing over the run) with the
 given probe, in the given selection scope, vanilla or with Lifeguard,
@@ -11,8 +12,11 @@ study (`sim/runner.py`: the step plus the census and milestones)
 instead of bare engine periods.  `--engine dense` (default 8,192 nodes,
 DENSE_MAX) and `--engine rumor` (default 1,000,000 nodes) run those
 engines' periods instead (1% of nodes crashing, loss 0.1; `--lifeguard`
-and `--target`, the probe-target selection, apply).  Prints one JSON
-line with
+and `--target`, the probe-target selection, apply).  `--scenario NAME`
+runs the full-track study periods of a library scenario's first arm
+(sim/scenario.py: its nodes, SwimConfig with telemetry, and compiled
+FaultProgram; `gray_10pct` is the search's geometry) instead.  Prints
+one JSON line with
 
   * wall ms per period of `RingEngine.run` (host clock around a
     synchronised run), and the split between drawing the period's
@@ -36,7 +40,8 @@ line with
 
 The full profiler table goes to
 chiprun_out/period_profile_<probe>_<scope>[_lifeguard][_study].txt, or
-period_profile_<engine>[_lifeguard][_round_robin].txt.
+period_profile_<engine>[_lifeguard][_round_robin].txt, or
+period_profile_scenario_<name>.txt.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ from torch.profiler import ProfilerActivity, profile
 from swim_tpu_torch import SwimConfig
 from swim_tpu_torch.measure import PartTimer, card_line
 from swim_tpu_torch.models import dense, ring, rumor
-from swim_tpu_torch.sim import faults, runner
+from swim_tpu_torch.sim import faults, runner, scenario
 from swim_tpu_torch.utils import prng, threefry
 
 # engine -> (module, default nodes, its draw, the parts timed in a period)
@@ -189,6 +194,8 @@ def main() -> None:
     ap.add_argument("--study", action="store_true")
     ap.add_argument("--target", choices=("uniform", "round_robin"),
                     default="uniform", help="dense and rumor only")
+    ap.add_argument("--scenario", default="",
+                    help="a library scenario: its first arm's study")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -202,12 +209,22 @@ def main() -> None:
                      lifeguard=args.lifeguard, ring_probe=args.probe)
     plan = faults.with_random_crashes(faults.none(n), threefry.key(1),
                                       0.001, 0, 3 + 3 * p)
+    if args.scenario:
+        sc = scenario.get(args.scenario)
+        arm = scenario._arm_defs(sc)[0][1]
+        _, cfg, plan = scenario._arm_prepare(sc, arm, "cuda")
+        n = sc.n
     eng = ring.RingEngine(cfg, plan, seed=0)
     key = threefry.key(0)
 
     def advance(periods):
         """`periods` periods of the engine, or of the streaming study
-        (which continues from the engine's state and step)."""
+        (which continues from the engine's state and step), or of the
+        scenario arm's full-track study."""
+        if args.scenario:
+            eng.state = runner.run_study_ring(cfg, eng.state, plan, key,
+                                              periods).state
+            return eng.state
         if args.study:
             eng.state = runner.run_study_ring_stream(
                 cfg, eng.state, plan, key, periods).state
@@ -255,12 +272,15 @@ def main() -> None:
     tag = (f"{args.probe}_{args.scope}" + ("_lifeguard" if args.lifeguard
                                             else "")
            + ("_study" if args.study else ""))
+    if args.scenario:
+        tag = f"scenario_{args.scenario}"
     (out / f"period_profile_{tag}.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps(dict(
-        card=card, n_nodes=n, periods=p, scope=args.scope,
-        probe=args.probe, study=args.study,
-        lifeguard=args.lifeguard, wall_ms_per_period=wall_ms,
+        card=card, n_nodes=n, periods=p, scope=cfg.ring_sel_scope,
+        probe=cfg.ring_probe, study=args.study or bool(args.scenario),
+        lifeguard=cfg.lifeguard, scenario=args.scenario or None,
+        scalar_wire=cfg.ring_scalar_wire, wall_ms_per_period=wall_ms,
         draw_ms=draw_ms, step_ms=step_ms, idle_share=1.0 - busy / wall_ms,
         port_kernels_device_ms=own,
         port_kernels_launches_per_period=own_launches,

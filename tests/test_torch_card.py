@@ -26,7 +26,9 @@ conftest, which imports JAX,
     and gives int32 frames on the card that saw deliveries (card frames
     against the CPU's: chip_smoke.py's engine parity, dense 2,048 and
     rumor 100,000 nodes); the lanes of a P = 2 ring batch with
-    telemetry equal their serial runs on the card.
+    telemetry equal their serial runs on the card;
+  * a minified packed scenario: its verdict on the card has the CPU's
+    bytes, and its Lifeguard arm's kernels equal their plain versions.
 """
 from __future__ import annotations
 
@@ -362,3 +364,48 @@ def test_ring_batch_lanes_equal_serial_on_the_card(cuda):
         tree_map(lambda a, b: pairs.append(torch.equal(a, b)),
                  runner.lane_result(batched, p), serial)
         assert pairs and all(pairs), f"lane {p}"
+
+
+def test_packed_scenario_card_equals_cpu(cuda, tmp_path):
+    """A minified packed ring scenario (gray lanes, a rack crash and a
+    flapping link, Lifeguard with buddy against vanilla): the verdict
+    written on the card has the CPU's bytes, and the Lifeguard arm with
+    the kernels equals the plain versions on the card, selb, wavemerge
+    and coldsel each launching once a period."""
+    from swim_tpu_torch.sim import scenario
+
+    ring_cfg = dict(ring_probe="rotor", ring_scalar_wire="packed",
+                    ring_sel_scope="period", lifeguard=True, buddy=True)
+    sc = scenario.Scenario(
+        name="card_mini", n=4096, periods=12, config=ring_cfg,
+        domains="blocks:8",
+        events=({"kind": "gray", "domain": 1, "start": 2, "end": 10,
+                 "level": 0.43},
+                {"kind": "crash", "domain": 2, "start": 4},
+                {"kind": "link_loss", "domain": 3, "start": 1, "end": 11,
+                 "level": 0.3, "period": 4, "on": 2}),
+        arms={"lha": {},
+              "vanilla": {"gate": False,
+                          "config": {"lifeguard": False, "buddy": False}}},
+        expect=({"check": "lane_charged", "arm": "lha"},))
+    texts = []
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        out = tmp_path / name
+        _, path = scenario.run(sc, out_dir=str(out), device=dev)
+        texts.append(path_text(path, out))
+    assert texts[0] == texts[1]
+    _, cfg, prog = scenario._arm_prepare(sc, {}, cuda)
+    before = (selb.launches, coldsel.launches, wavemerge.launches)
+    k = ring.run(cfg, ring.init_state(cfg, cuda), prog, sc.seed, sc.periods)
+    made = [a - b for a, b in zip((selb.launches, coldsel.launches,
+                                   wavemerge.launches), before)]
+    p = ring.run(cfg, ring.init_state(cfg, cuda), prog, sc.seed, sc.periods,
+                 plain=True)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    assert made == [sc.periods] * 3
+
+
+def path_text(path, out_dir) -> str:
+    with open(path) as fh:
+        return fh.read().replace(str(out_dir), "OUT")

@@ -7,8 +7,9 @@
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
     imports the port, runs a few CPU periods of each path and engine, a
     small streaming study, a small study with the default engine and
-    telemetry, its flight-recorder dump read back by the analyzer, and
-    a batch of two fault programs;
+    telemetry, its flight-recorder dump read back by the analyzer, a
+    batch of two fault programs, and a small packed scenario with its
+    byte bill;
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -57,7 +58,8 @@ def test_port_files_found():
             "threefry.py", "chip_smoke.py", "runner.py", "experiments.py",
             "checkpoint.py", "metrics.py", "analyze.py", "dense.py",
             "rumor.py", "prng.py", "scatter.py", "common.py", "engine.py",
-            "health.py", "recorder.py", "tree.py"} <= names
+            "health.py", "recorder.py", "tree.py", "scenario.py",
+            "search.py", "ici.py", "wavepack.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -116,6 +118,16 @@ def test_steps_with_jax_unimportable():
         "res = experiments._run_study_batch(SwimConfig(n_nodes=64), progs,\n"
         "    [threefry.key(0), threefry.key(1)], 3, 'ring', device='cpu')\n"
         "assert tuple(res.series.dead_views.shape) == (2, 3)\n"
+        "from swim_tpu_torch.sim import scenario, search\n"
+        "sc = scenario.Scenario(name='t', n=32, periods=3, config=dict(\n"
+        "    ring_sel_scope='period', ring_scalar_wire='packed',\n"
+        "    lifeguard=True), domains='blocks:4', events=({'kind': 'gray',\n"
+        "    'domain': 1, 'start': 0, 'end': 3, 'level': 0.5},))\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    v, _ = scenario.run(sc, out_dir=d, batch=True, device='cpu')\n"
+        "assert v['arms']['main']['ici']['roll_link_thr_bytes'] > 0\n"
+        "assert search.violations_of(dict(false_dead_final=1,\n"
+        "    false_dead_peak=1, undetected_crashes=0), None)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -11,7 +11,12 @@ step under it against `swim_tpu.models.ring`, bit for bit.
     the port's without and with it, both states equal the JAX state and
     the eight EngineFrame fields the JAX frame;
   * a program with zero segments runs exactly the plain plan's step;
-    pull-uniform probing with a program raises, as the reference does.
+    pull-uniform probing with a program raises, as the reference does;
+  * the packed scalar wire (period scope, fused): all 14 fields equal to
+    the JAX packed step after every period, with Lifeguard and buddy
+    under the program at k = 3 and k = 1 and vanilla under a plain plan,
+    the port's kernel wrappers and plain versions both, and equal to
+    the port's own wide-wire run.
 
 Tolerance: exact.
 """
@@ -29,6 +34,7 @@ from swim_tpu.models import ring as jring
 from swim_tpu.sim import faults as jfaults
 from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.models import ring
+from swim_tpu_torch.ops import wavemerge
 from swim_tpu_torch.sim import faults
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -174,3 +180,64 @@ def test_empty_program_is_the_plain_plan_and_pull_refuses_programs():
         jax.eval_shape(lambda: jring.step(
             jcfg, jring.init_state(jcfg), jprog,
             jring.draw_period_ring(jax.random.key(0), 0, jcfg)))
+
+
+PACKED_CASES = {
+    "lg-buddy-k3": (dict(lifeguard=True, k_indirect=3), True),
+    "lg-buddy-k1": (dict(lifeguard=True, k_indirect=1), True),
+    "vanilla-k3-plan": (dict(k_indirect=3), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_packed_step_parity(case, monkeypatch):
+    """The packed scalar wire equals the JAX packed step field for field
+    each period, and the port's wide wire on the same draws; with buddy,
+    the fused merge receives 1 + k decoded forced-bit rows, some set."""
+    kw, with_prog = PACKED_CASES[case]
+    forced = dict(rows=0, bits=0)
+    real_merge = wavemerge.merge_waves
+
+    def spy(win, sel, oks, offs, bcol, bval):
+        forced["rows"] = max(forced["rows"], bcol.shape[0])
+        forced["bits"] += int((bval != 0).sum())
+        return real_merge(win, sel, oks, offs, bcol, bval)
+
+    monkeypatch.setattr(wavemerge, "merge_waves", spy)
+    kw = dict(kw, ring_sel_scope="period")
+    jcfg = JaxSwimConfig(n_nodes=N, ring_scalar_wire="packed", **kw)
+    cfg = SwimConfig(n_nodes=N, ring_scalar_wire="packed", **kw)
+    wide = SwimConfig(n_nodes=N, **kw)
+    jplan, plan = plans()
+    if with_prog:
+        jplan, plan = (build(jfaults, jplan, SEGMENTS),
+                       build(faults, plan, SEGMENTS))
+    key = jax.random.key(8)
+    jstep = jax.jit(lambda st, rnd: jring.step(jcfg, st, jplan, rnd))
+    jdraw = jax.jit(lambda t: jring.draw_period_ring(key, t, jcfg))
+    js = jring.init_state(jcfg)
+    ts = ring.init_state(cfg, "cpu")
+    tw = ring.init_state(wide, "cpu")
+    lha_seen = 0
+    for t in range(14):
+        rnd = jdraw(t)
+        js = jstep(js, rnd)
+        trnd = convert.randomness_from_numpy(
+            {f: np.asarray(getattr(rnd, f)) for f in rnd._fields
+             if f != "pull"}, "cpu")
+        plain = ring.step(cfg, ts._replace(cold=ts.cold.clone()), plan,
+                          trnd, plain=True)
+        ts = ring.step(cfg, ts, plan, trnd)
+        tw = ring.step(wide, tw, plan, trnd)
+        for name, s in (("plain", plain), ("wrapped", ts), ("wide", tw)):
+            got = convert.state_to_numpy(s)
+            for f in jring.RingState._fields:
+                np.testing.assert_array_equal(
+                    got[f], np.asarray(getattr(js, f)),
+                    err_msg=f"{case} {name} {f} @ {t}")
+        lha_seen = max(lha_seen, int(ts.lha.max()))
+    assert int(ts.overflow) >= 0 and int(ts.subject.max()) >= 0
+    if kw.get("lifeguard"):
+        assert lha_seen > 0, "no health score left 0"
+        assert forced["rows"] == 1 + kw["k_indirect"]
+        assert forced["bits"] > 0, "no buddy bit was forced"

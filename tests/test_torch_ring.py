@@ -252,11 +252,11 @@ def test_engine_runs_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(profiling=True), dict(ring_scalar_wire="packed"),
+    dict(profiling=True), dict(ring_scalar_wire="packed", profiling=True),
     dict(telemetry=True, profiling=True)], ids=["kw1", "kw3", "kw4"])
 def test_out_of_slice_configs_raise(kw):
-    """The profiling tap and the packed wire raise naming their ROADMAP
-    item; telemetry, which runs, does not lift the profiling refusal."""
+    """The profiling tap raises naming its ROADMAP item; the packed wire
+    and telemetry, which run, do not lift the refusal."""
     cfg = SwimConfig(n_nodes=16, **{"ring_sel_scope": "period", **kw})
     plan = faults.none(16, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
