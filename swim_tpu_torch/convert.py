@@ -8,7 +8,8 @@ change.  bool, uint8, int32 and float32 arrays keep their dtype.
 States of the three engines (RingState, DenseState, RumorState) share
 `state_from_numpy(d, device, cls)` / `state_to_numpy`; the dense and
 rumor engines' randomness is `period_randomness_from_numpy` /
-`rumor_randomness_from_numpy` (all float32).
+`rumor_randomness_from_numpy` (all float32).  The serving hub's
+external originations are `ext_from_numpy`.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import torch
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.models import dense, ring, rumor
-from swim_tpu_torch.models.ring import (PullRandomness, RingRandomness,
-                                        RingState)
+from swim_tpu_torch.models.ring import (ExtOriginations, PullRandomness,
+                                        RingRandomness, RingState)
 from swim_tpu_torch.models.rumor import RumorRandomness
 from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
 from swim_tpu_torch.utils.prng import PeriodRandomness
@@ -92,6 +93,14 @@ def randomness_to_numpy(rnd: RingRandomness) -> dict:
                    {f: _to_numpy(getattr(rnd.pull, f), False)
                     for f in PullRandomness._fields})
     return out
+
+
+def ext_from_numpy(d: dict, device=None) -> ExtOriginations:
+    """ExtOriginations from the reference's four [E] arrays by field
+    name (the uint32 `key` becomes its int32 carrier)."""
+    dev = devmod.resolve(device)
+    return ExtOriginations(**{f: _to_torch(d[f], dev)
+                              for f in ExtOriginations._fields})
 
 
 def period_randomness_from_numpy(d: dict, device=None) -> PeriodRandomness:

@@ -26,6 +26,14 @@ the dense and rumor engines (40 periods, loss 0.05, crashes at a few
 nodes, seed 0): `dense` (N = 256), `rumor` (N = 4096) and
 `rumor_lifeguard` (N = 4096, Lifeguard with buddy and dynamic
 suspicion).
+
+GOLDEN_DIGEST_SERVE is serve/load.py's `state_digest` after
+`drive_serve` on a serving hub (serve/hub.py) of SERVE_N = 4096 nodes
+in the serve anchor geometry: 8 attached rows, gossip datagrams with
+SUSPECT, DEAD and ALIVE claims each period (more than the batch's 64
+slots in period SERVE_SPILL_PERIOD), ACKs, an eviction, 12 periods.
+`drive_serve` feeds codec bytes through `_on_session_datagram`, so the
+same script drives the JAX package's hub.
 """
 from __future__ import annotations
 
@@ -171,3 +179,80 @@ def engine_run(device=None, name: str = "dense"):
     mod = dense if name == "dense" else rumor
     return mod.run(cfg, mod.init_state(cfg, device), plan, GOLDEN_SEED,
                    GOLDEN_PERIODS)
+
+
+SERVE_N = 4096
+SERVE_ROWS = 8
+SERVE_PERIODS = 12
+SERVE_SEED = 0
+SERVE_SPILL_PERIOD = 3
+SERVE_EVICT_PERIOD = 8
+GOLDEN_DIGEST_SERVE = (
+    "fa53b5d9a77887ded9158e34165172798885c6aa4e93e392a38ec81c07edf3ea")
+
+
+def serve_hub_kwargs() -> dict:
+    """ServeHub keywords of the scripted serve runs (both packages)."""
+    return dict(reserved_rows=list(range(SERVE_ROWS)), seed=SERVE_SEED,
+                ack_grace=99, frontend="socket")
+
+
+def serve_datagrams(n: int, t: int, rows: list[int]) -> list:
+    """Period t's scripted DGRAMs as (src row, dst node, codec bytes):
+    each row a PING with 3 claims (10 in the spill period) cycling
+    SUSPECT, DEAD and ALIVE, some with an origin outside [0, n) (the
+    hub then names the hearer), then an ACK."""
+    from swim_tpu_torch.core import codec
+    from swim_tpu_torch.types import MsgKind, Status
+
+    rng = np.random.default_rng(1000 + t)
+    per = 10 if t == SERVE_SPILL_PERIOD else 3
+    out = []
+    for i, row in enumerate(rows):
+        gossip = []
+        for j in range(per):
+            member = int(rng.integers(0, n))
+            origin = int(rng.integers(0, n)) if j % 4 else n + j
+            gossip.append(codec.WireUpdate(
+                member=member, status=Status((t + i + j) % 3),
+                incarnation=int(rng.integers(0, 3)), addr=("sim", member),
+                origin=origin))
+        ping = codec.Message(kind=MsgKind.PING, sender=row, probe_seq=t,
+                             gossip=tuple(gossip))
+        out.append((row, (row + 1 + 7 * t) % n, codec.encode(ping)))
+        out.append((row, 0, codec.encode(codec.Message(
+            kind=MsgKind.ACK, sender=row, probe_seq=t))))
+    return out
+
+
+def drive_serve(hub, periods: int, digest) -> list[str]:
+    """Attach SERVE_ROWS sessions to `hub`, then `periods` periods of
+    the scripted datagrams (the last row evicted before period
+    SERVE_EVICT_PERIOD); returns `digest(hub.state)` after each."""
+    rows = [hub.attach() for _ in range(SERVE_ROWS)]
+    out = []
+    for t in range(periods):
+        live = [r for r in rows if r is not None]
+        for src, dst, payload in serve_datagrams(hub.n, t, live):
+            hub._on_session_datagram(None, src, dst, payload)
+        if t == SERVE_EVICT_PERIOD:
+            hub.evict(rows[-1])
+            rows[-1] = None
+        hub.step_periods(1)
+        out.append(digest(hub.state))
+    return out
+
+
+def golden_serve(device=None, n: int = SERVE_N,
+                 periods: int = SERVE_PERIODS) -> list[str]:
+    """`drive_serve` on the port's hub on `device`: the digest after
+    each period (the last is GOLDEN_DIGEST_SERVE at the defaults)."""
+    from swim_tpu_torch.serve import hub as hub_mod
+    from swim_tpu_torch.serve import load
+
+    cfg = SwimConfig(n_nodes=n, **load.SERVE_ANCHOR)
+    hub = hub_mod.ServeHub(cfg, device=device, **serve_hub_kwargs())
+    try:
+        return drive_serve(hub, periods, load.state_digest)
+    finally:
+        hub.close()

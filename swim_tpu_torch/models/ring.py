@@ -5,7 +5,9 @@ it on either scalar wire, vanilla or with Lifeguard (local health,
 buddy, dynamic suspicion): Phase 0 (judge the outgoing window words,
 recycle the spreading ones, shift the window), the per-subject top-C
 index, the first-B piggyback selection, the probes, Phase C
-(refutation, sentinel expiry) and Phase D (originations).
+(refutation, sentinel expiry) and Phase D (originations, with an
+optional batch of external ones, `ExtOriginations`: the serving hub's
+channel).
 
 Two probe patterns, as in the reference.  Rotor (the default): 2+4k
 rolled message waves, then the deferred cold flush with the C+1 view
@@ -154,6 +156,39 @@ def check_slice(cfg: SwimConfig) -> None:
 
 
 PULL_SRC_ATTEMPTS = 3
+
+
+class ExtOriginations(NamedTuple):
+    """External rumor originations injected into Phase D (reference
+    ring.py:219-247): fixed-size [E] int32 carriers, on the state's
+    device.
+
+      subject: i32[E]  member the claim is about (-1 = empty entry)
+      key:     u32[E]  packed opinion key (the u32 bit pattern)
+      origin:  i32[E]  the claim's originator (sentinel bookkeeping)
+      hearer:  i32[E]  the node that received the datagram: it gets the
+                       heard-bit
+
+    They join the merge at the lowest priority (confirms > refutes >
+    internal suspicions > external).  An entry whose rumor already
+    exists dedups onto its slot and sets no heard-bit.  Valid entries
+    name nodes in [0, N) (the serving hub checks them on the host; the
+    step makes no host sync to check them)."""
+
+    subject: torch.Tensor
+    key: torch.Tensor
+    origin: torch.Tensor
+    hearer: torch.Tensor
+
+
+def ext_none(capacity: int, device=None) -> ExtOriginations:
+    """An all-empty injection batch of the given static capacity."""
+    dev = devmod.resolve(device)
+    zeros = dict(dtype=I32, device=dev)
+    return ExtOriginations(subject=torch.full((capacity,), -1, **zeros),
+                           key=torch.zeros((capacity,), **zeros),
+                           origin=torch.zeros((capacity,), **zeros),
+                           hearer=torch.zeros((capacity,), **zeros))
 
 
 def pow_f32(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
@@ -514,12 +549,10 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     receives the period's EngineFrame fields (obs/engine.py) as int32
     device scalars; the returned state is the same with or without it.
     `ops` replaces the GlobalOps(cfg, device, plain) the step builds
-    (obs/ici.py passes its byte-counting subclass)."""
+    (obs/ici.py passes its byte-counting subclass).  `ext`, an
+    ExtOriginations batch, joins Phase D as its lowest-priority channel;
+    with `ext=None` the step is unchanged."""
     check_slice(cfg)
-    if ext is not None:
-        raise NotImplementedError(
-            "ext is not in the ported slice (ROADMAP.md Queue 1: serving, "
-            "which brings ExtOriginations)")
     if prof is not None:
         raise NotImplementedError(
             "prof is not in the ported slice (ROADMAP.md Queue 1: the "
@@ -1044,8 +1077,11 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     conf_node = snode.gather(1, conf_s[:, None])[:, 0]
 
     # ---- Phase D: new originations into the free fresh lanes --------------
+    # channels in priority order: confirms [0, R), refutes [R, R+N),
+    # suspicions [R+N, R+2N), then the external batch [R+2N, R+2N+E)
     suspect = mk_suspect | re_suspect
-    m_cand = r_tot + 2 * n
+    n_ext = 0 if ext is None else ext.subject.shape[0]
+    m_cand = r_tot + 2 * n + n_ext
     total = (_sum32(confirm) + ops.gsum(_sum32(refute))
              + ops.gsum(_sum32(suspect)))
     kk1 = torch.topk(torch.where(confirm, r_tot - rr, 0), ob).values
@@ -1054,7 +1090,15 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     ci2 = torch.where(ci2 < n, r_tot + ci2, m_cand)
     ci3 = ops.first_true_nodes(suspect, ob)
     ci3 = torch.where(ci3 < n, r_tot + n + ci3, m_cand)
-    cand = torch.cat([ci1, ci2, ci3])
+    chans = [ci1, ci2, ci3]
+    if ext is not None:
+        ext_valid = ext.subject >= 0
+        total = total + _sum32(ext_valid)
+        chans.append(torch.where(
+            ext_valid,
+            r_tot + 2 * n + torch.arange(n_ext, dtype=I32, device=dev),
+            m_cand))
+    cand = torch.cat(chans)
     mk_ = torch.topk(torch.where(cand < m_cand, m_cand - cand, 0), ob).values
     ci = torch.where(mk_ > 0, m_cand - mk_, m_cand)
     got = ci < m_cand
@@ -1067,6 +1111,13 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     sub3 = ops.gather(susp_subject, j3)
     key3 = ops.gather(susp_key, j3)
     org3 = ops.gather(susp_orig, j3)
+    if ext is not None:
+        is4 = got & ~is1 & ~is2 & ~is3
+        j4 = (ci - r_tot - 2 * n).clamp(0, n_ext - 1).to(torch.int64)
+        sub3 = torch.where(is3, sub3, ext.subject[j4])
+        key3 = torch.where(is3, key3, ext.key[j4])
+        org3 = torch.where(is3, org3, ext.origin[j4])
+        hear3 = torch.where(is3, org3, ext.hearer[j4])
     subj_c = torch.where(
         got, torch.where(is1, subject[i1], torch.where(is2, j2, sub3)), -1)
     key_c = torch.where(
@@ -1078,8 +1129,16 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     orig_c = torch.where(
         got, torch.where(is1, conf_node[i1].clamp(min=0),
                          torch.where(is2, j2, org3)), 0)
-    hear_c = orig_c
-    susp_c = is3
+    if ext is not None:
+        # the heard-bit goes to the datagram's receiver for external
+        # entries, to the originator everywhere else
+        hear_c = torch.where(
+            got, torch.where(is1, conf_node[i1].clamp(min=0),
+                             torch.where(is2, j2, hear3)), 0)
+        susp_c = is3 | (is4 & lattice.is_suspect(key_c))
+    else:
+        hear_c = orig_c
+        susp_c = is3
     srcslot_c = torch.where(got & is1, i1, -1)
     overflow = overflow + (total - ob).clamp(min=0)
 
@@ -1119,12 +1178,16 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     stime = scatter.set_drop(stime, wslot, 0)
 
     # originators hear their rumor: add the one-hot into the fresh win
-    # cols (add == or: freshly allocated lanes are bit-disjoint)
+    # cols (add == or: freshly allocated lanes are bit-disjoint).  A
+    # hearer row wraps from below as JAX's scatter index does and drops
+    # outside [-N, N); only an external hearer can lie outside [0, N)
     fw = (lane_c // WORD).clamp(0, g.ow - 1).to(torch.int64)
     fbit = lane_c.clamp(0, ob - 1) % WORD
-    rows = torch.where(alloc_ok, hear_c, 0).to(torch.int64)
+    hear_w = torch.where(hear_c < 0, hear_c + n, hear_c)
+    hear_ok = alloc_ok & (hear_w >= 0) & (hear_w < n)
+    rows = torch.where(hear_ok, hear_w, 0).to(torch.int64)
     one = torch.ones_like(fbit, dtype=torch.int64)
-    add = torch.where(alloc_ok, one << fbit.to(torch.int64), 0)
+    add = torch.where(hear_ok, one << fbit.to(torch.int64), 0)
     fresh = u32.to_u64(win[:, g.ww - g.ow:])
     fresh.index_put_((rows, fw), add, accumulate=True)
     win[:, g.ww - g.ow:] = u32.from_u64(fresh)

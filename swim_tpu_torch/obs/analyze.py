@@ -14,10 +14,9 @@ json and numpy only.
     refute rates (`analyze_spans`);
   * `analyze` / `analyze_paths` dispatch on a file's shape,
     `error_findings` collects error-severity findings and
-    `render_report` draws a report for a terminal.
-
-`summarize_serve` (the serving layer's tail attribution) is not ported
-and raises.
+    `render_report` draws a report for a terminal;
+  * serve: `summarize_serve` decomposes the load harness's echo-RTT
+    tail into the serving hub's period phases (obs/servetrace.py).
 """
 from __future__ import annotations
 
@@ -313,10 +312,71 @@ def summarize_serve(frames: Iterable[Mapping[str, Any]],
                     phase_summary: Mapping[str, Any] | None = None,
                     contract_pct: float = SERVE_COVERAGE_CONTRACT_PCT,
                     ) -> dict:
-    """The echo-RTT tail decomposed into serve-path phases: it reads the
-    serving layer's period frames, which the port does not produce yet."""
-    raise NotImplementedError(
-        "summarize_serve is not ported (ROADMAP.md Queue 1: serving)")
+    """Decompose the measured echo-RTT tail into serve-path phases.
+
+    `frames` are obs/servetrace.py period frames — absolute
+    `[name, t_begin, t_end]` phase intervals on the shared monotonic
+    clock.  `echo_windows` are the load harness's CLIENT-side
+    `[t_send, t_recv]` stamps per echo sample, same clock (loopback,
+    one host).  A tail echo is slow because the frontend drain sat
+    behind whatever the engine thread was doing, so the overlap of its
+    wall window with the phase intervals IS the attribution — measured,
+    not modeled.  The p99 tail (samples at/above the p99 RTT) must be
+    >=`contract_pct` covered by named phases or the report says
+    `attributed: false` and the residual stays `unattributed` —
+    never silently re-binned.
+    """
+    frames = list(frames)
+    windows = [(float(w[0]), float(w[1])) for w in echo_windows]
+    rtts_ms = np.asarray([(e - b) * 1e3 for b, e in windows], np.float64)
+    report: dict[str, Any] = {
+        "kind": "serve_trace",
+        "periods": len(frames),
+        "phase_names": list(SERVE_PHASES),
+        "contract_pct": float(contract_pct),
+    }
+    if phase_summary is not None:
+        report["phases"] = dict(phase_summary.get("phases") or {})
+        report["period_ms"] = dict(phase_summary.get("period_ms") or {})
+    if not len(rtts_ms) or not frames:
+        report.update({"echo": {"samples": int(len(rtts_ms))},
+                       "coverage_pct": 0.0, "attributed": False,
+                       "reason": "no echo windows or no traced frames"})
+        return report
+    p50, p99, p999 = (float(np.percentile(rtts_ms, q))
+                      for q in (50.0, 99.0, 99.9))
+    report["echo"] = {"samples": int(len(rtts_ms)),
+                      "p50_ms": round(p50, 3), "p99_ms": round(p99, 3),
+                      "p999_ms": round(p999, 3)}
+    tail = [(b, e) for (b, e) in windows if (e - b) * 1e3 >= p99]
+    intervals = [(name, float(pb), float(pe))
+                 for f in frames for name, pb, pe in f.get("phases", ())]
+    per_phase = {name: 0.0 for name in SERVE_PHASES}
+    tail_wall = 0.0
+    for b, e in tail:
+        tail_wall += e - b
+        for name, pb, pe in intervals:
+            ov = min(e, pe) - max(b, pb)
+            if ov > 0.0:
+                per_phase[name] = per_phase.get(name, 0.0) + ov
+    n_tail = len(tail)
+    mean_tail_ms = tail_wall / n_tail * 1e3
+    decomp = {name: round(per_phase[name] / n_tail * 1e3, 4)
+              for name in per_phase}
+    attributed_ms = sum(decomp.values())
+    decomp["unattributed"] = round(
+        max(0.0, mean_tail_ms - attributed_ms), 4)
+    coverage = (100.0 * attributed_ms / mean_tail_ms
+                if mean_tail_ms > 0 else 0.0)
+    report.update({
+        "tail": {"spans": n_tail, "threshold_ms": round(p99, 3),
+                 "mean_ms": round(mean_tail_ms, 3)},
+        "p99_attribution_ms": decomp,
+        "unattributed_ms": decomp["unattributed"],
+        "coverage_pct": round(min(coverage, 100.0), 2),
+        "attributed": coverage >= contract_pct,
+    })
+    return report
 
 
 # ------------------------------------------------------------- entry points

@@ -148,18 +148,22 @@ def trace_ici_bytes(cfg: SwimConfig, d: int, plan=None,
     total, "breakdown": {key: bytes}, largest first}.  `plan` defaults to
     `faults.none` (the baseline bill); a FaultProgram adds its u16 link
     lane, the `roll_link_thr` term (sim/scenario.py embeds it in verdict
-    artifacts).  One period runs on the meta device."""
-    if ext_capacity is not None:
-        raise NotImplementedError(
-            "the serving hub's row mirror (ext_capacity) is not in the "
-            "ported slice (ROADMAP.md Queue 1: serving)")
+    artifacts).  `ext_capacity` prices the serving hub's row mirror: the
+    period runs with `ring.ext_none(ext_capacity)`, and the one placed
+    batch a period (four 4-byte lanes a slot, replicated to every device)
+    adds the `ext_mirror_rows` term.  One period runs on the meta
+    device."""
     ops = CountingOps(cfg, d)
     if plan is None:
         plan = faults.none(cfg.n_nodes, META)
     else:
         plan = tree_map(lambda x: x.to(META), plan)
     rnd = ring.draw_period_ring(threefry.key(0), 0, cfg, META)
-    ring.step(cfg, ring.init_state(cfg, META), plan, rnd, ops=ops)
+    ext = None if ext_capacity is None else ring.ext_none(ext_capacity,
+                                                          META)
+    ring.step(cfg, ring.init_state(cfg, META), plan, rnd, ops=ops, ext=ext)
+    if ext_capacity is not None:
+        ops.add("ext_mirror_rows", 4 * 4 * ext_capacity)
     total = sum(ops.tally.values())
     return {"per_chip_bytes_per_period": total,
             "breakdown": dict(sorted(ops.tally.items(),

@@ -28,7 +28,11 @@ conftest, which imports JAX,
     rumor 100,000 nodes); the lanes of a P = 2 ring batch with
     telemetry equal their serial runs on the card;
   * a minified packed scenario: its verdict on the card has the CPU's
-    bytes, and its Lifeguard arm's kernels equal their plain versions.
+    bytes, and its Lifeguard arm's kernels equal their plain versions;
+  * the serving hub: golden.drive_serve (injections with a spill, an
+    eviction) on the card gives the CPU's state digest after every
+    period, with selb, wavemerge and coldsel once a period, and a small
+    `run_load` on the udppump frontend keeps `ok_parity`.
 """
 from __future__ import annotations
 
@@ -409,3 +413,25 @@ def test_packed_scenario_card_equals_cpu(cuda, tmp_path):
 def path_text(path, out_dir) -> str:
     with open(path) as fh:
         return fh.read().replace(str(out_dir), "OUT")
+
+
+def test_serve_hub_card_equals_cpu(cuda):
+    from swim_tpu_torch.ops import coldsel, selb, wavemerge
+
+    periods = 10
+    before = (selb.launches, coldsel.launches, wavemerge.launches)
+    card = golden.golden_serve(cuda, n=3000, periods=periods)
+    after = (selb.launches, coldsel.launches, wavemerge.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (periods,) * 3
+    assert card == golden.golden_serve("cpu", n=3000, periods=periods)
+
+
+def test_serve_run_load_on_the_card(cuda):
+    from swim_tpu_torch.serve import load as serve_load
+
+    res = serve_load.run_load(n_nodes=20_000, sessions=32, periods=3,
+                              n_sockets=4, echo_samples=100,
+                              frontend="udppump")
+    assert res["ok_parity"], res
+    assert res["frontend"] == "udppump"
+    assert res["clean"]["admission"]["sessions"] == 32

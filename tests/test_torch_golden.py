@@ -144,3 +144,25 @@ def test_engine_digests_differ_and_see_every_field():
             else:
                 changed[f] = a + 1
             assert golden.digest(changed) != ref, f
+
+
+def test_serve_golden_digest_in_both_packages():
+    """golden.drive_serve through the JAX package's hub and the port's
+    hub on the CPU: equal digests after every period, the last one
+    GOLDEN_DIGEST_SERVE (chip_smoke.py checks the card)."""
+    from swim_tpu.serve import hub as jhub
+    from swim_tpu.serve import load as jload
+
+    ref = jhub.ServeHub(JaxSwimConfig(n_nodes=golden.SERVE_N,
+                                      **jload.SERVE_ANCHOR),
+                        **golden.serve_hub_kwargs())
+    try:
+        want = golden.drive_serve(ref, golden.SERVE_PERIODS,
+                                  jload.state_digest)
+        assert ref.report()["mirror_spill_slots"] > 0
+        assert ref.report()["evicted"] == 1
+    finally:
+        ref.close()
+    got = golden.golden_serve("cpu")
+    assert got == want
+    assert got[-1] == golden.GOLDEN_DIGEST_SERVE

@@ -8,8 +8,9 @@
     imports the port, runs a few CPU periods of each path and engine, a
     small streaming study, a small study with the default engine and
     telemetry, its flight-recorder dump read back by the analyzer, a
-    batch of two fault programs, and a small packed scenario with its
-    byte bill;
+    batch of two fault programs, a small packed scenario with its
+    byte bill, and two periods of an in-process serving hub with one
+    injected claim;
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -27,6 +28,8 @@ import torch
 from swim_tpu_torch import SwimConfig, device
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
+from swim_tpu_torch.serve import load as serve_load
+from swim_tpu_torch.serve.hub import ServeHub
 from swim_tpu_torch.sim import faults
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,7 +62,16 @@ def test_port_files_found():
             "checkpoint.py", "metrics.py", "analyze.py", "dense.py",
             "rumor.py", "prng.py", "scatter.py", "common.py", "engine.py",
             "health.py", "recorder.py", "tree.py", "scenario.py",
-            "search.py", "ici.py", "wavepack.py"} <= names
+            "search.py", "ici.py", "wavepack.py", "codec.py",
+            "transport.py", "hub.py", "load.py", "trace.py",
+            "servetrace.py", "types.py", "serve_tail.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"swim_tpu_torch/core/codec.py",
+            "swim_tpu_torch/core/transport.py",
+            "swim_tpu_torch/native/__init__.py",
+            "swim_tpu_torch/native/transport.py",
+            "swim_tpu_torch/serve/hub.py",
+            "swim_tpu_torch/serve/load.py"} <= rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -128,6 +140,23 @@ def test_steps_with_jax_unimportable():
         "assert v['arms']['main']['ici']['roll_link_thr_bytes'] > 0\n"
         "assert search.violations_of(dict(false_dead_final=1,\n"
         "    false_dead_peak=1, undetected_crashes=0), None)\n"
+        "from swim_tpu_torch.core import codec\n"
+        "from swim_tpu_torch.serve import hub as hub_mod, load\n"
+        "from swim_tpu_torch.types import MsgKind, Status\n"
+        "hub = hub_mod.ServeHub(SwimConfig(n_nodes=64, **load.SERVE_ANCHOR),\n"
+        "    reserved_rows=[3], frontend='socket', device='cpu')\n"
+        "try:\n"
+        "    row = hub.attach()\n"
+        "    hub._on_session_datagram(None, row, 9, codec.encode(\n"
+        "        codec.Message(kind=MsgKind.PING, sender=row, gossip=(\n"
+        "            codec.WireUpdate(20, Status.SUSPECT, 0, ('sim', 20),\n"
+        "                             row),))))\n"
+        "    hub.step_periods(2)\n"
+        "    assert hub.report()['mirror_updates'] == 1\n"
+        "    assert int((hub.state.subject == 20).sum()) == 1\n"
+        "    assert len(load.state_digest(hub.state)) == 64\n"
+        "finally:\n"
+        "    hub.close()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -146,7 +175,10 @@ def test_entry_points_need_a_card_by_default():
     for call in (lambda: ring.RingEngine(cfg, plan),
                  lambda: ring.init_state(cfg),
                  lambda: faults.none(16),
-                 lambda: device.resolve(None)):
+                 lambda: device.resolve(None),
+                 lambda: ring.ext_none(4),
+                 lambda: ServeHub(cfg, [1], frontend="socket"),
+                 lambda: serve_load.run_load(n_nodes=64, sessions=1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

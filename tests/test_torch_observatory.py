@@ -239,5 +239,12 @@ def test_spans_and_serve_summaries(tmp_path):
     assert report == janalyze.analyze(str(path))
     assert report["probes"]["indirect_rescues"] == 1
     assert analyze.render_report(report) == janalyze.render_report(report)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*serving"):
-        analyze.summarize_serve([], [])
+    # summarize_serve, ported since, equals the reference's
+    frame = {"period": 0, "t0": 1.0, "t1": 1.012,
+             "phases": [["engine_step", 1.0, 1.010],
+                        ["mirror_fanout", 1.010, 1.012]]}
+    for frames, windows in (([], []), ([frame], [(1.008, 1.012)] * 4),
+                            ([frame], [(1.002, 1.006), (2.0, 2.004)])):
+        got = analyze.summarize_serve(frames, windows)
+        assert got == janalyze.summarize_serve(frames, windows)
+        assert analyze.render_report(got) == janalyze.render_report(got)

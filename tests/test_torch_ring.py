@@ -267,16 +267,33 @@ def test_out_of_slice_configs_raise(kw):
 
 @pytest.mark.parametrize("arg", ["ext", "tap", "prof", "program"])
 def test_out_of_slice_arguments_raise(arg):
-    """ext and prof raise naming their own ROADMAP item, prof also
-    beside a tap (which runs); a FaultProgram under pull-uniform probing
-    raises as the reference does."""
+    """prof raises naming its ROADMAP item, also beside a tap (which
+    runs); a FaultProgram under pull-uniform probing raises as the
+    reference does.  `ext`, ported since, runs: a batch with a
+    suspicion, a death and an empty slot gives the JAX step's state in
+    all 14 fields (tolerance 0)."""
     probe = "pull" if arg == "program" else "rotor"
     cfg = SwimConfig(n_nodes=16, ring_sel_scope="period", ring_probe=probe)
     plan = faults.none(16, "cpu")
     state = ring.init_state(cfg, "cpu")
     rnd = ring.draw_period_ring((0, 0), 0, cfg, "cpu")
+    if arg == "ext":
+        jcfg = JaxSwimConfig(n_nodes=16, ring_sel_scope="period")
+        jrnd = jring.draw_period_ring(jax.random.key(0), 0, jcfg)
+        jext = jring.ExtOriginations(
+            subject=np.array([3, 9, -1], np.int32),
+            key=np.array([1, 1 << 31, 0], np.uint32),
+            origin=np.array([5, 2, 0], np.int32),
+            hearer=np.array([7, 2, 0], np.int32))
+        want = jax.jit(functools.partial(jring.step, jcfg))(
+            jring.init_state(jcfg), jfaults.none(16), jrnd, ext=jext)
+        got = ring.step(cfg, state, plan,
+                        convert.randomness_from_numpy(np_fields(jrnd), "cpu"),
+                        ext=convert.ext_from_numpy(np_fields(jext), "cpu"))
+        assert_same_state(got, want, "ext")
+        assert int((got.subject >= 0).sum()) == 2
+        return
     kw, match = {
-        "ext": ({"ext": object()}, "ROADMAP.*serving"),
         "prof": ({"prof": object()}, "ROADMAP.*instruments"),
         "tap": ({"tap": {}, "prof": object()}, "ROADMAP.*instruments"),
         "program": ({}, "pull-uniform")}[arg]

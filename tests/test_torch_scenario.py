@@ -217,8 +217,18 @@ def test_ici_bill_matches_the_reference(name):
 
 
 def test_ici_bill_refuses_the_serving_mirror():
-    with pytest.raises(NotImplementedError, match="serving"):
-        ici.trace_ici_bytes(SwimConfig(n_nodes=64), 4, ext_capacity=8)
+    """The serving hub's mirror, ported since: the bill with
+    `ext_capacity` equals the reference's at d = 4 and 8, its
+    `ext_mirror_rows` term 16 bytes a slot."""
+    for d in (4, 8):
+        got = ici.trace_ici_bytes(SwimConfig(n_nodes=64), d, ext_capacity=8)
+        want = jici.trace_ici_bytes(JaxSwimConfig(n_nodes=64), d,
+                                    ext_capacity=8)
+        assert got["per_chip_bytes_per_period"] == \
+            want["per_chip_bytes_per_period"]
+        assert list(got["breakdown"].items()) == \
+            list(want["breakdown"].items()), f"d={d}"
+        assert got["breakdown"]["ext_mirror_rows"] == 16 * 8
 
 
 # ------------------------------------------------------------- verdicts
