@@ -121,7 +121,9 @@ Phases, each printed as one JSON line:
      packed arms, and its launches per ring period (a packed ring arm
      with a program: selb 1, wavemerge 1, coldsel 1; the pull study selb
      1; rumor none), zeroed before and read after each run;
-     `replay_storm` raises naming ROADMAP item 4.  `gray_10pct`'s
+     `replay_storm` (a 16-node SimCluster of real nodes) passes with
+     verdict bytes equal to golden.GOLDEN_DIGEST_REPLAY_STORM, launching
+     no kernel.  `gray_10pct`'s
      program and Lifeguard arm rescaled to 1,000,000 nodes (`blocks:10`,
      about 100,000 gray nodes) for 20 periods: the packed wire with the
      kernels, with the plain versions and the wide wire all give equal
@@ -155,6 +157,24 @@ Phases, each printed as one JSON line:
      periods span under a third of the echo window), with the echo
      percentiles inside and outside the traced periods; (g)
      `trace_overhead()` at its defaults.
+ 14. bridge: the lockstep bridge over the ring engine on the card
+     (bridge/engine_server.py).  g++ of native/bridge_client.cpp; (1)
+     golden.GOLDEN_DIGEST_BRIDGE (the scripted raw-socket session at
+     2,048 nodes in the bridge geometry, k = 1: frames and state after
+     every period) on the card, selb 6, wavemerge 6 and coldsel 1
+     launches a period; (2) the same script at 65,536 nodes with the
+     default SwimConfig for 20 periods, card against CPU after every
+     period (frames, state, findings), launches 14 / 14 / 1 a period;
+     (3) the reference's conformance scenarios with the compiled C++
+     core: one core joining 65,536 engine nodes (victim killed at 8 s,
+     a forged suspicion refuted into tensor state, no false deaths) and
+     two cores at 16,384 nodes (A leaves, B learns A's death through
+     tensor state); (4) the bridge period at 1,000,000 nodes with the
+     default SwimConfig and one session acking its pings: the wall a
+     period as the session and as the server see it, busy ms under
+     torch.profiler, the idle share, launches and device-to-host copies
+     a period (one: the table, tombstones and the joined rows), and the
+     synchronizing calls PyTorch's sync check reports.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -163,8 +183,11 @@ is then nonzero and the last line is not printed.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import shutil
+import socket
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -173,6 +196,10 @@ import numpy as np
 import torch
 
 from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
+from swim_tpu_torch import native
+from swim_tpu_torch.bridge import EngineBridgeServer
+from swim_tpu_torch.bridge import protocol as bp
+from swim_tpu_torch.core import codec
 from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import dense, ring, rumor
@@ -183,6 +210,7 @@ from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
 from swim_tpu_torch.sim import (experiments, faults, runner, scenario,
                                 search)
+from swim_tpu_torch.types import MsgKind, Status
 from swim_tpu_torch.utils import prng, threefry
 from swim_tpu_torch.utils.tree import tree_map
 
@@ -1431,753 +1459,21 @@ def library_phase(card: str) -> dict:
             k: v / ring_periods for k, v in launches.items()}
         row["card"] = card
         emit(**row)
-    try:
-        scenario.run(scenario.get("replay_storm"),
-                     out_dir=str(SCENARIO_DIR / "replay_storm"))
-    except NotImplementedError as e:
-        if "item 4" not in str(e):
-            raise
-        emit(phase="scenario", part="library", name="replay_storm",
-             raises=str(e))
-    else:
-        raise AssertionError("replay_storm ran; it needs the host layer")
-    return total
-
-
-def packed_phase(card: str) -> dict:
-    """gray_10pct's program and Lifeguard arm at 1,000,000 nodes: the
-    packed wire with the kernels, with the plain versions and the wide
-    wire with the kernels give equal state; periods/sec packed and wide
-    in alternating runs; the bill's bytes on both wires."""
-    sc = dataclasses.replace(scenario.get("gray_10pct"), n=N,
-                             periods=PACKED_PERIODS)
-    _, cfg, prog = scenario._arm_prepare(sc, {}, "cuda")
-    wide = cfg.replace(ring_scalar_wire="wide")
-    t0 = time.perf_counter()
-
-    def run(c, plain=False):
-        return ring.run(c, ring.init_state(c, "cuda"), prog, sc.seed,
-                        PACKED_PERIODS, plain=plain)
-
-    torch.cuda.synchronize()
-    reset_launches()
-    k = run(cfg)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    fields = require_same("packed 1M: kernels vs plain", k, run(cfg, True))
-    require_same("packed 1M: packed vs wide wire", k, run(wide))
-    if launches != {x: PACKED_PERIODS for x in launches}:
-        raise AssertionError(f"packed 1M launches {launches}")
-    gray = int((faults.link_lanes(prog, 10)[2] > 0).sum())
-    pps = {"packed": [], "wide": []}
-    for _ in range(PACKED_PAIRS):
-        for name, c in (("packed", cfg), ("wide", wide)):
-            st = ring.init_state(c, "cuda")
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            ring.run(c, st, prog, sc.seed, PACKED_PERIODS)
-            torch.cuda.synchronize()
-            pps[name].append(PACKED_PERIODS / (time.perf_counter() - a))
-    bills = {name: ici.trace_ici_bytes(c, d=8, plan=prog)
-             for name, c in (("packed", cfg), ("wide", wide))}
-    emit(phase="scenario", part="packed_1m", n_nodes=N,
-         periods=PACKED_PERIODS, gray_nodes=gray, fields_equal=fields,
-         launches=launches, suspects=int((k.rkey & 1).sum()),
-         lha_max=int(k.lha.max()), periods_per_sec=pps, bill_d8=bills,
-         seconds=time.perf_counter() - t0, card=card)
-    return launches
-
-
-def search_phase(card: str) -> None:
-    """search.search() at its defaults, twice: equal report bytes; wall,
-    wall per generation, the boundary."""
-    walls, texts = [], []
-    for i in range(2):
-        path = SCENARIO_DIR / f"search_{i}.json"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = search.search(out=str(path))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        texts.append(path.read_bytes())
-    if texts[0] != texts[1]:
-        raise AssertionError("search: two runs wrote different reports")
-    gens = rep["explore"]["generations"] + len(rep["boundary"]["history"])
-    b = rep["boundary"]
-    emit(phase="scenario", part="search", generations=gens,
-         pop=rep["explore"]["pop"], lanes=gens * rep["explore"]["pop"],
-         wall_s=walls, wall_s_per_generation=[w / gens for w in walls],
-         archive=len(rep["explore"]["archive"]),
-         violations=len(rep["explore"]["violations"]),
-         boundary={k: b.get(k) for k in ("found", "clean_level",
-                                          "violation_level", "width")},
-         card=card)
-
-
-def scenario_phase(card: str) -> dict:
-    """Phase 12; returns the kernels' launches in the library's ring
-    specs and in the 1M packed run."""
-    t0 = time.perf_counter()
-    SCENARIO_DIR.mkdir(exist_ok=True)
-    launches = {"scenario": library_phase(card),
-                "packed": packed_phase(card)}
-    search_phase(card)
-    emit(phase="scenario", part="done", seconds=time.perf_counter() - t0,
-         card=card)
-    return launches
-
-
-# ------------------------------------------------------- phase 13: serve
-
-SERVE_PARITY_N = 100_000
-SERVE_PARITY_PERIODS = 20
-SERVE_PLAIN_PERIODS = 3
-SERVE_TIMED_PERIODS = 20
-
-
-def serve_launches(what: str, launches: dict, periods: int) -> None:
-    per = {k: v / periods for k, v in launches.items()}
-    if per != {"selb": 1.0, "coldsel": 1.0, "wavemerge": 1.0}:
-        raise AssertionError(f"serve {what}: launches a period {per}, "
-                             "expected selb 1, coldsel 1, wavemerge 1")
-
-
-def serve_digests(card: list, want: list, what: str) -> None:
-    for t, (a, b) in enumerate(zip(card, want)):
-        if a != b:
-            raise AssertionError(f"serve {what}: state digests differ "
-                                 f"after period {t}")
-    if len(card) != len(want):
-        raise AssertionError(f"serve {what}: {len(card)} != {len(want)} "
-                             "periods")
-
-
-def serve_parity_phase() -> dict:
-    """(a) the golden digest, (b) card against CPU at 100,000 nodes with
-    launches counted, (c) card against the CPU hub (the plain versions)
-    at 1M."""
-    got = golden.golden_serve("cuda")
-    if got[-1] != golden.GOLDEN_DIGEST_SERVE:
-        raise AssertionError(f"golden serve digest on the card {got[-1]} "
-                             f"!= {golden.GOLDEN_DIGEST_SERVE}")
-    emit(phase="serve", part="golden", digest=got[-1],
-         n_nodes=golden.SERVE_N, periods=golden.SERVE_PERIODS)
-
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    reset_launches()
-    card = golden.golden_serve("cuda", n=SERVE_PARITY_N,
-                               periods=SERVE_PARITY_PERIODS)
-    launches = read_launches()
-    serve_launches("card against CPU", launches, SERVE_PARITY_PERIODS)
-    cpu = golden.golden_serve("cpu", n=SERVE_PARITY_N,
-                              periods=SERVE_PARITY_PERIODS)
-    serve_digests(card, cpu, "card against CPU")
-    emit(phase="serve", part="card_vs_cpu", n_nodes=SERVE_PARITY_N,
-         periods=SERVE_PARITY_PERIODS, digests_equal=len(card),
-         launches=launches, seconds=time.perf_counter() - t0)
-
-    # 1M: the card hub against the CPU hub (the plain versions) on the
-    # same scripted sessions and datagrams
-    t0 = time.perf_counter()
-    card = golden.golden_serve("cuda", n=N, periods=SERVE_PLAIN_PERIODS)
-    cpu = golden.golden_serve("cpu", n=N, periods=SERVE_PLAIN_PERIODS)
-    serve_digests(card, cpu, "card against the CPU's plain versions at 1M")
-    emit(phase="serve", part="plain_1m", n_nodes=N,
-         periods=SERVE_PLAIN_PERIODS, digests_equal=len(card),
-         seconds=time.perf_counter() - t0)
-    return launches
-
-
-class _HubRunner:
-    """`capture_inputs` steps an engine with `run(1)`: a hub period."""
-
-    def __init__(self, hub):
-        self.hub = hub
-
-    def run(self, periods: int) -> None:
-        self.hub.step_periods(periods)
-
-
-def serve_hub_1m():
-    """A 1M hub with the golden script's sessions, after 3 periods of
-    its datagrams, with period 3's (the spill period's) queued."""
-    cfg = SwimConfig(n_nodes=N, **serve_load.SERVE_ANCHOR)
-    hub = serve_hub.ServeHub(cfg, **golden.serve_hub_kwargs())
-    golden.drive_serve(hub, 3, lambda _: None)
-    rows = sorted(r["row"] for r in hub.report()["sessions"])
-    for src, dst, payload in golden.serve_datagrams(N, 3, rows):
-        hub._on_session_datagram(None, src, dst, payload)
-    return hub, rows
-
-
-def serve_kernels_phase(rows: dict, card: str) -> dict:
-    """(d) the kernels on one hub period's inputs, (h) one untraced hub
-    period under the sync check, and the hub period's wall, busy ms and
-    launches at 1M."""
-    from torch.profiler import ProfilerActivity, profile
-
-    hub, sessions = serve_hub_1m()
-    try:
-        captured = capture_inputs(_HubRunner(hub))
-        for name, cnt in captured["calls"].items():
-            if cnt != 1:
-                raise AssertionError(f"serve: {name} called {cnt} times in "
-                                     "one hub period")
-        win, b = captured["selb"]
-        err = require_equal("selb on the serve path's input",
-                            selb.select_first_b(win, b),
-                            selb.select_first_b_plain(win, b))
-        nbytes = 2 * win.numel() * 4
-        out = {"selb": dict(
-            max_abs_err=err, shape=list(win.shape), b=b,
-            ms_main=gpu_ms(lambda: selb.select_first_b(win, b)),
-            bytes_main=nbytes, bound_ms_main=bound(nbytes,
-                                                   win.numel() * 8)[0])}
-        out["wavemerge"] = wavemerge_on(captured, "the serve path's inputs")
-        out["coldsel"] = coldsel_on(captured["coldsel"], "the serve period")
-        out["coldsel"]["q"] = int(captured["coldsel"][3].shape[0])
-        for name, r in out.items():
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
-                                            r["max_abs_err"])
-            rows[name]["serve"] = {k: r[k] for k in (
-                "ms_main", "bytes_main", "bound_ms_main")}
-            emit(phase="serve", part="main_inputs", name=name, **r)
-
-        # no host sync in an untraced period (gossip queued: the batch
-        # and the offsets go over in the staged copy)
-        for src, dst, payload in golden.serve_datagrams(N, 4, sessions):
-            hub._on_session_datagram(None, src, dst, payload)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            hub.step_periods(1)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        emit(phase="serve", part="no_sync", n_nodes=N, period=hub.t - 1)
-
-        # the hub period at 1M: bare wall, then busy ms under the
-        # profiler; each period queues the golden script's gossip
-        def periods(k):
-            for _ in range(k):
-                for src, dst, payload in golden.serve_datagrams(
-                        N, hub.t, sessions):
-                    hub._on_session_datagram(None, src, dst, payload)
-                hub.step_periods(1)
-            torch.cuda.synchronize()
-
-        periods(2)
-        reset_launches()
-        t0 = time.perf_counter()
-        periods(SERVE_TIMED_PERIODS)
-        wall = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED_PERIODS
-        launches = read_launches()
-        serve_launches("timed 1M periods", launches, SERVE_TIMED_PERIODS)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            periods(SERVE_TIMED_PERIODS)
-        busy, acts = busy_ms(prof)
-        busy /= SERVE_TIMED_PERIODS
-        row = dict(phase="serve", part="hub_period", n_nodes=N,
-                   periods=SERVE_TIMED_PERIODS, wall_ms=wall, busy_ms=busy,
-                   idle_share=1.0 - busy / wall,
-                   device_activities_per_period=acts / SERVE_TIMED_PERIODS,
-                   launches=launches, mirror=hub.report()["mirror_updates"],
-                   card=card)
-        emit(**row)
-        return row
-    finally:
-        hub.close()
-
-
-def serve_load_phase(card: str) -> None:
-    """(e) run_load, (f) run_trace, (g) trace_overhead at their
-    defaults, on the udppump frontend.  run_trace must keep the traced
-    state bitwise equal to the untraced one and attribute its echo tail
-    to named phases (`ok_parity`)."""
-    t0 = time.perf_counter()
-    res = serve_load.run_load(frontend="udppump")
-    if not res["ok_parity"] or res["frontend"] != "udppump":
-        raise AssertionError(f"run_load: ok_parity {res['ok_parity']}, "
-                             f"frontend {res['frontend']}")
-    for arm in ("clean", "storm"):
-        if res[arm]["admission"]["sessions"] != res["sessions"]:
-            raise AssertionError(f"run_load {arm} arm admitted "
-                                 f"{res[arm]['admission']}")
-    clean = res["clean"]
-    emit(phase="serve", part="load", n_nodes=res["nodes"],
-         sessions=res["sessions"], periods=res["periods"],
-         frontend=res["frontend"],
-         admission_sessions_per_sec=res["admission_sessions_per_sec"],
-         rtt_ms={k: clean["rtt_ms"][k] for k in ("p50", "p99", "p999",
-                                                  "samples")},
-         storm_rtt_ms={k: res["storm"]["rtt_ms"][k]
-                       for k in ("p50", "p99", "p999")},
-         step_seconds=clean["step_seconds"],
-         storm_step_seconds=res["storm"]["step_seconds"],
-         wall_ms_per_period=clean["step_seconds"] * 1e3 / res["periods"],
-         acks_sent=clean["acks_sent"], digest=clean["digest"],
-         ok_parity=True, seconds=time.perf_counter() - t0, card=card)
-
-    t0 = time.perf_counter()
-    tr = serve_load.run_trace(frontend="udppump")
-    att = tr["attribution"]
-    if set(att["p99_attribution_ms"]) != set(analyze.SERVE_PHASES) | {
-            "unattributed"} or att["periods"] != tr["periods"]:
-        raise AssertionError(f"run_trace: malformed attribution {att}")
-    emit(phase="serve", part="trace", n_nodes=tr["nodes"],
-         sessions=tr["sessions"], periods=tr["periods"],
-         digests_match=tr["digests_match"], coverage_pct=tr["coverage_pct"],
-         attributed=bool(att.get("attributed")),
-         contract_pct=att["contract_pct"], tail=att["tail"],
-         echo=att["echo"], p99_attribution_ms=att["p99_attribution_ms"],
-         phase_mean_ms={k: v["mean_ms"]
-                        for k, v in tr["phase_summary"]["phases"].items()},
-         period_ms=tr["phase_summary"]["period_ms"],
-         step_seconds_untraced=tr["step_seconds_untraced"],
-         step_seconds_traced=tr["step_seconds_traced"],
-         seconds=time.perf_counter() - t0, card=card)
-
-    d8, row = timed_study("DenseEngine(8192).run(10)", 10, dense_8192_run,
-                          card)
-    if d8["suspected"] == 0 or d8["false_dead_views"] != 0:
-        raise AssertionError(f"dense 8192 without loss: {d8}")
-    row.update(n_nodes=experiments.DENSE_MAX, engine="dense", **d8)
-    add("dense", row)
-    emit(**row)
-
-    fp, row = timed_study("fp_sweep()", 400, experiments.fp_sweep, card)
-    if fp["engine"] != "rumor" or len(fp["points"]) != 4 or \
-            fp["points"][-1]["suspect_views_peak"] == 0:
-        raise AssertionError(f"fp_sweep(): {fp}")
-    row.update(n_nodes=fp["n"], engine=fp["engine"], points=fp["points"])
-    add("rumor", row)
-    emit(**row)
-
-    ss, row = timed_study(
-        "suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=30)", 60,
-        lambda: experiments.suspicion_sweep(n=N, mults=(2.0, 5.0),
-                                            periods=30), card)
-    if ss["engine"] != "rumor" or any(pt["crashed"] == 0
-                                      for pt in ss["points"]):
-        raise AssertionError(f"suspicion_sweep: {ss}")
-    row.update(n_nodes=N, engine=ss["engine"], points=ss["points"])
-    add("rumor", row)
-    emit(**row)
-
-    lg, row = timed_study(
-        "lifeguard_ablation(n=1_000_000, periods=20)", 40,
-        lambda: experiments.lifeguard_ablation(n=N, periods=20), card)
-    if lg["engine"] != "rumor" or any(a["crashed"] == 0
-                                      for a in lg["arms"].values()):
-        raise AssertionError(f"lifeguard_ablation: {lg}")
-    row.update(n_nodes=N, engine=lg["engine"], arms=lg["arms"])
-    add("rumor", row)
-    emit(**row)
-
-    engine_no_sync_period("dense", 1000)
-    engine_no_sync_period("rumor", 100_000)
-    return launches
-
-
-# ------------------------------------------------- slice 6: telemetry
-
-TAP_PERIODS = 20        # recorded_ring_run, the batches, the tap costs
-TAP_PAIRS = 3           # alternating tap-off / tap-on timed runs
-BATCH_RUMOR_N = 100_000  # the rumor batch at config 3's size
-TELEMETRY_DIR = Path(__file__).resolve().parent / "_telemetry"
-
-
-def tap_cost(label: str, periods: int, run_off, run_on, card: str) -> dict:
-    """Wall ms a period of `run_off()` and `run_on()` (each does
-    `periods` periods from the same start) in TAP_PAIRS alternating
-    pairs, then the device busy ms a period of one more run of each under
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    walls = {"off": [], "on": []}
-    for _ in range(TAP_PAIRS):
-        for which, fn in (("off", run_off), ("on", run_on)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls[which].append((time.perf_counter() - t0) * 1e3 / periods)
-    busy = {}
-    for which, fn in (("off", run_off), ("on", run_on)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ms, kernels = busy_ms(prof)
-        busy[which] = dict(busy_ms=ms / periods,
-                           kernels_per_period=kernels / periods)
-    row = dict(phase="telemetry", part="tap_cost", run=label,
-               periods=periods, wall_ms_off=walls["off"],
-               wall_ms_on=walls["on"],
-               periods_per_sec_off=[1e3 / w for w in walls["off"]],
-               periods_per_sec_on=[1e3 / w for w in walls["on"]],
-               busy_ms_off=busy["off"]["busy_ms"],
-               busy_ms_on=busy["on"]["busy_ms"],
-               kernels_off=busy["off"]["kernels_per_period"],
-               kernels_on=busy["on"]["kernels_per_period"], card=card)
-    emit(**row)
-    return row
-
-
-def require_same(what: str, a, b) -> int:
-    """Every leaf of two NamedTuple trees of tensors equal; the count."""
-    pairs = []
-    tree_map(lambda x, y: pairs.append(torch.equal(x, y)), a, b)
-    if not pairs or not all(pairs):
-        raise AssertionError(f"{what}: leaf {pairs.index(False)} differs")
-    return len(pairs)
-
-
-def recorded_run_phase(card: str) -> dict:
-    """recorded_ring_run at 1M in wave scope: kernels against plain
-    versions, launches, the tap-off run's state, the tap's cost."""
-    cfg = path_cfg("wave")
-    plan = crash_plan(cfg, TAP_PERIODS)
-    key = threefry.key(0)
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    reset_launches()
-    rec = obs_engine.recorded_ring_run(cfg, ring.init_state(cfg, "cuda"),
-                                       plan, key, TAP_PERIODS)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    want = {k: TAP_PERIODS * v for k, v in expected_launches(cfg).items()}
-    if launches != want:
-        raise AssertionError(f"recorded_ring_run launches {launches}, "
-                             f"expected {want}")
-    plain = obs_engine.recorded_ring_run(cfg, ring.init_state(cfg, "cuda"),
-                                         plan, key, TAP_PERIODS, plain=True)
-    fields = require_same("recorded_ring_run, kernels against plain", rec,
-                          plain)
-    off = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, TAP_PERIODS)
-    require_same("recorded_ring_run against a tap-off ring.run", rec.state,
-                 off)
-    fr = rec.frames
-    if int(fr.waves_delivered.min()) == 0 or \
-            int(fr.sel_slots_selected.max()) == 0:
-        raise AssertionError(f"recorded_ring_run frames are empty: {fr}")
-    emit(phase="telemetry", part="recorded_ring_run", path="wave",
-         n_nodes=N, periods=TAP_PERIODS, leaves_equal=fields,
-         launches=launches,
-         launches_per_period={k: v / TAP_PERIODS for k, v in
-                              launches.items()},
-         frames_sum={f: int(getattr(fr, f).sum()) for f in fr._fields},
-         frames_last={f: int(getattr(fr, f)[-1]) for f in fr._fields},
-         seconds=time.perf_counter() - t0, card=card)
-    init = ring.init_state(cfg, "cuda")
-
-    def fresh():
-        return init._replace(cold=init.cold.clone())
-
-    tap_cost("ring wave recorded_ring_run", TAP_PERIODS,
-             lambda: ring.run(cfg, fresh(), plan, 0, TAP_PERIODS),
-             lambda: obs_engine.recorded_ring_run(cfg, fresh(), plan, key,
-                                                  TAP_PERIODS), card)
-    return launches
-
-
-def telemetry_study_phase(card: str) -> None:
-    """The 1M pull detection study with telemetry and a dump, by both
-    runners (byte-equal dumps that hold every period's frame); the dump
-    analysed; a telemetry study period without a host sync; the tap's
-    cost on 20 study periods."""
-    kw = dict(n=N, crash_fraction=CRASH_FRACTION, periods=STUDY_PERIODS,
-              seed=0, engine="ring", telemetry=True)
-    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
-    TELEMETRY_DIR.mkdir()
-    t0 = time.perf_counter()
-    try:
-        dumps = {w: str(TELEMETRY_DIR / f"{w}.jsonl")
-                 for w in ("full", "stream")}
-        full = experiments.detection_study(stream=False,
-                                           flight_record=dumps["full"], **kw)
-        chunked = experiments.detection_study(
-            stream=True, chunk=STUDY_CHUNK, flight_record=dumps["stream"],
-            **kw)
-        reports = {w: analyze.analyze(p) for w, p in dumps.items()}
-        same_dump = (Path(dumps["full"]).read_bytes()
-                     == Path(dumps["stream"]).read_bytes())
-    finally:
-        shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
-    wall = time.perf_counter() - t0
-    drop = {"stream", "flight_record"}
-    if {k: v for k, v in full.items() if k not in drop} != \
-            {k: v for k, v in chunked.items() if k not in drop}:
-        raise AssertionError(f"telemetry study summaries differ: {full} != "
-                             f"{chunked}")
-    if not same_dump or reports["full"] != reports["stream"]:
-        raise AssertionError("the two runners' dumps differ")
-    if reports["full"]["periods"] != STUDY_PERIODS:
-        raise AssertionError(f"the dump holds {reports['full']['periods']} "
-                             f"frames, not {STUDY_PERIODS}")
-    det = reports["full"]["detection"]
-    if det["crashed"] == 0 or any(full[k] != v for k, v in det.items()):
-        raise AssertionError(f"the dump's detection summary {det} is not "
-                             f"the study's")
-    errors = analyze.error_findings(reports["full"])
-    scfg = SwimConfig(n_nodes=N, ring_probe="pull")
-    tcfg = SwimConfig(n_nodes=N, ring_probe="pull", telemetry=True)
-    plan = experiments._crash_plan(N, 0, CRASH_FRACTION, STUDY_PERIODS,
-                                   "cuda")
-    key = threefry.key(0)
-    init = ring.init_state(scfg, "cuda")
-
-    def study(c):
-        st = init._replace(cold=init.cold.clone())
-        return runner.run_study_ring_stream(c, st, plan, key, TAP_PERIODS)
-
-    no_sync_period(study(tcfg), tcfg, None, plan, key)
-    emit(phase="telemetry", part="study", study="detection", n_nodes=N,
-         periods=STUDY_PERIODS, ring_probe=full["ring_probe"],
-         runners=["full", f"stream chunk={STUDY_CHUNK}"],
-         summaries_equal=True, dumps_identical=True,
-         frames_in_dump=reports["full"]["periods"],
-         dump_reproduces_detection=True, host_syncs_in_a_period=0,
-         telemetry=full["telemetry"], health=full["health"],
-         error_findings=errors, report_health=reports["full"]["health"],
-         seconds=wall, card=card)
-    print(analyze.render_report(reports["full"], title="telemetry study"),
-          flush=True)
-    tap_cost("ring pull study (streaming)", TAP_PERIODS,
-             lambda: study(scfg), lambda: study(tcfg), card)
-
-
-def engine_study_phase(name: str, n: int, card: str) -> None:
-    """`detection_study(n, telemetry=True)` on its default engine with a
-    dump: the study's summary equals the tap-off study's, and the dump
-    alone reproduces its detection summary."""
-    TELEMETRY_DIR.mkdir(exist_ok=True)
-    path = str(TELEMETRY_DIR / f"{name}.jsonl")
-    t0 = time.perf_counter()
-    try:
-        on = experiments.detection_study(n=n, telemetry=True,
-                                         flight_record=path)
-        report = analyze.analyze(path)
-    finally:
-        shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
-    wall = time.perf_counter() - t0
-    off = experiments.detection_study(n=n)
-    if on["engine"] != name:
-        raise AssertionError(f"detection_study(n={n}) ran {on['engine']}")
-    added = {"telemetry", "health", "flight_record"}
-    if {k: v for k, v in on.items() if k not in added} != off:
-        raise AssertionError(f"{name} study with telemetry {on} differs "
-                             f"from the study without it {off}")
-    if on["telemetry"]["waves_delivered_sum"] == 0:
-        raise AssertionError(f"{name} study frames are empty: {on}")
-    det = report["detection"]
-    if det["crashed"] == 0 or any(on[k] != v for k, v in det.items()):
-        raise AssertionError(f"the {name} dump's detection summary {det} "
-                             f"is not the study's")
-    emit(phase="telemetry", part="engine_study", study="detection",
-         engine=name, n_nodes=n, periods=on["periods"],
-         summary_equals_tap_off=True, dump_reproduces_detection=True,
-         frames_in_dump=report["periods"], telemetry=on["telemetry"],
-         health=on["health"], error_findings=analyze.error_findings(report),
-         seconds=wall, card=card)
-
-
-def engine_loop(name: str, cfg, plan, periods: int, tap: bool):
-    """`periods` periods of the dense or rumor engine from a fresh state,
-    with the tap when `tap` (frames stacked at the end)."""
-    mod, _, draw = ENGINES[name]
-    st = mod.init_state(cfg, "cuda")
-    key = threefry.key(0)
-    frames = []
-    for t in range(periods):
-        taps = {} if tap else None
-        st = mod.step(cfg, st, plan, draw(key, t, cfg, "cuda"), tap=taps)
-        if tap:
-            frames.append(obs_engine.frame_from_tap(taps, "cuda"))
-    return st, (obs_engine.stack_frames(frames) if tap else None)
-
-
-def engine_tap_phase(name: str, n: int, periods: int, card: str) -> None:
-    """The dense or rumor engine with and without its tap: equal states,
-    frames that saw deliveries, and the tap's cost."""
-    cfg = SwimConfig(n_nodes=n)
-    tcfg = SwimConfig(n_nodes=n, telemetry=True)
-    plan = crash_plan(cfg, 5, 0.01)
-    st, frames = engine_loop(name, tcfg, plan, periods, True)
-    off, _ = engine_loop(name, cfg, plan, periods, False)
-    require_same(f"{name} tap state", st, off)
-    if int(frames.waves_delivered.min()) == 0:
-        raise AssertionError(f"{name} tap: no deliveries {frames}")
-    del st, off
-    tap_cost(f"{name} {n}", periods,
-             lambda: engine_loop(name, cfg, plan, periods, False),
-             lambda: engine_loop(name, tcfg, plan, periods, True), card)
-
-
-def batch_phase(name: str, engine: str, n: int, periods: int, progs,
-                card: str) -> dict:
-    """`_run_study_batch` with telemetry on: every lane against its
-    serial run on the card, launches P times the serial ones, peak
-    memory."""
-    cfg = SwimConfig(n_nodes=n, telemetry=True)
-    keys = [threefry.key(20 + p) for p in range(len(progs))]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    reset_launches()
-    t0 = time.perf_counter()
-    batched = experiments._run_study_batch(cfg, progs, keys, periods, engine)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    serial_launches = {}
-    leaves = 0
-    for p, prog in enumerate(progs):
-        reset_launches()
-        serial = experiments._run_study(cfg, prog, keys[p], periods, engine,
-                                        torch.device("cuda"))
-        for k, v in read_launches().items():
-            serial_launches[k] = serial_launches.get(k, 0) + v
-        leaves = require_same(f"{name} batch lane {p}",
-                              runner.lane_result(batched, p), serial)
-    if launches != serial_launches:
-        raise AssertionError(f"{name} batch launches {launches}, serial "
-                             f"lanes {serial_launches}")
-    series = batched.series
-    emit(phase="telemetry", part="batch", run=name, engine=engine,
-         n_nodes=n, lanes=len(progs), periods=periods,
-         segments=[int(p.seg_kind.shape[0]) for p in progs],
-         leaves_equal_per_lane=leaves, launches=launches,
-         launches_serial=serial_launches,
-         suspect_views_peak=[int(x) for x in series.suspect_views.max(1)
-                             .values],
-         waves_delivered_sum=[int(x) for x in
-                              batched.telemetry.waves_delivered.sum(1)],
-         wall_ms=wall * 1e3, max_memory_allocated=peak,
-         allocated_before=before, card=card)
-    return launches
-
-
-def telemetry_phase(card: str) -> dict:
-    """Phase 11; returns the ring kernels' launches in the recorded run
-    and in the ring batch."""
-    t0 = time.perf_counter()
-    launches = {"telemetry": recorded_run_phase(card)}
-    telemetry_study_phase(card)
-    engine_study_phase("dense", 1000, card)
-    engine_study_phase("rumor", BATCH_RUMOR_N, card)
-    engine_no_sync_period("dense", 1000, telemetry=True)
-    engine_no_sync_period("rumor", BATCH_RUMOR_N, telemetry=True)
-    engine_tap_phase("dense", experiments.DENSE_MAX, 10, card)
-    engine_tap_phase("rumor", N, 10, card)
-    prog = program_plan(N)
-    gray = prog._replace(seg_level=prog.seg_level.clone())
-    gray.seg_level[0] = faults.level_to_threshold(0.6)
-    empty = faults.as_program(crash_plan(SwimConfig(n_nodes=N),
-                                         SLICE_PERIODS))
-    launches["batch"] = batch_phase("ring 1M", "ring", N, TAP_PERIODS,
-                                    [prog, gray, empty], card)
-    n_r = BATCH_RUMOR_N
-    launches["batch_rumor"] = batch_phase(
-        "rumor 100k", "rumor", n_r, 10,
-        [program_plan(n_r), faults.as_program(crash_plan(
-            SwimConfig(n_nodes=n_r), 10))], card)
-    emit(phase="telemetry", part="done", seconds=time.perf_counter() - t0,
-         card=card)
-    return launches
-
-
-# ------------------------------------------------ slice 7: scenarios
-
-
-SCENARIO_DIR = Path(__file__).resolve().parent / "_scenarios"
-LIB_RING = ("rack_outage", "flap", "flap_boundary", "gray_10pct")
-LIB_CPU = LIB_RING + ("lean_fidelity",)  # card verdict == the port's CPU's
-PACKED_PERIODS = 20
-PACKED_PAIRS = 3
-
-
-def verdict_text(path: str, out_dir: Path) -> str:
-    with open(path) as fh:
-        return fh.read().replace(str(out_dir), "OUT")
-
-
-def run_scenario(sc, mode: str, device: str, batch: bool):
-    """One scenario run into its own directory: (verdict, normalised
-    verdict text, wall seconds, kernel launches)."""
-    out = SCENARIO_DIR / f"{sc.name}_{mode}"
-    shutil.rmtree(out, ignore_errors=True)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    verdict, path = scenario.run(sc, out_dir=str(out), batch=batch,
-                                 device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return verdict, verdict_text(path, out), wall, read_launches()
-
-
-def library_phase(card: str) -> dict:
-    """The library at its own sizes, serial and batched on the card (and
-    on the CPU for the 256-node ring specs and lean_fidelity): equal
-    verdict bytes; a packed ring arm with a program launches selb,
-    wavemerge and coldsel once a period; replay_storm raises.  Returns
-    the kernels' launches over the ring specs' serial card runs."""
-    total = {"selb": 0, "coldsel": 0, "wavemerge": 0}
-    for name in LIB_RING + ("baseline_config3", "lean_fidelity"):
-        sc = scenario.get(name)
-        verdict, text, wall, launches = run_scenario(sc, "card", "cuda",
-                                                     False)
-        _, text_b, wall_b, launches_b = run_scenario(sc, "batch", "cuda",
-                                                     True)
-        if text_b != text:
-            raise AssertionError(f"{name}: batched verdict differs from "
-                                 "the serial one on the card")
-        if launches_b != launches:
-            raise AssertionError(f"{name}: batched launches {launches_b}, "
-                                 f"serial {launches}")
-        row = dict(phase="scenario", part="library", name=name,
-                   n_nodes=sc.n, periods=sc.periods,
-                   arms=list(verdict["arms"]), verdict=verdict["verdict"],
-                   checks=[[c["check"], c.get("arm"), c["ok"]]
-                           for c in verdict["checks"]],
-                   wall_s=wall, wall_s_batch=wall_b, launches=launches)
-        if name in LIB_CPU:
-            _, text_c, wall_c, _ = run_scenario(sc, "cpu", "cpu", False)
-            if text_c != text:
-                raise AssertionError(f"{name}: the card's verdict differs "
-                                     "from the CPU's")
-            row["wall_s_cpu"] = wall_c
-        ring_periods = sc.periods * len(verdict["arms"])
-        if name in LIB_RING:
-            want = {k: ring_periods for k in total}
-            bill = {a: v["ici"] for a, v in verdict["arms"].items()
-                    if "ici" in v}
-            row["ici"] = bill
-            for k, v in launches.items():
-                total[k] += v
-        elif name == "lean_fidelity":
-            want = {"selb": sc.periods, "coldsel": 0, "wavemerge": 0}
-        else:
-            want = {k: 0 for k in total}
-        if launches != want:
-            raise AssertionError(f"{name}: launches {launches}, expected "
-                                 f"{want}")
-        row["launches_per_ring_period"] = {
-            k: v / ring_periods for k, v in launches.items()}
-        row["card"] = card
-        emit(**row)
-    try:
-        scenario.run(scenario.get("replay_storm"),
-                     out_dir=str(SCENARIO_DIR / "replay_storm"))
-    except NotImplementedError as e:
-        if "item 4" not in str(e):
-            raise
-        emit(phase="scenario", part="library", name="replay_storm",
-             raises=str(e))
-    else:
-        raise AssertionError("replay_storm ran; it needs the host layer")
+    # the real-node arm (host Python: a SimCluster of core/node.py nodes)
+    sc = scenario.get("replay_storm")
+    verdict, text, wall, launches = run_scenario(sc, "card", "cuda", False)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    if verdict["verdict"] != "pass" or \
+            digest != golden.GOLDEN_DIGEST_REPLAY_STORM:
+        raise AssertionError(f"replay_storm: verdict {verdict['verdict']}, "
+                             f"digest {digest}")
+    real = verdict["arms"]["real"]
+    emit(phase="scenario", part="library", name=sc.name, n_nodes=sc.n,
+         verdict=verdict["verdict"],
+         checks=[[c["check"], c.get("arm"), c["ok"]]
+                 for c in verdict["checks"]],
+         network=real["network"], digest=digest, wall_s=wall,
+         launches=launches, card=card)
     return total
 
 
@@ -2507,6 +1803,338 @@ def serve_phase(rows: dict, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 14: bridge
+
+BRIDGE_PARITY_N = 65_536
+BRIDGE_PARITY_PERIODS = 20
+BRIDGE_TIMED_PERIODS = 20
+BRIDGE_SYNC_PERIODS = 2
+
+
+def bridge_launches(what: str, launches: dict, periods: int, cfg) -> None:
+    per = {k: v / periods for k, v in launches.items()}
+    want = {k: float(v) for k, v in expected_launches(cfg).items()}
+    if per != want:
+        raise AssertionError(f"bridge {what}: launches a period {per}, "
+                             f"expected {want}")
+
+
+def bridge_parity_phase() -> dict:
+    """(1) golden.GOLDEN_DIGEST_BRIDGE on the card, (2) the scripted
+    session at 65,536 nodes with the default SwimConfig, card against
+    CPU after every period; launches a period counted on both card runs.
+    Returns the launches of the 65,536-node run and of the golden one."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    got, server = golden.golden_bridge("cuda")
+    golden_launches = read_launches()
+    if got[-1] != golden.GOLDEN_DIGEST_BRIDGE:
+        raise AssertionError(f"golden bridge digest on the card {got[-1]} "
+                             f"!= {golden.GOLDEN_DIGEST_BRIDGE}")
+    if server.t != golden.BRIDGE_PERIODS:
+        raise AssertionError(f"golden bridge ran {server.t} periods")
+    bridge_launches("golden", golden_launches, server.t,
+                    SwimConfig(**golden.bridge_config()))
+    emit(phase="bridge", part="golden", digest=got[-1],
+         n_nodes=golden.BRIDGE_N, periods=server.t,
+         launches=golden_launches, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    cfg = SwimConfig(n_nodes=BRIDGE_PARITY_N)
+    torch.cuda.synchronize()
+    reset_launches()
+    card, server = golden.golden_bridge(
+        "cuda", n=BRIDGE_PARITY_N, periods=BRIDGE_PARITY_PERIODS, cfg_kw={})
+    launches = read_launches()
+    bridge_launches("card against CPU", launches, server.t, cfg)
+    cpu, cpu_server = golden.golden_bridge(
+        "cpu", n=BRIDGE_PARITY_N, periods=BRIDGE_PARITY_PERIODS, cfg_kw={})
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        if a != b:
+            raise AssertionError("bridge card against CPU: frames or state "
+                                 f"differ after period {t}")
+    if len(card) != BRIDGE_PARITY_PERIODS or len(cpu) != len(card):
+        raise AssertionError(f"bridge card against CPU: {len(card)} / "
+                             f"{len(cpu)} periods")
+    findings = [f.to_dict() for f in server.findings]
+    if findings != [f.to_dict() for f in cpu_server.findings]:
+        raise AssertionError("bridge card against CPU: findings differ")
+    emit(phase="bridge", part="card_vs_cpu", n_nodes=BRIDGE_PARITY_N,
+         periods=len(card), digests_equal=len(card), launches=launches,
+         findings=findings, seconds=time.perf_counter() - t0)
+    return launches, golden_launches
+
+
+def _u32_keys(server, member: int) -> list[int]:
+    """The table keys about `member` and its tombstone, as u32."""
+    return server.table_keys(member) + [
+        int(server.state.gone_key[member]) & u32.MASK32]
+
+
+def _members(stdout: str) -> tuple[dict, int | None]:
+    members, self_inc = {}, None
+    for line in stdout.splitlines():
+        parts = line.split()
+        if parts and parts[0] == "member":
+            members[int(parts[1])] = (int(parts[2]), int(parts[3]))
+        elif parts and parts[0] == "self":
+            self_inc = int(parts[2])
+    return members, self_inc
+
+
+def cpp_core_64k(client: str, card: str) -> None:
+    """The reference's TestCppCore64k with the port's compiled core:
+    65,536 nodes (bridge geometry, seed 6) on the card, victim 512 killed
+    by the core at 8.0, 60 virtual seconds, suspect(X) forged on the wire
+    once the engine is past period 20."""
+    n = 65_536
+    x, victim = n - 1, 512
+    cfg = SwimConfig(**golden.bridge_config(n))
+    server = EngineBridgeServer(cfg, external_id=x, seed=6)
+    server.start()
+    host, port = server.address
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [client, str(host), str(port), str(x), "7", "60.0", "0.5",
+         str(victim), "8.0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 300
+        while server.t < 20 and proc.poll() is None:
+            if time.time() > deadline:
+                raise AssertionError("cpp 64k: stalled before period 20")
+            time.sleep(0.05)
+        server.deliver_forged(3, [codec.WireUpdate(
+            x, Status.SUSPECT, 0, ("sim", x), 3)])
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+        server.close()
+        server.join(timeout=60)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if proc.returncode != 0:
+        raise AssertionError(f"cpp 64k: client exit {proc.returncode}: "
+                             f"{err[-2000:]}")
+    members, self_inc = _members(out)
+    false_dead = [m for m, (st, _) in members.items()
+                  if m != victim and st == int(Status.DEAD)]
+    inc_x = int(server.state.inc_self[x])
+    keys = _u32_keys(server, x)
+    refuted = [k for k in keys if k >= 2 and not k >> 31 and not k & 1]
+    checks = {"members_ge_64": len(members) >= 64,
+              "victim_dead": members.get(victim, (None,))[0]
+              == int(Status.DEAD),
+              "no_false_deaths": not false_dead,
+              "core_refuted": self_inc is not None and self_inc >= 1,
+              "engine_inc_self_zero": inc_x == 0,
+              "refutation_in_tensor_state": bool(refuted),
+              "x_not_crash_gated": not server._x_crashed,
+              "no_dead_view_of_x": not any(k >> 31 for k in keys)}
+    if not all(checks.values()):
+        raise AssertionError(f"cpp 64k: {checks} members {len(members)} "
+                             f"false_dead {false_dead[:10]} keys "
+                             f"{[hex(k) for k in keys]}")
+    bridge_launches("cpp 64k", launches, server.t, cfg)
+    emit(phase="bridge", part="cpp_core_64k", n_nodes=n, periods=server.t,
+         members=len(members), self_inc=self_inc, checks=checks,
+         launches=launches, wall_s=wall,
+         wall_ms_per_period=wall * 1e3 / server.t, card=card)
+
+
+def cpp_two_cores(client: str, card: str) -> None:
+    """The reference's two-C-cores scenario: A (id 128) and B (N-1) join
+    one 16,384-node engine on the card; A leaves at 10 s, and B learns
+    A's death through tensor state by 46 s."""
+    import threading
+
+    n = 16_384
+    xa, xb = 128, n - 1
+    cfg = SwimConfig(**golden.bridge_config(n))
+    server = EngineBridgeServer(cfg, external_ids=[xa, xb], seed=11)
+    server.start()
+    host, port = server.address
+    boxes: dict = {"a": {}, "b": {}}
+
+    def run_client(args, box):
+        box["proc"] = p = subprocess.Popen(
+            [client, str(host), str(port)] + args,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        box["out"], box["err"] = p.communicate(timeout=300)
+        box["rc"] = p.returncode
+
+    t0 = time.perf_counter()
+    ta = threading.Thread(target=run_client, daemon=True,
+                          args=([str(xa), "7", "10.0", "0.5"], boxes["a"]))
+    tb = threading.Thread(target=run_client, daemon=True,
+                          args=([str(xb), "9", "46.0", "0.5"], boxes["b"]))
+    ta.start()
+    time.sleep(0.5)      # A's row is alive when B samples its snapshot
+    tb.start()
+    try:
+        ta.join(timeout=300)
+        tb.join(timeout=300)
+        if ta.is_alive() or tb.is_alive():
+            raise AssertionError("cpp two cores: a client stalled")
+    finally:
+        for box in boxes.values():
+            p = box.get("proc")
+            if p is not None and p.poll() is None:
+                p.kill()
+        server.close()
+        server.join(timeout=60)
+    wall = time.perf_counter() - t0
+    for name, box in boxes.items():
+        if box.get("rc") != 0:
+            raise AssertionError(
+                f"cpp two cores: client {name} exit {box.get('rc')}: "
+                f"{box.get('err', '')[-2000:]}")
+    b_members, _ = _members(boxes["b"]["out"])
+    false_dead = [m for m, (st, _) in b_members.items()
+                  if m != xa and st == int(Status.DEAD)]
+    checks = {"b_members_ge_64": len(b_members) >= 64,
+              "b_knows_a": xa in b_members,
+              "b_sees_a_dead": b_members.get(xa, (None,))[0]
+              == int(Status.DEAD),
+              "no_false_deaths": not false_dead,
+              "a_crash_gated": server._ext_crashed[xa],
+              "b_not_crash_gated": not server._ext_crashed[xb],
+              "a_dead_in_tensor_state": any(
+                  k >> 31 for k in _u32_keys(server, xa)),
+              "no_dead_view_of_b": not any(
+                  k >> 31 for k in _u32_keys(server, xb))}
+    if not all(checks.values()):
+        raise AssertionError(f"cpp two cores: {checks}")
+    emit(phase="bridge", part="cpp_two_cores", n_nodes=n, periods=server.t,
+         b_members=len(b_members), checks=checks, wall_s=wall, card=card)
+
+
+def step_session(sock, me: int) -> None:
+    """One raw-socket STEP of one period: drain the flush and ack every
+    mirrored ping like a live core."""
+    bp.write_frame(sock, bp.Frame(bp.STEP, t=1.0))
+    while (f := bp.read_frame(sock)).op != bp.TIME:
+        msg = codec.decode(f.payload)
+        if msg.kind == MsgKind.PING:
+            bp.write_frame(sock, bp.Frame(bp.SEND, a=me, b=f.a,
+                                          payload=codec.encode(codec.Message(
+                                              kind=MsgKind.ACK, sender=me,
+                                              probe_seq=msg.probe_seq,
+                                              on_behalf=msg.on_behalf))))
+
+
+def bridge_period_1m(card: str) -> dict:
+    """The bridge period at 1,000,000 nodes with the default SwimConfig
+    and one raw-socket session acking its pings: the wall a period as the
+    session sees it (STEP to TIME) and as the server sees it
+    (`_run_period`), busy ms under torch.profiler, the idle share,
+    launches and device-to-host copies a period, and the synchronizing
+    calls PyTorch's sync check reports a period."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = SwimConfig(n_nodes=N)
+    x = N - 1
+    server = EngineBridgeServer(cfg, external_id=x, seed=0)
+    served: list[float] = []
+    run_period = server._run_period
+
+    def timed_period() -> None:
+        t0 = time.perf_counter()
+        run_period()
+        served.append(time.perf_counter() - t0)
+
+    server._run_period = timed_period
+    server.start()
+    sock = socket.create_connection(server.address)
+    try:
+        bp.write_frame(sock, bp.Frame(bp.HELLO, a=x))
+        if bp.read_frame(sock).op != bp.WELCOME:
+            raise AssertionError("bridge 1m: no WELCOME")
+
+        def steps(k: int) -> list[float]:
+            walls = []
+            for _ in range(k):
+                t0 = time.perf_counter()
+                step_session(sock, x)
+                walls.append(time.perf_counter() - t0)
+            return walls
+
+        steps(3)
+        served.clear()
+        reset_launches()
+        copies0 = server.d2h_copies
+        walls = steps(BRIDGE_TIMED_PERIODS)
+        launches = read_launches()
+        copies = server.d2h_copies - copies0
+        bridge_launches("1m", launches, BRIDGE_TIMED_PERIODS, cfg)
+        session_ms = sum(walls) * 1e3 / len(walls)
+        server_ms = sum(served) * 1e3 / len(served)
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps(BRIDGE_TIMED_PERIODS)
+        busy, acts = busy_ms(prof)
+        kernels = sum(read_launches().values())
+        if acts < kernels:
+            raise AssertionError(f"bridge 1m: the profiler saw {acts} device "
+                                 f"activities for {kernels} kernel launches")
+        busy /= BRIDGE_TIMED_PERIODS
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                steps(BRIDGE_SYNC_PERIODS)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        synced = [w for w in caught if "synchroniz" in str(w.message)]
+        syncs = len(synced)
+        sites = sorted({f"{Path(w.filename).name}:{w.lineno}"
+                        for w in synced})
+        bp.write_frame(sock, bp.Frame(bp.BYE))
+    finally:
+        sock.close()
+        server.close()
+        server.join(timeout=60)
+    row = dict(phase="bridge", part="period_1m", n_nodes=N,
+               periods=BRIDGE_TIMED_PERIODS, wall_ms_session=session_ms,
+               wall_ms_server=server_ms, busy_ms=busy,
+               idle_share=1.0 - busy / session_ms,
+               idle_share_server=1.0 - busy / server_ms,
+               device_activities_per_period=acts / BRIDGE_TIMED_PERIODS,
+               launches=launches,
+               d2h_copies_per_period=copies / BRIDGE_TIMED_PERIODS,
+               sync_warnings_per_period=syncs / BRIDGE_SYNC_PERIODS,
+               sync_sites=sites, card=card)
+    if copies != BRIDGE_TIMED_PERIODS:
+        raise AssertionError(f"bridge 1m: {copies} device-to-host copies "
+                             f"in {BRIDGE_TIMED_PERIODS} periods")
+    emit(**row)
+    return row
+
+
+def bridge_phase(card: str) -> dict:
+    """Phase 14; returns the kernels' launches in the 65,536-node card
+    run (default SwimConfig) and in the golden run (bridge geometry)."""
+    t0 = time.perf_counter()
+    client = native.bridge_client_bin()
+    if client is None:
+        raise AssertionError("bridge: g++ could not build bridge_client")
+    emit(phase="bridge", part="build", client=client,
+         seconds=time.perf_counter() - t0)
+    launches, golden_launches = bridge_parity_phase()
+    cpp_core_64k(client, card)
+    cpp_two_cores(client, card)
+    bridge_period_1m(card)
+    emit(phase="bridge", part="done", seconds=time.perf_counter() - t0,
+         card=card)
+    return {"bridge": launches, "bridge_golden": golden_launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -2538,6 +2166,7 @@ def main() -> None:
     launches.update(telemetry_phase(card))
     launches.update(scenario_phase(card))
     launches["serve"] = serve_phase(rows, card)
+    launches.update(bridge_phase(card))
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -2562,6 +2191,8 @@ def main() -> None:
             launches_scenario=launches["scenario"][name],
             launches_packed_1m=launches["packed"][name],
             launches_serve=launches["serve"][name],
+            launches_bridge=launches["bridge"][name],
+            launches_bridge_golden=launches["bridge_golden"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

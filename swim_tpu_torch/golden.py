@@ -34,10 +34,26 @@ SUSPECT, DEAD and ALIVE claims each period (more than the batch's 64
 slots in period SERVE_SPILL_PERIOD), ACKs, an eviction, 12 periods.
 `drive_serve` feeds codec bytes through `_on_session_datagram`, so the
 same script drives the JAX package's hub.
+
+GOLDEN_DIGEST_BRIDGE is the last of `drive_bridge`'s digests on an
+EngineBridgeServer (bridge/engine_server.py) of BRIDGE_N = 2048 nodes in
+the bridge tests' geometry (BRIDGE_GEOM), seed BRIDGE_SEED: one raw-socket
+session joins as node N-1 and steps BRIDGE_PERIODS periods, acking every
+mirrored ping; it sends one ping carrying a suspicion claim, kills a
+tensor peer, sets the wire loss, and refutes a suspicion that the server
+forges on the wire.  Each digest chains every frame received so far
+with the state's `digest` after that period, so one constant holds both
+packages and the card to the same frames and states.
+
+GOLDEN_DIGEST_REPLAY_STORM is the sha256 of the verdict artifact of the
+library scenario `replay_storm` (a 16-node SimCluster of real nodes
+under loss, duplication and stale replay; sim/scenario.py), its
+`out_dir` written as "OUT".
 """
 from __future__ import annotations
 
 import hashlib
+import socket
 
 import numpy as np
 
@@ -256,3 +272,115 @@ def golden_serve(device=None, n: int = SERVE_N,
         return drive_serve(hub, periods, load.state_digest)
     finally:
         hub.close()
+
+
+GOLDEN_DIGEST_REPLAY_STORM = (
+    "07b544fa744e336786da6e0a2fd4758e1e13760fe4105cebb098c6a586930bc6")
+
+BRIDGE_N = 2048
+BRIDGE_GEOM = dict(k_indirect=1, max_piggyback=4, ring_window_periods=3,
+                   suspicion_mult=2.0)
+BRIDGE_SEED = 5
+BRIDGE_PERIODS = 16
+BRIDGE_SEND_PERIOD = 1       # a PING with a suspicion claim
+BRIDGE_KILL_PERIOD = 2       # KILL of a tensor peer
+BRIDGE_FORGE_PERIOD = 5      # a forged suspect(X), on the wire only
+BRIDGE_LOSS_PERIOD = 9       # SET_LOSS BRIDGE_LOSS
+BRIDGE_LOSS = 0.05
+GOLDEN_DIGEST_BRIDGE = (
+    "50f45a2be82363572673e3ce7713eccc605f00b14df78e0f856c219fc75e8d20")
+
+
+def bridge_config(n: int = BRIDGE_N) -> dict:
+    """SwimConfig keywords of the scripted bridge run (both packages)."""
+    return dict(n_nodes=n, **BRIDGE_GEOM)
+
+
+def drive_bridge(server, periods: int = BRIDGE_PERIODS,
+                 digest=digest) -> list[str]:
+    """The scripted session against a started EngineBridgeServer of
+    either package, joined as `server.x`; returns the chained digest of
+    the frames received and `digest(server.state)` after each period.
+    The state is read between STEPs, while the server's session thread
+    waits for the next frame."""
+    from swim_tpu_torch.bridge import protocol as bp
+    from swim_tpu_torch.core import codec
+    from swim_tpu_torch.types import MsgKind, Status
+
+    n, x = server.n, server.x
+    h = hashlib.sha256()
+    out = []
+    inc = 0
+    sock = socket.create_connection(server.address)
+
+    def recv() -> bp.Frame:
+        f = bp.read_frame(sock)
+        if f is None:
+            raise ConnectionError("bridge closed mid-script")
+        h.update(bp.pack(f))
+        return f
+
+    def send(dst: int, msg) -> None:
+        bp.write_frame(sock, bp.Frame(bp.SEND, a=x, b=dst,
+                                      payload=codec.encode(msg)))
+
+    try:
+        bp.write_frame(sock, bp.Frame(bp.HELLO, a=x))
+        if recv().op != bp.WELCOME:
+            raise ConnectionError("no WELCOME")
+        for t in range(periods):
+            if t == BRIDGE_SEND_PERIOD:
+                m = n // 8
+                send(7, codec.Message(
+                    kind=MsgKind.PING, sender=x, probe_seq=1000 + t,
+                    gossip=(codec.WireUpdate(m, Status.SUSPECT, 0,
+                                             ("sim", m), x),)))
+            if t == BRIDGE_KILL_PERIOD:
+                bp.write_frame(sock, bp.Frame(bp.KILL, a=n // 16))
+            if t == BRIDGE_FORGE_PERIOD:
+                server.deliver_forged(3, [codec.WireUpdate(
+                    x, Status.SUSPECT, 0, ("sim", x), 3)])
+            if t == BRIDGE_LOSS_PERIOD:
+                bp.write_frame(sock, bp.Frame(bp.SET_LOSS, t=BRIDGE_LOSS))
+            bp.write_frame(sock, bp.Frame(bp.STEP, t=1.0))
+            while (f := recv()).op != bp.TIME:
+                msg = codec.decode(f.payload)
+                if msg.kind != MsgKind.PING:
+                    continue
+                # ack like a live core; refute a suspicion of ourselves
+                claim = [u.incarnation for u in msg.gossip
+                         if u.member == x and u.status == Status.SUSPECT
+                         and u.incarnation >= inc]
+                gossip = ()
+                if claim:
+                    inc = max(claim) + 1
+                    gossip = (codec.WireUpdate(x, Status.ALIVE, inc,
+                                               ("sim", x), x),)
+                send(f.a, codec.Message(
+                    kind=MsgKind.ACK, sender=x, probe_seq=msg.probe_seq,
+                    on_behalf=msg.on_behalf, gossip=gossip))
+            h.update(digest(server.state).encode())
+            out.append(h.hexdigest())
+        bp.write_frame(sock, bp.Frame(bp.BYE))
+    finally:
+        sock.close()
+    return out
+
+
+def golden_bridge(device=None, n: int = BRIDGE_N,
+                  periods: int = BRIDGE_PERIODS, cfg_kw: dict | None = None
+                  ) -> tuple[list[str], object]:
+    """`drive_bridge` against the port's EngineBridgeServer on `device`
+    (`cfg_kw` replaces BRIDGE_GEOM); returns (the digests, the server).
+    The last digest is GOLDEN_DIGEST_BRIDGE at the defaults."""
+    from swim_tpu_torch.bridge import EngineBridgeServer
+
+    kw = bridge_config(n) if cfg_kw is None else dict(n_nodes=n, **cfg_kw)
+    server = EngineBridgeServer(SwimConfig(**kw), external_id=n - 1,
+                                seed=BRIDGE_SEED, device=device)
+    server.start()
+    try:
+        return drive_bridge(server, periods), server
+    finally:
+        server.close()
+        server.join(timeout=60)

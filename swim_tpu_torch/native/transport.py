@@ -3,8 +3,8 @@
 
 The socket lives on a C++ epoll thread: sends enqueue into the pump's
 outbox, and a drainer thread polls inbound BATCHES out of the pump, one
-GIL crossing per batch.  Receiver callbacks run on the drainer thread;
-the caller owns their serialization.
+GIL crossing per batch.  Receiver callbacks run on the drainer thread,
+or on an asyncio loop when one is given.
 """
 from __future__ import annotations
 
@@ -26,7 +26,13 @@ def is_available() -> bool:
 
 
 class NativeUDPTransport(Transport):
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, loop=None):
+        """`loop`: an optional asyncio loop; when given, receiver
+        callbacks are marshalled onto it with call_soon_threadsafe, so a
+        Node driven by an AsyncioClock sees single-threaded delivery (as
+        with core/transport.py's UDPTransport).  Without it, callbacks
+        run on the drainer thread and the caller owns their
+        serialization."""
         lib = pump_lib()
         if lib is None:
             raise RuntimeError("native udppump unavailable (no toolchain)")
@@ -55,6 +61,7 @@ class NativeUDPTransport(Transport):
         self._resolved: dict[str, str] = {}
         self._hlock = threading.Lock()  # orders send/stats against close
         self._receiver: Receiver | None = None
+        self._loop = loop
         self._stop = threading.Event()
         self._buf = (ctypes.c_uint8 * _BUF_CAP)()
         self._meta = (ctypes.c_uint32 * (4 * _META_CAP))()
@@ -79,7 +86,11 @@ class NativeUDPTransport(Transport):
                 payload = ctypes.string_at(base + off, ln)
                 off += ln
                 try:
-                    self._receiver((ip, port), payload)
+                    if self._loop is not None:
+                        self._loop.call_soon_threadsafe(
+                            self._receiver, (ip, port), payload)
+                    else:
+                        self._receiver((ip, port), payload)
                 except Exception:  # noqa: BLE001 — a broken handler must
                     # not kill the drainer and deafen the transport
                     logging.getLogger(__name__).exception(

@@ -28,6 +28,12 @@ def pack(status, incarnation: torch.Tensor) -> torch.Tensor:
     return ((inc << 1) | dead | int(status == Status.SUSPECT)).to(torch.int32)
 
 
+def merge(a: torch.Tensor, b) -> torch.Tensor:
+    """Lattice join: the unsigned max over packed keys (a signed max
+    would rank a DEAD key, bit 31 set, below every live one)."""
+    return u32.umax(a, b)
+
+
 def is_dead(key: torch.Tensor) -> torch.Tensor:
     return key < 0
 

@@ -257,7 +257,7 @@ class _Client:
         self.pings_acked = 0
 
 
-class _Stager:
+class Stager:
     """The per-period host-to-device placement of one int32 block.
 
     On a CUDA device each block is staged in pinned host memory and
@@ -286,6 +286,25 @@ class _Stager:
         out = block[:values.shape[0]].to(self.device, non_blocking=True)
         ev.record(torch.cuda.current_stream(self.device))
         return out
+
+
+def stage_period(stage: Stager, batch: list, cap: int, offs: list[int]
+                 ) -> tuple[ring.ExtOriginations | None, torch.Tensor]:
+    """A period's external batch (the first four fields of each item:
+    subject, u32 key, origin, hearer; at most `cap`) and its rotor
+    offsets `offs`, placed on the device by one staged copy.  Returns
+    (ext, offsets); ext is None for an empty batch (the caller keeps a
+    device-resident empty one)."""
+    if not batch:
+        return None, stage.put(np.asarray(offs, np.int32))
+    lanes = np.zeros((4, cap), np.uint32)
+    lanes[0] = np.uint32(0xFFFFFFFF)            # subject -1: empty
+    for i, item in enumerate(batch):
+        lanes[:, i] = [v & 0xFFFFFFFF for v in item[:4]]
+    staged = stage.put(np.concatenate(
+        [lanes.view(np.int32).reshape(-1), np.asarray(offs, np.int32)]))
+    return (ring.ExtOriginations(*staged[:4 * cap].view(4, cap)),
+            staged[4 * cap:])
 
 
 class ServeHub:
@@ -334,7 +353,7 @@ class ServeHub:
         # one staged block a period: the four ext lanes, then the rotor
         # offsets [s_off, q_off...]
         self._n_offs = 1 + cfg.k_indirect
-        self._stage = _Stager(4 * self.ext_capacity + self._n_offs, dev)
+        self._stage = Stager(4 * self.ext_capacity + self._n_offs, dev)
         # host-side fault mirrors (the device plan is rebuilt on change,
         # generation-checked)
         self._crash = np.full((self.n,), np.iinfo(np.int32).max // 2,
@@ -716,16 +735,8 @@ class ServeHub:
                 self._spill_streak = 0
         offs = ring.rotor_offsets(self.cfg, self.t)
         cap = self.ext_capacity
-        if batch:
-            lanes = np.zeros((4, cap), np.uint32)
-            lanes[0] = np.uint32(0xFFFFFFFF)        # subject -1: empty
-            for i, item in enumerate(batch):
-                lanes[:, i] = [v & 0xFFFFFFFF for v in item[:4]]
-            staged = self._stage.put(np.concatenate(
-                [lanes.view(np.int32).reshape(-1),
-                 np.asarray(offs, np.int32)]))
-            ext = ring.ExtOriginations(*staged[:4 * cap].view(4, cap))
-            offsets = staged[4 * cap:]
+        ext, offsets = stage_period(self._stage, batch, cap, offs)
+        if ext is not None:
             with self._lock:
                 self._stats["mirror_updates"] += 1
                 self._stats["mirror_bytes"] += 16 * cap
@@ -738,7 +749,6 @@ class ServeHub:
                         tr.emit(item[4].finish(t_flush, "gossip_flushed"))
         else:
             ext = self._ext_empty        # the device-resident empty batch
-            offsets = self._stage.put(np.asarray(offs, np.int32))
         if tr is not None:
             tr.lap("inject_coalesce")
         # 3. one engine period (shapes fixed: churn changes no shape)

@@ -19,9 +19,9 @@ as one batch (`experiments._run_study_batch`, lane by lane) with the
 same verdict.
 
 Entry points run on the CUDA card unless `device` names another.
-`engine="real"` (a core/cluster SimCluster: `replay_storm`) raises
-until the host protocol layer is ported (ROADMAP.md Queue 1, item 4);
-`ringshard` arms raise with the sharded engines (item 6).
+`engine="real"` (`replay_storm`) runs a core/cluster.py SimCluster of
+real nodes on the host; `ringshard` arms raise with the sharded engines
+(ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -419,10 +419,53 @@ def _arm_digest(sc: Scenario, arm: str, engine: str, cfg: SwimConfig,
 
 
 def _run_real_arm(sc: Scenario, out_dir: str) -> dict:
-    raise NotImplementedError(
-        f"scenario {sc.name!r}: engine='real' runs a core/cluster "
-        "SimCluster, which is not in the ported slice (ROADMAP.md Queue "
-        "1, item 4: the host protocol layer)")
+    """Real-node arm: a core/cluster.py SimCluster under the scenario's
+    adversarial delivery (loss / duplication / stale replay), gated on
+    the real-node registry health rules.  Host Python only: no tensor
+    is made, whatever the device."""
+    from swim_tpu_torch.core.cluster import SimCluster
+    from swim_tpu_torch.obs.health import HealthMonitor
+    from swim_tpu_torch.types import Status
+
+    rk = dict(sc.real or {})
+    cfg = SwimConfig(n_nodes=sc.n, **dict(sc.config))
+    cluster = SimCluster(
+        cfg, seed=sc.seed, loss=float(rk.get("loss", 0.0)),
+        duplicate=float(rk.get("duplicate", 0.0)),
+        replay=float(rk.get("replay", 0.0)))
+    cluster.start()
+    cluster.run(float(rk.get("seconds", 12.0)))
+    net = cluster.network
+    totals: dict[str, int] = {}
+    for node in cluster.nodes:
+        for name, counter in node.registry.counters.items():
+            totals[name] = totals.get(name, 0) + int(counter.value)
+    # every node is alive for the whole run: any DEAD view of a peer at
+    # the end is a false-dead view
+    false_dead = sum(
+        1 for i, node in enumerate(cluster.nodes)
+        for peer in range(sc.n)
+        if peer != i
+        and (op := node.members.opinion(peer)) is not None
+        and op.status is Status.DEAD)
+    monitor = HealthMonitor(n_nodes=sc.n)
+    findings = monitor.check_registries(
+        [node.registry for node in cluster.nodes])
+    errors = [f.to_dict() for f in findings if f.severity == "error"]
+    return {
+        "engine": "real",
+        "seconds": float(rk.get("seconds", 12.0)),
+        "network": {"sent": net.sent, "delivered": net.delivered,
+                    "duplicated": net.duplicated,
+                    "replayed": net.replayed},
+        "counters": totals,
+        "false_dead_views_final": false_dead,
+        "observatory": {
+            "health": monitor.summary(),
+            "error_findings": errors,
+            "waived_rules": sorted(set(sc.allow_rules)),
+        },
+    }
 
 
 def _run_study_mode(sc: Scenario, out_dir: str, dev) -> dict:

@@ -1,11 +1,32 @@
-"""Host-side digest of a study's per-period series (port of
-`series_digest` of `swim_tpu/utils/metrics.py`)."""
+"""Host-side aggregation (port of `swim_tpu/utils/metrics.py`): the
+real-node cluster totals (`aggregate_nodes`) and the digest of a study's
+per-period series (`series_digest`)."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
+
+
+def aggregate_nodes(nodes: Iterable[Any]) -> dict[str, Any]:
+    """Fold per-node `stats` counters into cluster totals, with derived
+    health signals: the probe failure rate, messages per probe and,
+    under Lifeguard, the highest local health score."""
+    nodes = list(nodes)
+    totals: dict[str, int] = {}
+    for n in nodes:
+        for k, v in n.stats.items():
+            totals[k] = totals.get(k, 0) + v
+    probes = totals.get("probes", 0)
+    out: dict[str, Any] = {"nodes": len(nodes), **totals}
+    out["probe_failure_rate"] = (
+        totals.get("probe_failures", 0) / probes if probes else 0.0)
+    out["messages_per_probe"] = (
+        totals.get("messages_out", 0) / probes if probes else 0.0)
+    if nodes and hasattr(nodes[0], "lha"):
+        out["lha_max"] = max(n.lha for n in nodes)
+    return out
 
 
 def series_digest(series: Any) -> dict[str, Any]:

@@ -32,7 +32,10 @@ conftest, which imports JAX,
   * the serving hub: golden.drive_serve (injections with a spill, an
     eviction) on the card gives the CPU's state digest after every
     period, with selb, wavemerge and coldsel once a period, and a small
-    `run_load` on the udppump frontend keeps `ok_parity`.
+    `run_load` on the udppump frontend keeps `ok_parity`;
+  * the lockstep bridge: golden.drive_bridge against an
+    EngineBridgeServer on the card gives GOLDEN_DIGEST_BRIDGE, with the
+    kernels' launches a period.
 """
 from __future__ import annotations
 
@@ -435,3 +438,19 @@ def test_serve_run_load_on_the_card(cuda):
     assert res["ok_parity"], res
     assert res["frontend"] == "udppump"
     assert res["clean"]["admission"]["sessions"] == 32
+
+
+def test_bridge_golden_digest_on_the_card(cuda):
+    """golden.drive_bridge against an EngineBridgeServer on the card:
+    GOLDEN_DIGEST_BRIDGE, with selb and wavemerge once a wave (k = 1: 6
+    waves) and coldsel once a period."""
+    from swim_tpu_torch.ops import coldsel, selb, wavemerge
+
+    before = (selb.launches, wavemerge.launches, coldsel.launches)
+    got, server = golden.golden_bridge(cuda)
+    after = (selb.launches, wavemerge.launches, coldsel.launches)
+    periods = golden.BRIDGE_PERIODS
+    assert server.t == periods == int(server.state.step)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        6 * periods, 6 * periods, periods)
+    assert got[-1] == golden.GOLDEN_DIGEST_BRIDGE

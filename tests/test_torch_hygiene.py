@@ -9,8 +9,12 @@
     small streaming study, a small study with the default engine and
     telemetry, its flight-recorder dump read back by the analyzer, a
     batch of two fault programs, a small packed scenario with its
-    byte bill, and two periods of an in-process serving hub with one
-    injected claim;
+    byte bill, two periods of an in-process serving hub with one
+    injected claim, two periods of an engine bridge server with one
+    raw-socket session, and 2 s of a 3-node SimCluster of real nodes;
+  * chip_smoke.py defines no top-level function, class or constant
+    twice (Python keeps the later definition, so an earlier copy would
+    be dead code);
   * without CUDA, the entry points given no device raise instead of
     running on the CPU.
 """
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from swim_tpu_torch import SwimConfig, device
+from swim_tpu_torch.bridge import EngineBridgeServer
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
 from swim_tpu_torch.serve import load as serve_load
@@ -64,14 +69,36 @@ def test_port_files_found():
             "health.py", "recorder.py", "tree.py", "scenario.py",
             "search.py", "ici.py", "wavepack.py", "codec.py",
             "transport.py", "hub.py", "load.py", "trace.py",
-            "servetrace.py", "types.py", "serve_tail.py"} <= names
+            "servetrace.py", "types.py", "serve_tail.py", "clock.py",
+            "gossip.py", "membership.py", "node.py", "cluster.py",
+            "registry.py", "protocol.py", "server.py", "client.py",
+            "engine_server.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
             "swim_tpu_torch/native/__init__.py",
             "swim_tpu_torch/native/transport.py",
             "swim_tpu_torch/serve/hub.py",
-            "swim_tpu_torch/serve/load.py"} <= rel
+            "swim_tpu_torch/serve/load.py",
+            "swim_tpu_torch/native/codec.py",
+            "swim_tpu_torch/bridge/engine_server.py",
+            "swim_tpu_torch/core/node.py"} <= rel
+
+
+def test_chip_smoke_defines_each_name_once():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names.extend(t.id for t in targets if isinstance(t, ast.Name))
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, f"chip_smoke.py defines {twice} more than once"
+    assert "main" in names and "bridge_phase" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -157,6 +184,32 @@ def test_steps_with_jax_unimportable():
         "    assert len(load.state_digest(hub.state)) == 64\n"
         "finally:\n"
         "    hub.close()\n"
+        "import socket\n"
+        "from swim_tpu_torch.bridge import EngineBridgeServer\n"
+        "from swim_tpu_torch.bridge import protocol as bp\n"
+        "srv = EngineBridgeServer(SwimConfig(n_nodes=64, k_indirect=1),\n"
+        "                         external_id=63, device='cpu')\n"
+        "srv.start()\n"
+        "sock = socket.create_connection(srv.address)\n"
+        "try:\n"
+        "    bp.write_frame(sock, bp.Frame(bp.HELLO, a=63))\n"
+        "    assert bp.read_frame(sock).op == bp.WELCOME\n"
+        "    for _ in range(2):\n"
+        "        bp.write_frame(sock, bp.Frame(bp.STEP, t=1.0))\n"
+        "        while bp.read_frame(sock).op != bp.TIME:\n"
+        "            pass\n"
+        "    assert srv.t == int(srv.state.step) == 2\n"
+        "    bp.write_frame(sock, bp.Frame(bp.BYE))\n"
+        "finally:\n"
+        "    sock.close()\n"
+        "    srv.close()\n"
+        "    srv.join(timeout=30)\n"
+        "from swim_tpu_torch.core.cluster import SimCluster\n"
+        "c = SimCluster(SwimConfig(n_nodes=3), seed=1)\n"
+        "c.start()\n"
+        "c.run(2.0)\n"
+        "assert c.converged_all_alive()\n"
+        "assert sum(n.stats['probes'] for n in c.nodes) > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -178,6 +231,7 @@ def test_entry_points_need_a_card_by_default():
                  lambda: device.resolve(None),
                  lambda: ring.ext_none(4),
                  lambda: ServeHub(cfg, [1], frontend="socket"),
+                 lambda: EngineBridgeServer(cfg, external_id=1),
                  lambda: serve_load.run_load(n_nodes=64, sessions=1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -18,9 +18,10 @@ bill against `swim_tpu.obs.ici`.
     its library size and for minified ring (three arms, every check kind
     the arms support), rumor (random crashes, a partition, per-arm loss
     and seed), dense and study-mode specs; `run(batch=True)` gives the
-    serial bytes; `replay_storm` raises naming ROADMAP item 4, a
-    `ringshard` spec naming the sharding item; without a card the entry
-    points given no device raise.
+    serial bytes; `replay_storm` (the real-node arm: a SimCluster of
+    core/node.py nodes) gives the reference's verdict bytes and passes;
+    a `ringshard` spec raises naming the sharding item; without a card
+    the entry points given no device raise.
 
 Torch runs on one thread.  Tolerance: exact.
 """
@@ -328,15 +329,44 @@ def test_verdict_bytes_match_the_reference(case, tmp_path):
 
 
 def test_replay_storm_and_ringshard_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        scenario.run(scenario.get("replay-storm"), out_dir=str(tmp_path),
-                     device="cpu")
+    """Of the two engines that raised, `ringshard` still does (the
+    sharding item); `replay_storm` runs since the host protocol layer is
+    ported (its bytes: test_replay_storm_verdict_matches_the_reference)."""
+    verdict, _ = scenario.run(scenario.get("replay-storm"),
+                              out_dir=str(tmp_path), device="cpu")
+    assert verdict["arms"]["real"]["engine"] == "real"
     shard = scenario.Scenario(name="shard", n=32, periods=2,
                               engine="ringshard", config=RING_CFG)
     for batch in (False, True):
         with pytest.raises(NotImplementedError, match="sharding"):
             scenario.run(shard, out_dir=str(tmp_path), batch=batch,
                          device="cpu")
+
+
+def test_replay_storm_verdict_matches_the_reference(tmp_path):
+    """The real-node arm (a 16-node core/cluster.py SimCluster under 30%
+    duplication and 30% stale replay): the reference's verdict bytes
+    (golden.GOLDEN_DIGEST_REPLAY_STORM) and its assertions."""
+    import hashlib
+
+    from swim_tpu_torch import golden
+
+    want_v, want_p = jscenario.run(jscenario.get("replay-storm"),
+                                   out_dir=str(tmp_path / "jax"))
+    verdict, path = scenario.run(scenario.get("replay-storm"),
+                                 out_dir=str(tmp_path / "port"),
+                                 device="cpu")
+    text = verdict_text(path, tmp_path / "port")
+    assert text == verdict_text(want_p, tmp_path / "jax")
+    assert hashlib.sha256(text.encode()).hexdigest() == \
+        golden.GOLDEN_DIGEST_REPLAY_STORM
+    assert verdict["verdict"] == "pass", verdict["checks"]
+    real = verdict["arms"]["real"]
+    # the adversarial deliveries happened, and the protocol shrugged
+    assert real["network"]["duplicated"] > 0
+    assert real["network"]["replayed"] > 0
+    assert real["counters"]["decode_errors"] == 0
+    assert real["false_dead_views_final"] == 0
 
 
 def test_entry_points_run_on_the_card_by_default(tmp_path):
