@@ -175,6 +175,28 @@ Phases, each printed as one JSON line:
      torch.profiler, the idle share, launches and device-to-host copies
      a period (one: the table, tombstones and the joined rows), and the
      synchronizing calls PyTorch's sync check reports.
+ 15. instruments: the phase profiler, the memory wall and the CLI
+     (obs/prof.py, obs/memwall.py, cli.py).  `profiled_ring_run` at
+     1,000,000 nodes, 0.1% crashing, period scope, 5 periods, with the
+     kernels and with the plain versions: markers equal, the state
+     equal to `ring.run`'s in all 14 fields, selb, wavemerge and coldsel
+     once a period (zeroed before, read after), and one more profiled
+     period under PyTorch's sync check set to raise;
+     golden.GOLDEN_DIGEST_MARKERS on the card; `profile_ring` at 1M in
+     period scope and in the default wave scope with a device trace:
+     per-phase ms, step ms, coverage (95-105%: at least 100% by
+     construction, the excess is what the clamp of negative prefix
+     differences dropped), the roofline band, the top kernels; then 2
+     traced periods of each scope whose trace holds each kernel as
+     often as its wrapper launched it, under its phase; marker mode on
+     against off, wall ms a period in 3 alternating pairs (printed, not
+     asserted); `study_memory_analysis`
+     at 1M (streaming): the measured peak against the card's memory;
+     the CLI in subprocesses on the card: `simulate --nodes 1000000
+     --engine ring --sel-scope period --periods 10`, `profile --nodes
+     1000000 --check --json --out auto` and `bridge --metrics-port 0`,
+     whose scrape carries that artifact's swim_prof_* gauges; each
+     exits 0.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -203,7 +225,7 @@ from swim_tpu_torch.core import codec
 from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
 from swim_tpu_torch.models import dense, ring, rumor
-from swim_tpu_torch.obs import analyze, ici
+from swim_tpu_torch.obs import analyze, ici, memwall, prof
 from swim_tpu_torch.serve import hub as serve_hub
 from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.obs import engine as obs_engine
@@ -2135,6 +2157,261 @@ def bridge_phase(card: str) -> dict:
     return {"bridge": launches, "bridge_golden": golden_launches}
 
 
+# ------------------------------------------------------ instruments
+
+
+PROF_PERIODS = 5
+OVERHEAD_PERIODS = 10
+OVERHEAD_PAIRS = 3
+REPO = Path(__file__).resolve().parent
+
+
+def profiled_parity(cfg, card: str) -> dict:
+    """profiled_ring_run at 1M with the kernels (launches counted) and
+    with the plain versions: markers equal, state equal to ring.run's in
+    all 14 fields; then one profiled period under the sync check."""
+    plan = crash_plan(cfg, PROF_PERIODS)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    k = prof.profiled_ring_run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                               PROF_PERIODS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    p = prof.profiled_ring_run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                               PROF_PERIODS, plain=True)
+    want = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                    PROF_PERIODS)
+    if not torch.equal(k.markers, p.markers):
+        raise AssertionError("instruments: markers differ between the "
+                             "kernels and the plain versions")
+    for f in ring.RingState._fields:
+        for what, st in (("kernels", k.state), ("plain", p.state)):
+            if not torch.equal(getattr(st, f), getattr(want, f)):
+                raise AssertionError(f"instruments: profiled run ({what}) "
+                                     f"field {f} differs from ring.run")
+    per_period = {kn: c / PROF_PERIODS for kn, c in launches.items()}
+    if per_period != {"selb": 1.0, "coldsel": 1.0, "wavemerge": 1.0}:
+        raise AssertionError(f"instruments: launches a period {per_period}")
+    rnd = ring.draw_period_ring(threefry.key(0), PROF_PERIODS, cfg, "cuda")
+    st = k.state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pr = prof.PhaseProbe()
+        ring.step(cfg, st, plan, rnd, prof=pr)
+        pr.marker_vector()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emit(phase="instruments", part="profiled_run", n_nodes=cfg.n_nodes,
+         periods=PROF_PERIODS, markers_equal=True,
+         fields_equal=len(ring.RingState._fields), launches=launches,
+         launches_per_period=per_period,
+         last_markers=k.markers[-1].tolist(), no_sync_period=True,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
+TRACE_PERIODS = 2
+PROFILE_REPS = 20       # interleaved rounds of every prefix and the step
+KERNEL_PHASES = {"selb_kernel": "select", "wavemerge_kernel": "merge",
+                 "coldsel_kernel": "commit"}
+
+
+def traced_launches(cfg, name: str) -> dict:
+    """TRACE_PERIODS ring periods at 1M under utils/profiling.py `trace`,
+    launch counts zeroed before and read after: each kernel appears in
+    the device trace as often as its wrapper launched it, and
+    classify_op gives it its phase."""
+    import tempfile
+
+    from swim_tpu_torch.utils import profiling
+
+    plan = crash_plan(cfg, TRACE_PERIODS)
+    state = ring.init_state(cfg, "cuda")
+    with tempfile.TemporaryDirectory() as tdir:
+        torch.cuda.synchronize()
+        reset_launches()
+        with profiling.trace(tdir):
+            ring.run(cfg, state, plan, 0, TRACE_PERIODS)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        every = prof.top_ops_from_trace(tdir, top_k=10_000)["ops"]
+    found = {}
+    for kname, phase in KERNEL_PHASES.items():
+        hits = [o for o in every if kname in o["op"]]
+        calls = sum(o["calls"] for o in hits)
+        want = launches[kname.removesuffix("_kernel")]
+        if not want or calls != want or \
+                any(o["phase_guess"] != phase for o in hits):
+            raise AssertionError(
+                f"instruments: {name} trace holds {kname} {calls} times "
+                f"as {[o['phase_guess'] for o in hits]}, its wrapper "
+                f"launched it {want} times ({phase} expected)")
+        found[kname] = {"phase": phase, "calls": calls, "launches": want,
+                        "self_us": sum(o["self_us"] for o in hits)}
+    return found
+
+
+def profile_report(cfg, name: str, card: str) -> dict:
+    """profile_ring at 1M with a device trace: per-phase ms, step ms,
+    coverage, the roofline band and the top kernels; then a traced run
+    whose kernel events match the wrappers' launch counts.
+
+    Coverage is at least 100% by construction: profile_ring clamps each
+    prefix difference at 0 and adds the rest of the full step as the
+    telemetry term, so what it reads above 100% is the time the clamp
+    dropped, where a prefix ran slower than a longer one.  Above 105%
+    the prefix times do not order within 5% of the step and the
+    attribution is noise: that fails."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tdir:
+        rep = prof.profile_ring(cfg, reps=PROFILE_REPS, trace_dir=tdir,
+                                top_k=8)
+    if not 95.0 <= rep["coverage_pct"] <= 105.0:
+        raise AssertionError(f"instruments: {name} coverage "
+                             f"{rep['coverage_pct']}% outside 95-105%")
+    found = traced_launches(cfg, name)
+    emit(phase="instruments", part="profile", config=name,
+         n_nodes=cfg.n_nodes, step_ms=rep["step_ms"], pps=rep["pps"],
+         coverage_pct=rep["coverage_pct"],
+         phases={r["phase"]: r["ms"] for r in rep["phases"]},
+         roofline=rep["roofline"], kernels_in_trace=found,
+         trace_periods=TRACE_PERIODS,
+         top_ops=[(o["op"][:80], o["self_us"], o["calls"], o["phase_guess"])
+                  for o in rep["top_ops"]["ops"]],
+         seconds=time.perf_counter() - t0, card=card)
+    print(prof.render_report(rep), flush=True)
+    return rep
+
+
+def marker_overhead(cfg, card: str) -> dict:
+    """Wall ms per 1M period with the marker-mode probe and without it,
+    in alternating pairs (the reference's <= 5% contract, printed)."""
+    plan = crash_plan(cfg, OVERHEAD_PERIODS)
+    state = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, 2)
+    rnds = [ring.draw_period_ring(threefry.key(0), 2 + i, cfg, "cuda")
+            for i in range(OVERHEAD_PERIODS)]
+
+    def arm(on: bool) -> float:
+        st = state._replace(cold=state.cold.clone())
+        rows = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for rnd in rnds:
+            pr = prof.PhaseProbe() if on else None
+            st = ring.step(cfg, st, plan, rnd, prof=pr)
+            if on:      # kept, as profiled_ring_run keeps them
+                rows.append(pr.marker_vector())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / len(rnds)
+
+    arm(True)
+    arm(False)
+    off, on = [], []
+    for _ in range(OVERHEAD_PAIRS):
+        off.append(arm(False))
+        on.append(arm(True))
+    row = dict(phase="instruments", part="marker_overhead",
+               n_nodes=cfg.n_nodes, periods=OVERHEAD_PERIODS,
+               off_ms=off, on_ms=on, off_median=float(np.median(off)),
+               on_median=float(np.median(on)),
+               overhead_pct=float((np.median(on) / np.median(off) - 1)
+                                  * 100), card=card)
+    emit(**row)
+    return row
+
+
+def memwall_report(card: str) -> dict:
+    t0 = time.perf_counter()
+    rep = memwall.study_memory_analysis(N, device="cuda")
+    if not rep["measured"] or rep["total_bytes"] < rep["state_bytes"]:
+        raise AssertionError(f"instruments: memwall report {rep}")
+    emit(phase="instruments", part="memwall", **rep,
+         seconds=time.perf_counter() - t0, card=card)
+    return rep
+
+
+def run_cli(args: list, timeout: float = 300.0) -> tuple[str, str]:
+    proc = subprocess.run([sys.executable, "-m", "swim_tpu_torch.cli",
+                           *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, proc.stderr
+
+
+def cli_phase(card: str) -> None:
+    """The CLI in subprocesses on the card: simulate, profile (writing
+    the artifact the bridge serves) and bridge with a /metrics scrape
+    carrying the swim_prof_* gauges; each exits 0."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    out, _ = run_cli(["simulate", "--nodes", str(N), "--engine", "ring",
+                      "--sel-scope", "period", "--periods", "10"])
+    sim = json.loads(out.strip().splitlines()[-1])
+    if sim["nodes"] != N or sim["periods"] != 10:
+        raise AssertionError(f"cli simulate: {sim}")
+    out, err = run_cli(["profile", "--nodes", str(N), "--check", "--json",
+                        "--out", "auto"])
+    rep = json.loads(out)
+    artifact = err.strip().splitlines()[-1].removeprefix("# wrote ")
+    if prof.load_artifact(artifact) != rep:
+        raise AssertionError("cli profile: artifact differs from output")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swim_tpu_torch.cli", "bridge", "--internal",
+         "4", "--metrics-port", "0", "--timeout", "120"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        info = json.loads(proc.stdout.readline())
+        host, port = info["metrics"]
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode()
+        # one client that hangs up ends the server's service loop
+        socket.create_connection(tuple(info["listening"])).close()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    prof_lines = [ln for ln in body.splitlines()
+                  if ln.startswith("swim_prof_")]
+    if rc != 0 or not prof_lines or \
+            f'nodes="{N}"' not in prof_lines[0]:
+        raise AssertionError(f"cli bridge: exit {rc}, prof gauges "
+                             f"{prof_lines[:2]}")
+    emit(phase="instruments", part="cli", simulate=sim,
+         profile={k: rep[k] for k in ("step_ms", "pps", "coverage_pct")},
+         artifact=artifact, bridge_exit=rc, prof_gauge_lines=len(prof_lines),
+         seconds=time.perf_counter() - t0, card=card)
+
+
+def instruments_phase(card: str) -> dict:
+    """Phase 15; returns the kernels' launches in the profiled 1M run."""
+    t0 = time.perf_counter()
+    cfg = path_cfg("period")
+    launches = profiled_parity(cfg, card)
+    got = golden.markers_digest(golden.golden_markers("cuda"))
+    if got != golden.GOLDEN_DIGEST_MARKERS:
+        raise AssertionError("instruments: GOLDEN_DIGEST_MARKERS not "
+                             f"reproduced on the card ({got})")
+    emit(phase="instruments", part="golden_markers", digest=got,
+         expected=golden.GOLDEN_DIGEST_MARKERS)
+    profile_report(cfg, "period", card)
+    profile_report(SwimConfig(n_nodes=N), "wave", card)
+    marker_overhead(cfg, card)
+    memwall_report(card)
+    cli_phase(card)
+    emit(phase="instruments", part="done", seconds=time.perf_counter() - t0,
+         card=card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -2167,6 +2444,7 @@ def main() -> None:
     launches.update(scenario_phase(card))
     launches["serve"] = serve_phase(rows, card)
     launches.update(bridge_phase(card))
+    launches["instruments"] = instruments_phase(card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -2193,6 +2471,7 @@ def main() -> None:
             launches_serve=launches["serve"][name],
             launches_bridge=launches["bridge"][name],
             launches_bridge_golden=launches["bridge_golden"][name],
+            launches_instruments=launches["instruments"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -7,10 +7,15 @@ ops/coldsel.py, ops/wavemerge.py; sources in csrc/), the dense and
 rumor engines in plain PyTorch (models/dense.py, models/rumor.py), and
 the studies of sim/experiments.py on all three, with the engines'
 telemetry frames, the health monitor, the flight recorder and the
-analyzer (obs/) and batched fault-program studies.  State lives in
-torch.int32 tensors holding the u32 bit patterns of the reference's
-arrays (ops/u32.py).
+analyzer (obs/), batched fault-program studies, the scenario library and
+search, the serving hub, the host protocol layer and the bridge, and
+the instruments (the phase profiler, the memory wall, the Prometheus
+exposition, the trend gate) with the `swim-tpu-torch` command line
+(cli.py).  State lives in torch.int32 tensors holding the u32 bit
+patterns of the reference's arrays (ops/u32.py).
 """
-from swim_tpu_torch.config import SwimConfig
+__version__ = "0.1.0"
 
-__all__ = ["SwimConfig"]
+from swim_tpu_torch.config import STOCK_DEMO, SwimConfig  # noqa: E402
+
+__all__ = ["STOCK_DEMO", "SwimConfig", "__version__"]

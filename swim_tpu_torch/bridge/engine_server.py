@@ -144,7 +144,6 @@ class EngineBridgeServer:
         if cfg.ring_probe != "rotor":
             raise ValueError("EngineBridgeServer requires the rotor probe "
                              "(the mirrored-ping seam is rotor-shaped)")
-        ring.check_slice(cfg)
         if external_ids is None:
             if external_id is None:
                 raise ValueError("pass external_id or external_ids")

@@ -26,21 +26,58 @@ from swim_tpu_torch.core.transport import (Address, InProcessTransport,
                                            SimNetwork)
 
 
+def _make_metrics_server(host: str, port: int, nodes: list[Node]):
+    """Stdlib HTTP server exposing GET /metrics (Prometheus text 0.0.4):
+    per-node typed registries, a `swim_build_info` gauge, the current
+    `swim_health_*` gauges (obs/health.py real-node rules evaluated per
+    scrape; `swim-tpu-torch observe URL --follow` tails this), and, when
+    a profile artifact exists (obs/prof.py `default_artifact_path`,
+    written by `swim-tpu-torch profile --out auto`), the latest
+    `swim_prof_*` phase-attribution gauges."""
+    import http.server
+
+    from swim_tpu_torch.obs.expo import (render_health, render_profile,
+                                         render_prometheus)
+    from swim_tpu_torch.obs.health import evaluate_registries
+    from swim_tpu_torch.obs.prof import load_artifact
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):                                  # noqa: N802
+            if self.path.split("?")[0] != "/metrics":
+                self.send_error(404)
+                return
+            body = render_prometheus(
+                (({"node": str(n.id)}, n.registry) for n in nodes),
+                build_labels={"nodes": str(len(nodes))})
+            body += render_health(
+                evaluate_registries(n.registry for n in nodes))
+            profile = load_artifact()      # best-effort; None when absent
+            if profile is not None:
+                body += render_profile(profile)
+            data = body.encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *a):                         # quiet
+            pass
+
+    return http.server.ThreadingHTTPServer((host, port), Handler)
+
+
 class BridgeServer:
-    """`metrics_port=None` (the default) serves no metrics endpoint.
-    Any other value raises NotImplementedError: the Prometheus
-    exposition (obs/expo.py, obs/prof.py) is not ported yet (ROADMAP.md
-    Queue 1, item 7: the instruments and the CLI)."""
+    """`metrics_port` (optional) additionally serves Prometheus text
+    exposition (obs/expo.py) over plain HTTP: GET /metrics renders every
+    in-process node's typed counter/histogram registry with a `node`
+    label.  0 binds an ephemeral port (tests); None (the default) serves
+    no metrics endpoint."""
 
     def __init__(self, cfg: SwimConfig, n_internal: int, seed: int = 0,
                  loss: float = 0.0, host: str = "127.0.0.1", port: int = 0,
                  metrics_port: int | None = None):
-        if metrics_port is not None:
-            raise NotImplementedError(
-                "BridgeServer(metrics_port=...) serves /metrics through "
-                "obs/expo.py and obs/prof.py, which are not in the ported "
-                "slice (ROADMAP.md Queue 1, item 7: the instruments and "
-                "the CLI)")
         self.cfg = cfg
         self.clock = SimClock()
         self.network = SimNetwork(self.clock, seed=seed, loss=loss)
@@ -56,6 +93,12 @@ class BridgeServer:
         self._sock.listen(4)
         self.address: Address = self._sock.getsockname()
         self._thread: threading.Thread | None = None
+        self._metrics_httpd = None
+        self.metrics_address: Address | None = None
+        if metrics_port is not None:
+            self._metrics_httpd = _make_metrics_server(
+                host, metrics_port, self.nodes)
+            self.metrics_address = self._metrics_httpd.server_address[:2]
         self._started = False
         self._closing = False
         self._lock = threading.Lock()   # serializes command handling:
@@ -74,6 +117,9 @@ class BridgeServer:
         self._started = True
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
+        if self._metrics_httpd is not None:
+            threading.Thread(target=self._metrics_httpd.serve_forever,
+                             daemon=True).start()
 
     def _serve(self) -> None:
         """Accept co-process clients until every connected client has hung
@@ -189,8 +235,15 @@ class BridgeServer:
                 n.stop()
 
     def close(self) -> None:
-        """Stop accepting new clients; existing connections finish."""
+        """Stop accepting new clients; existing connections finish.  The
+        /metrics endpoint closes (its serving thread runs once `start`
+        has run)."""
         self._closing = True
+        if self._metrics_httpd is not None:
+            if self._started:
+                self._metrics_httpd.shutdown()
+            self._metrics_httpd.server_close()
+            self._metrics_httpd = None
 
     def join(self, timeout: float = 10.0) -> None:
         if self._thread is not None:

@@ -4,8 +4,9 @@ The port keeps its own copy of `swim_tpu/config.py`: the same fields,
 defaults, validation and derived properties, so that both packages size
 the same ring geometry from the same arguments.  The `ring_*_kernel` and
 wire fields are carried for parity of construction; the port's ring
-engine decides its kernel route by the tensors' device and rejects the
-options its slice does not cover (models/ring.py `check_slice`).
+engine decides its kernel route by the tensors' device.  `profiling`,
+as in the reference, changes nothing on one device: the phase probe is
+the `prof` argument of the engines' `step` (obs/prof.py).
 
 `SwimConfig` is a frozen, hashable dataclass: every field is a constant
 of one engine instance.  Fault injection parameters live in `FaultPlan`

@@ -16,6 +16,11 @@ delivery per wave) and `lifeguard` (period scope with Lifeguard, buddy
 and dynamic suspicion).  tests/test_torch_golden.py checks each against
 both packages.
 
+GOLDEN_DIGEST_MARKERS is `markers_digest` of `golden_markers(device)`:
+the int32[40, 6] phase-marker matrices (obs/prof.py
+`profiled_ring_run`) of the three golden runs above, in the order
+period, wave, lifeguard.
+
 GOLDEN_DIGEST_STUDY is `study_digest` of `golden_study(device)`: a
 pull-mode streaming detection study (the default wave scope, N = 4096,
 1% of the nodes crashing at random, loss 0.02, seed 0, 40 periods in
@@ -83,6 +88,9 @@ GOLDEN_DIGEST_LIFEGUARD = (
 GOLDEN_DIGESTS = {"period": GOLDEN_DIGEST, "wave": GOLDEN_DIGEST_WAVE,
                   "lifeguard": GOLDEN_DIGEST_LIFEGUARD}
 
+GOLDEN_DIGEST_MARKERS = (
+    "ede530ad628edae13f8c3ef0ac566333bd76fffe426be37cd0749534fd3137eb")
+
 STUDY_CONFIG = dict(ring_probe="pull")
 STUDY_CRASHES = dict(seed=1, fraction=0.01, start=2, end=20)
 STUDY_CHUNK = 16
@@ -137,12 +145,43 @@ def golden_config(name: str = "period"):
 
 def golden_run(device=None, name: str = "period") -> ring.RingState:
     """The fixed run whose digest is GOLDEN_DIGESTS[name], on `device`."""
+    cfg, _, _ = golden_config(name)
+    return ring.run(cfg, ring.init_state(cfg, device),
+                    golden_plan(name, device), GOLDEN_SEED, GOLDEN_PERIODS)
+
+
+def golden_plan(name: str = "period", device=None):
     cfg, nodes, at = golden_config(name)
-    plan = faults.with_loss(
+    return faults.with_loss(
         faults.with_crashes(faults.none(cfg.n_nodes, device), nodes, at),
         GOLDEN_LOSS)
-    state = ring.init_state(cfg, device)
-    return ring.run(cfg, state, plan, GOLDEN_SEED, GOLDEN_PERIODS)
+
+
+def golden_markers(device=None, plain: bool = False) -> dict:
+    """Each golden run's phase markers, int32[GOLDEN_PERIODS, 6] by
+    name (`plain`: the kernels' plain versions)."""
+    from swim_tpu_torch.obs.prof import profiled_ring_run
+
+    out = {}
+    for name in GOLDEN_CONFIGS:
+        cfg, _, _ = golden_config(name)
+        out[name] = profiled_ring_run(
+            cfg, ring.init_state(cfg, device), golden_plan(name, device),
+            GOLDEN_SEED, GOLDEN_PERIODS, plain=plain).markers
+    return out
+
+
+def markers_digest(markers) -> str:
+    """sha256 of each marker matrix (name, shape, little-endian int32
+    bytes) in GOLDEN_CONFIGS order; tensors or numpy arrays."""
+    h = hashlib.sha256()
+    for name in GOLDEN_CONFIGS:
+        m = markers[name]
+        a = np.asarray(m.cpu() if hasattr(m, "cpu") else m).astype(
+            "<i4", copy=False)
+        h.update(f"{name}:{a.shape}:".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def study_digest(state, track, series) -> str:

@@ -1,7 +1,6 @@
-"""What the dense and rumor engines share: the slice check, the
-repeat of a node axis over the k indirect probes, the run loop and the
-one-device Engine.  Each engine supplies its `init_state`, `step` and
-per-period draw."""
+"""What the dense and rumor engines share: the repeat of a node axis
+over the k indirect probes, the run loop and the one-device Engine.
+Each engine supplies its `init_state`, `step` and per-period draw."""
 from __future__ import annotations
 
 import torch
@@ -11,16 +10,6 @@ from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import threefry
-
-
-def check_slice(cfg: SwimConfig) -> None:
-    """Raise NotImplementedError for the profiling tap, naming its
-    ROADMAP.md item (the dense and rumor engines run every other
-    configuration)."""
-    if cfg.profiling:
-        raise NotImplementedError(
-            "not in the ported slice: the profiling tap (ROADMAP.md Queue "
-            "1: the other instruments)")
 
 
 def repeat(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -35,7 +24,6 @@ def run_periods(cfg: SwimConfig, state, plan: FaultPlan, seed: int,
     with `draw(key, t, cfg, device)` from `threefry.key(seed)`: the
     reference's `run(cfg, state, plan, jax.random.key(seed), periods)`.
     Reads state.step once."""
-    check_slice(cfg)
     key = threefry.key(seed)
     t0 = int(state.step)
     dev = state.step.device
@@ -52,7 +40,6 @@ class Engine:
 
     def __init__(self, cfg: SwimConfig, plan: FaultPlan, seed: int = 0,
                  device=None):
-        check_slice(cfg)
         self.device = devmod.resolve(device)
         plan_dev = faults.base_of(plan).crash_step.device
         if plan_dev != self.device:

@@ -34,8 +34,7 @@ import torch
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
-from swim_tpu_torch.models.common import (Engine, check_slice, repeat,
-                                          run_periods)
+from swim_tpu_torch.models.common import Engine, repeat, run_periods
 from swim_tpu_torch.ops import lattice, sampling, u32
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
@@ -115,12 +114,9 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
     period's EngineFrame fields (obs/engine.py; no overflow fields) as
     int32 device scalars; the selection statistics are those of the
     first wave's piggyback pass, which reads the start-of-period
-    retransmit counts."""
-    check_slice(cfg)
-    if prof is not None:
-        raise NotImplementedError(
-            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
-            "other instruments)")
+    retransmit counts.  `prof`, an obs/prof.py PhaseProbe, marks the
+    ends of select, merge, commit and (beside a tap) telemetry_tap; in
+    prefix mode the step returns the captured live set of its phase."""
     n, k = cfg.n_nodes, cfg.k_indirect
     plan, prog = faults.split_program(plan)
     t = state.step
@@ -154,6 +150,9 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
     proxies = torch.searchsorted(cum2, idx2, right=True, out_int32=True)
     proxies = torch.where((c2 > 0)[:, None], proxies, 0)      # i32[N, k]
     has_proxy = c2 > 0
+
+    if prof is not None and prof.cut("select", target):
+        return prof.capture(target=target, proxies=proxies, prober=prober)
 
     buddy_on = cfg.lifeguard and cfg.buddy
 
@@ -226,6 +225,10 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
     key, retransmit, deadline = carry
     relayed = w6_ok.reshape(n, k).any(dim=-1)
 
+    if prof is not None and prof.cut("merge", key, u32=True):
+        return prof.capture(key=key, retransmit=retransmit,
+                            deadline=deadline, acked=acked, relayed=relayed)
+
     # ---- End of period ----------------------------------------------------
     # 1. probe verdicts (health read at probe time, updated after)
     failed = prober & ~(acked | relayed)
@@ -264,6 +267,17 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
     retransmit = torch.where(expire, 0, retransmit)
     deadline = torch.where(expire, NO_DEADLINE, deadline)
 
+    # inactive (crashed or not yet joined) nodes are frozen
+    frozen = ~up[:, None]
+    key = torch.where(frozen, state.key, key)
+    retransmit = torch.where(frozen, state.retransmit, retransmit)
+    deadline = torch.where(frozen, state.deadline, deadline)
+    lha = torch.where(up, lha, state.lha)
+
+    if prof is not None and prof.cut("commit", key, u32=True):
+        return prof.capture(key=key, retransmit=retransmit,
+                            deadline=deadline, lha=lha)
+
     if tap is not None:
         b = min(cfg.max_piggyback, n)
         row_bits = first_valid[0].sum(dim=-1, dtype=I32)         # [N]
@@ -275,15 +289,11 @@ def step(cfg: SwimConfig, state: DenseState, plan: FaultPlan,
         tap["waves_delivered"] = torch.cat(
             [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
         tap["probes_failed"] = failed.sum(dtype=I32)
+        if prof is not None:
+            prof.cut("telemetry_tap", tap["sel_slots_selected"])
 
-    # inactive (crashed or not yet joined) nodes are frozen
-    frozen = ~up[:, None]
-    return DenseState(
-        key=torch.where(frozen, state.key, key),
-        retransmit=torch.where(frozen, state.retransmit, retransmit),
-        deadline=torch.where(frozen, state.deadline, deadline),
-        lha=torch.where(up, lha, state.lha),
-        step=t + 1)
+    return DenseState(key=key, retransmit=retransmit, deadline=deadline,
+                      lha=lha, step=t + 1)
 
 
 def run(cfg: SwimConfig, state: DenseState, plan: FaultPlan, seed: int,

@@ -143,15 +143,6 @@ def init_state(cfg: SwimConfig, device=None) -> RingState:
     )
 
 
-def check_slice(cfg: SwimConfig) -> None:
-    """Raise NotImplementedError for a configuration this port does not
-    run yet, naming the ROADMAP.md item that brings it."""
-    if cfg.profiling:
-        raise NotImplementedError(
-            "not in the ported slice: the profiling tap (ROADMAP.md Queue "
-            "1: the other instruments)")
-
-
 # ----------------------------------------------------------- randomness
 
 
@@ -551,12 +542,12 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     `ops` replaces the GlobalOps(cfg, device, plain) the step builds
     (obs/ici.py passes its byte-counting subclass).  `ext`, an
     ExtOriginations batch, joins Phase D as its lowest-priority channel;
-    with `ext=None` the step is unchanged."""
-    check_slice(cfg)
-    if prof is not None:
-        raise NotImplementedError(
-            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
-            "other instruments)")
+    with `ext=None` the step is unchanged.  `prof`, an obs/prof.py
+    PhaseProbe, marks the ends of the reference's phases (select,
+    ppermute and pack on the fused path, merge, commit, telemetry_tap
+    beside a tap) in its order; in prefix mode the step returns the
+    probe's captured live set at its phase instead of a state.  With
+    `prof=None` the step is unchanged."""
     plan, prog = faults.split_program(plan)
     pull = cfg.ring_probe == "pull"
     if pull and prog is not None:
@@ -743,6 +734,18 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     sel_src = win.clone() if buddy_on and period_scope and not fused else win
     lha = state.lha
 
+    if prof is not None and prof.cut("select", win, ops=ops, u32=True):
+        # end of "select": window shifted, top-C index built, first-B
+        # selection done (period scope)
+        parts = dict(win=win, elig_mask=elig_mask, gone_key=gone_key,
+                     overflow=overflow, index_overflow=index_overflow,
+                     sus_slot=sus_slot, sus_bk=sus_bk,
+                     top_key=torch.stack(top_key),
+                     top_slot=torch.stack(top_slot))
+        if period_scope:
+            parts["sel_base"] = sel_base
+        return prof.capture(**parts)
+
     if not pull:
         s_off = rnd.s_off
         target = torch.remainder(ids + s_off, n)
@@ -884,6 +887,13 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
                              reply=True)
             deliver(ok6, q)
             relayed = relayed | (ok6 & need)
+        if fused and prof is not None:
+            # end of "ppermute": the whole ok chain is decided and the
+            # window untouched; the fused path stages its payloads after
+            # it, so "pack" comes next (obs/prof.py phases_for)
+            oks_now = torch.stack([w[0] for w in waves])
+            if prof.cut("ppermute", oks_now, ops=ops):
+                return prof.capture(win=win)
         if fused:
             bcols, bvals = [], []
             for ok, d, cv in waves:
@@ -891,8 +901,21 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
                     bc, bv = staged(ok, d, cv)
                     bcols.append(bc)
                     bvals.append(bv)
+            if prof is not None:
+                # end of "pack": the buddy compact rows staged
+                bval = torch.stack(bvals) if bvals else win
+                if prof.cut("pack", bval, ops=ops, u32=True):
+                    parts = dict(win=win,
+                                 oks=torch.stack([w[0] for w in waves]))
+                    if bvals:
+                        parts["bcol"] = torch.stack(bcols)
+                        parts["bval"] = bval
+                    return prof.capture(**parts)
             win = ops.merge_waves(win, sel_base, [w[0] for w in waves],
                                   [w[1] for w in waves], bcols, bvals)
+        if prof is not None and prof.cut("merge", win, ops=ops, u32=True):
+            # end of "merge": every wave OR-delivered into the window
+            return prof.capture(win=win, acked=acked, relayed=relayed)
 
         probe_ok = acked | relayed
         failed = prober & ~probe_ok
@@ -1012,6 +1035,11 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
                          & (pr.ack_leg >= thr2))
         win |= torch.where(ack_gossip_ok[:, None],
                            ops.gather_rows(sel_all, aq), 0)
+        if prof is not None and prof.cut("merge", win, ops=ops, u32=True):
+            # end of "merge" (pull): direct, proxy and ack-pull gossip
+            # gathered and OR-delivered
+            return prof.capture(win=win, acked=acked_lane,
+                                relayed=relayed_lane)
         failed = probe_live & ~(acked_lane | relayed_lane)
         if tap is not None:
             tap_oks = [d_fwd_ok, px_deliver, ack_gossip_ok]
@@ -1217,6 +1245,15 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     if cfg.lifeguard:
         lha = torch.where(active, lha, state.lha)
 
+    if prof is not None and prof.cut("commit", subject, ops=ops):
+        # end of "commit": verdicts, query pass, Phase C+D, the state
+        # assembled: the whole step but the tap
+        return prof.capture(
+            win=win, cold=cold, inc_self=inc_self, lha=lha,
+            gone_key=gone_key, rkey=rkey, birth0=birth0, snode=snode,
+            stime=stime, confirmed=confirmed, overflow=overflow,
+            index_overflow=index_overflow)
+
     if tap is not None:
         row_bits = occ_bits.clamp(max=b_pig)
         tap["sel_slots_selected"] = _sum32(row_bits)
@@ -1227,6 +1264,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         tap["probes_failed"] = _sum32(failed)
         tap["overflow"] = overflow
         tap["index_overflow"] = index_overflow
+        if prof is not None:
+            prof.cut("telemetry_tap", tap["sel_slots_selected"])
 
     return RingState(
         win=win, cold=cold, inc_self=inc_self, lha=lha, gone_key=gone_key,
@@ -1251,7 +1290,6 @@ def run(cfg: SwimConfig, state: RingState, plan: FaultPlan, seed: int,
     """`periods` protocol periods from `state`: the reference's
     `ring.run(cfg, state, plan, jax.random.key(seed), periods)`.  Reads
     state.step once and copies the run's rotor offsets once."""
-    check_slice(cfg)
     if periods <= 0:
         return state
     dev = state.win.device
@@ -1266,7 +1304,6 @@ class RingEngine:
 
     def __init__(self, cfg: SwimConfig, plan: FaultPlan, seed: int = 0,
                  device=None):
-        check_slice(cfg)
         self.device = devmod.resolve(device)
         plan_dev = faults.base_of(plan).crash_step.device
         if plan_dev != self.device:

@@ -54,8 +54,7 @@ import torch
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
-from swim_tpu_torch.models.common import (Engine, check_slice, repeat,
-                                          run_periods)
+from swim_tpu_torch.models.common import Engine, repeat, run_periods
 from swim_tpu_torch.ops import lattice, sampling, scatter, u32
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
@@ -285,12 +284,10 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     The incoming state is left untouched.  `tap`, a dict, receives the
     period's EngineFrame fields (obs/engine.py; no index_overflow) as
     int32 device scalars; the selection statistics are those of the
-    first wave's selection, which reads the start-of-period heard-bits."""
-    check_slice(cfg)
-    if prof is not None:
-        raise NotImplementedError(
-            "prof is not in the ported slice (ROADMAP.md Queue 1: the "
-            "other instruments)")
+    first wave's selection, which reads the start-of-period heard-bits.
+    `prof`, an obs/prof.py PhaseProbe, marks the ends of select, merge,
+    commit and (beside a tap) telemetry_tap; in prefix mode the step
+    returns the captured live set of its phase."""
     n, k, r_cap = cfg.n_nodes, cfg.k_indirect, cfg.rumor_slots
     s_cap = cfg.sentinels
     plan, prog = faults.split_program(plan)
@@ -381,6 +378,11 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     cand_valid = eligible[cand_idx.to(I64)]
     cand64 = cand_idx.to(I64)
 
+    if prof is not None and prof.cut("select", target):
+        return prof.capture(target=target, prox=prox, prober=prober,
+                            cand_idx=cand_idx, cand_valid=cand_valid,
+                            subject=subject, gone_key=gone_key)
+
     # the period's heard-bits, written in place; row n is the spare row
     # that takes the writes of False
     kbuf = torch.empty((n + 1, r_cap), dtype=torch.bool, device=dev)
@@ -434,6 +436,9 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
                  reply=True)
     relayed = w6_ok.reshape(n, k).any(dim=-1)
     st = st._replace(knows=knows)
+
+    if prof is not None and prof.cut("merge", knows):
+        return prof.capture(knows=knows, acked=acked, relayed=relayed)
 
     # ---- Phase C: end-of-period verdicts ----------------------------------
     # 1. probe verdicts
@@ -572,6 +577,17 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     confirmed = scatter.set_drop(
         confirmed, torch.where(placed & (src_c >= 0), src_c, r_cap), True)
 
+    # inactive nodes are frozen (their heard-bits of reused slots are
+    # still cleared above)
+    inc_self = torch.where(up, inc_self, state.inc_self)
+    lha = torch.where(up, lha, state.lha)
+
+    if prof is not None and prof.cut("commit", rkey_new, u32=True):
+        return prof.capture(
+            knows=knows, inc_self=inc_self, lha=lha, gone_key=gone_key,
+            subject=subject, rkey=rkey_new, birth=birth, snode=snode,
+            stime=stime, confirmed=confirmed, overflow=overflow)
+
     if tap is not None:
         row_bits = first_val[0].sum(dim=-1, dtype=I32)           # [N]
         tap["sel_slots_selected"] = row_bits.sum(dtype=I32)
@@ -587,12 +603,11 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
             [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
         tap["probes_failed"] = failed.sum(dtype=I32)
         tap["overflow"] = overflow
+        if prof is not None:
+            prof.cut("telemetry_tap", tap["sel_slots_selected"])
 
-    # inactive nodes are frozen (their heard-bits of reused slots are
-    # still cleared above)
     return RumorState(
-        knows=knows, inc_self=torch.where(up, inc_self, state.inc_self),
-        lha=torch.where(up, lha, state.lha), gone_key=gone_key,
+        knows=knows, inc_self=inc_self, lha=lha, gone_key=gone_key,
         subject=subject, rkey=rkey_new, birth=birth, sent_node=snode,
         sent_time=stime, confirmed=confirmed, overflow=overflow,
         step=t + 1)

@@ -1,0 +1,181 @@
+"""Memory-wall accounting of the study pipeline (port of
+`swim_tpu/obs/memwall.py`).
+
+The reference reads XLA's buffer assignment of the study step, compiled
+ahead of time against shapes alone, against the memory budget of its own
+accelerator.  Eager PyTorch compiles no program ahead of time, so the
+port measures instead: on the card, `study_memory_analysis` runs the
+same program once at N (the streaming chunk
+`runner._run_study_ring_chunk`, or the full-track `run_study_ring`) and
+reads the device's peak allocation (`torch.cuda.max_memory_allocated`,
+reset just before), against the card's own memory
+(`torch.cuda.get_device_properties(dev).total_memory`).  On the CPU or
+the meta device it reports only the trees' bytes (state, carry and
+arguments, counted on the meta device, so nothing is allocated at size
+N), with `measured: false`.
+
+`engine="ringshard"` (the sharded layout's per-device accounting) waits
+for the sharding port (ROADMAP.md Queue 1, item 6).  Exposed as
+`swim-tpu-torch study detection --mem-report [--device cpu]`; obs/expo.py
+`render_memwall` renders a report as swim_mem_* gauges.
+"""
+from __future__ import annotations
+
+import torch
+
+META = torch.device("meta")
+
+# Prometheus gauge registry for the exposition side (obs/expo.py
+# render_memwall): the reference's names, help texts for this port.
+MEM_GAUGES = {
+    "swim_mem_argument_bytes": "device bytes of the study step's arguments "
+                               "(engine state + plan + milestone carry)",
+    "swim_mem_output_bytes": "device bytes of what the study step returns",
+    "swim_mem_temp_bytes": "peak device bytes the study step allocates "
+                           "above its arguments",
+    "swim_mem_alias_bytes": "bytes aliased by donation (0: the port "
+                            "donates nothing; the step updates cold in "
+                            "place)",
+    "swim_mem_total_bytes": "measured peak device bytes of the study "
+                            "step, its arguments included",
+    "swim_mem_state_bytes": "engine-state bytes alone",
+    "swim_mem_hbm_budget_bytes": "the device's memory, the budget the "
+                                 "verdict is measured against",
+    "swim_mem_fits_budget": "1 when the measured peak fits the device's "
+                            "memory, else 0",
+}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_bytes(x) for x in tree)
+    return 0
+
+
+def _study_inputs(cfg, n: int, periods: int, crash_fraction: float,
+                  variant: str, dev):
+    """(state, plan, track or None, crashes) of the study at `n` on
+    `dev`: crashes drawn as detection_study draws them, the streaming
+    runner's CompactTrack over them."""
+    from swim_tpu_torch.models import ring
+    from swim_tpu_torch.sim import faults, runner
+    from swim_tpu_torch.utils import threefry
+
+    state = ring.init_state(cfg, dev)
+    if dev.type == "meta":
+        plan = faults.none(n, dev)
+        crashes = max(1, round(n * crash_fraction))
+        track = (runner.CompactTrack(*(torch.empty((crashes,),
+                                                   dtype=torch.int32,
+                                                   device=dev)
+                                       for _ in range(5)))
+                 if variant == "stream" else None)
+        return state, plan, track, crashes
+    plan = faults.with_random_crashes(
+        faults.none(n, dev), threefry.key(1), crash_fraction, 2,
+        max(3, periods // 2))
+    track = (runner.compact_track_init(plan, periods)
+             if variant == "stream" else None)
+    crashes = (int(track.subjects.shape[0]) if track is not None
+               else int((plan.crash_step < periods).sum()))
+    return state, plan, track, crashes
+
+
+def study_memory_analysis(n: int, periods: int = 12,
+                          crash_fraction: float = 1e-5, *,
+                          variant: str = "stream", engine: str = "ring",
+                          device=None, probe: str = "pull",
+                          budget_bytes: int | None = None,
+                          **cfg_kw) -> dict:
+    """Memory accounting of one detection-study program at `n` nodes on
+    `device` (the card unless the caller names another).
+
+    `variant` picks the program: "stream" is the O(crashes) chunked
+    study step (runner._run_study_ring_chunk), "stacked" the full-track
+    run_study_ring.  On the card the program runs once for `periods`
+    periods and the report gives the measured peak; elsewhere only the
+    trees' bytes (`measured: false`).  `budget_bytes` defaults to the
+    card's memory."""
+    from swim_tpu_torch import device as devmod
+    from swim_tpu_torch.config import SwimConfig
+    from swim_tpu_torch.models import ring
+    from swim_tpu_torch.sim import runner
+    from swim_tpu_torch.utils import threefry
+
+    if variant not in ("stream", "stacked"):
+        raise ValueError(f"unknown memwall variant {variant!r}")
+    if engine == "ringshard":
+        raise NotImplementedError(
+            "ringshard memory analysis is the sharded layout's per-device "
+            "accounting, not ported yet (ROADMAP.md Queue 1, item 6: "
+            "sharding)")
+    if engine != "ring":
+        raise ValueError(f"unknown memwall engine {engine!r}")
+    dev = devmod.resolve(device)
+    cfg_kw.setdefault("ring_probe", probe)
+    cfg = SwimConfig(n_nodes=n, **cfg_kw)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+    state, plan, track, crashes = _study_inputs(
+        cfg, n, periods, crash_fraction, variant, dev if on_card else META)
+    carry = (state, track) if variant == "stream" else state
+    args = (state, track, plan) if variant == "stream" else (state, plan)
+    if budget_bytes is None:
+        budget_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                        if on_card else 0)
+    report = {
+        "n": int(n),
+        "periods": int(periods),
+        "crashes": int(crashes),
+        "variant": variant,
+        "engine": engine,
+        "platform": dev.type,
+        "ring_probe": cfg.ring_probe,
+        "state_bytes": _tree_bytes(state),
+        "carry_bytes": _tree_bytes(carry),
+        "argument_bytes": _tree_bytes(args),
+        "hbm_budget_bytes": int(budget_bytes),
+        "measured": on_card,
+    }
+    if not on_card:
+        return report
+
+    key = threefry.key(0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if variant == "stream":
+        stepper = runner.make_stepper(cfg, plan, ring.step)
+        out = runner._run_study_ring_chunk(cfg, state, track, plan, key,
+                                           periods, stepper)
+    else:
+        out = runner.run_study_ring(cfg, state, plan, key, periods)
+    torch.cuda.synchronize(dev)
+    total = int(torch.cuda.max_memory_allocated(dev)) - base
+    arg = report["argument_bytes"]
+    report.update({
+        "output_bytes": _tree_bytes(tuple(out)),
+        "temp_bytes": total - arg,
+        "alias_bytes": 0,
+        "total_bytes": total,
+        "budget_fraction": total / budget_bytes,
+        "fits_budget": bool(total <= budget_bytes),
+    })
+    return report
+
+
+def gauge_values(report: dict) -> dict[str, float]:
+    """MEM_GAUGES name -> value for one report (the reference's)."""
+    return {
+        "swim_mem_argument_bytes": float(report.get("argument_bytes", 0)),
+        "swim_mem_output_bytes": float(report.get("output_bytes", 0)),
+        "swim_mem_temp_bytes": float(report.get("temp_bytes", 0)),
+        "swim_mem_alias_bytes": float(report.get("alias_bytes", 0)),
+        "swim_mem_total_bytes": float(report.get("total_bytes", 0)),
+        "swim_mem_state_bytes": float(report["state_bytes"]),
+        "swim_mem_hbm_budget_bytes": float(report["hbm_budget_bytes"]),
+        "swim_mem_fits_budget": 1.0 if report.get("fits_budget") else 0.0,
+    }

@@ -331,7 +331,6 @@ class ServeHub:
         if cfg.ring_probe != "rotor":
             raise ValueError("ServeHub requires the rotor probe (the "
                              "mirrored-ping seam is rotor-shaped)")
-        ring.check_slice(cfg)
         self.cfg = cfg
         self.n = cfg.n_nodes
         rows = list(reserved_rows)

@@ -213,7 +213,6 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     kernels).  The `disseminated` milestone reads the dissemination floor
     (gone_key), so it can lag true dissemination by up to the window
     length (deviation R2); the other two are exact."""
-    ring.check_slice(cfg)
     stepper = make_stepper(cfg, plan, ring.step, step_fn)
     n = cfg.n_nodes
     dev = state.win.device
@@ -285,7 +284,6 @@ def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
     """Dense-engine study with the full StudyTrack over all N nodes.
     `root_key` is a threefry key (`threefry.key(seed)`).  Reads
     state.step once."""
-    dense.check_slice(cfg)
     dev = state.key.device
     base = faults.base_of(plan)
     track = _new_track(cfg.n_nodes, dev)
@@ -329,7 +327,6 @@ def run_study_rumor(cfg: SwimConfig, state: rumor.RumorState, plan,
                     periods: int) -> RumorStudyResult:
     """Rumor-engine study with the full StudyTrack.  `root_key` is a
     threefry key (`threefry.key(seed)`).  Reads state.step once."""
-    rumor.check_slice(cfg)
     dev = state.knows.device
     base = faults.base_of(plan)
     track = _new_track(cfg.n_nodes, dev)
@@ -488,7 +485,6 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
     if ckpt is not None and cfg.telemetry:
         raise ValueError("streaming study checkpointing does not cover "
                          "telemetry frames; disable one of them")
-    ring.check_slice(cfg)
     stepper = make_stepper(cfg, plan, ring.step, step_fn)
     dev = state.win.device
     track = None

@@ -1,5 +1,6 @@
 """Checkpoint / resume of a tree of tensors on one device (port of
-`save_placed` / `restore_placed` of `swim_tpu/utils/checkpoint.py`).
+`save_placed` / `restore_placed` and `CheckpointManager` of
+`swim_tpu/utils/checkpoint.py`).
 
 Per-period randomness is derived from (root key, step), so a checkpoint
 is the tree's arrays plus the root key (the port's (k0, k1) threefry
@@ -7,7 +8,10 @@ pair) and the step: resuming reproduces the uninterrupted trajectory.
 A tree is nested tuples (NamedTuples included) whose leaves are torch
 tensors, numpy arrays or None.  One `.npz` holds a leaf per entry; the
 write goes to a temporary file first, so a crash never leaves a torn
-checkpoint.
+checkpoint.  On one device a tree's leaves are whole arrays, so
+`save_placed` writes the reference's `save` layout (`leaf_<i>`,
+`__key_data`, `__step`); `CheckpointManager` rotates every-K-period
+snapshots of it.
 """
 from __future__ import annotations
 
@@ -91,3 +95,34 @@ def restore_placed(path: str, like: Any
         key = tuple(int(v) for v in z["__key_data"])
         step = int(z["__step"])
     return _unflatten(like, iter(leaves)), key, step
+
+
+class CheckpointManager:
+    """Every-K-period snapshots with bounded retention."""
+
+    def __init__(self, directory: str, every: int, keep: int = 3):
+        self.directory = directory
+        self.every = every
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def maybe_save(self, state: Any, root_key: tuple[int, int],
+                   step: int) -> bool:
+        if step == 0 or step % self.every:
+            return False
+        save_placed(os.path.join(self.directory, f"ckpt_{step:012d}.npz"),
+                    state, root_key, step)
+        self._gc()
+        return True
+
+    def _snaps(self) -> list[str]:
+        return sorted(f for f in os.listdir(self.directory)
+                      if f.startswith("ckpt_") and f.endswith(".npz"))
+
+    def latest(self) -> str | None:
+        snaps = self._snaps()
+        return os.path.join(self.directory, snaps[-1]) if snaps else None
+
+    def _gc(self) -> None:
+        for f in self._snaps()[:-self.keep]:
+            os.remove(os.path.join(self.directory, f))

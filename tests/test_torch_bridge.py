@@ -11,8 +11,9 @@ the JAX package's.
   * the port's compiled `bridge_client` (native/bridge_client.cpp)
     passes the reference's test_c_core_joins_and_detects_failures
     against the port's BridgeServer (skips without g++);
-  * claiming an in-process node's id is refused; `metrics_port` raises
-    NotImplementedError naming ROADMAP item 7.
+  * claiming an in-process node's id is refused; `metrics_port` serves
+    /metrics (tests/test_torch_instruments.py holds its scrape to the
+    reference's).
 Tolerance: exact.
 """
 from __future__ import annotations
@@ -142,8 +143,25 @@ def test_claiming_internal_node_id_is_rejected():
 
 
 def test_metrics_port_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BridgeServer(SwimConfig(n_nodes=4), n_internal=3, metrics_port=0)
+    """`metrics_port`, refused until the exposition was ported, binds
+    a /metrics endpoint that answers once the server starts, and
+    `close` shuts it."""
+    import urllib.request
+
+    server = BridgeServer(SwimConfig(n_nodes=4), n_internal=3,
+                          metrics_port=0)
+    server.start()
+    try:
+        host, port = server.metrics_address
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                    timeout=10) as resp:
+            body = resp.read().decode()
+        assert body.startswith("# HELP swim_build_info")
+        assert 'swim_health_status ' in body
+    finally:
+        server.close()
+        server.join()
+    assert server.metrics_address is not None
 
 
 @pytest.fixture(scope="module")

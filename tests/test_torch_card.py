@@ -35,7 +35,9 @@ conftest, which imports JAX,
     `run_load` on the udppump frontend keeps `ok_parity`;
   * the lockstep bridge: golden.drive_bridge against an
     EngineBridgeServer on the card gives GOLDEN_DIGEST_BRIDGE, with the
-    kernels' launches a period.
+    kernels' launches a period;
+  * the phase profiler: GOLDEN_DIGEST_MARKERS on the card, and a
+    profiled run whose kernels equal their plain versions and ring.run.
 """
 from __future__ import annotations
 
@@ -454,3 +456,29 @@ def test_bridge_golden_digest_on_the_card(cuda):
     assert tuple(a - b for a, b in zip(after, before)) == (
         6 * periods, 6 * periods, periods)
     assert got[-1] == golden.GOLDEN_DIGEST_BRIDGE
+
+
+def test_profiled_run_and_marker_digest_on_the_card(cuda):
+    """The phase profiler on the card: the golden runs' markers give
+    GOLDEN_DIGEST_MARKERS, and a profiled period-scope run at 20,000
+    nodes launches each kernel once a period, equals its plain versions
+    (markers and state) and `ring.run`."""
+    from swim_tpu_torch.obs import prof
+
+    assert golden.markers_digest(golden.golden_markers(cuda)) \
+        == golden.GOLDEN_DIGEST_MARKERS
+    cfg = SwimConfig(n_nodes=20_000, ring_sel_scope="period")
+    plan = faults.with_random_crashes(faults.none(20_000, cuda),
+                                      threefry.key(1), 0.01, 0, 6)
+    before = (selb.launches, wavemerge.launches, coldsel.launches)
+    got = prof.profiled_ring_run(cfg, ring.init_state(cfg, cuda), plan, 2,
+                                 6)
+    after = (selb.launches, wavemerge.launches, coldsel.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 6, 6)
+    plain = prof.profiled_ring_run(cfg, ring.init_state(cfg, cuda), plan,
+                                   2, 6, plain=True)
+    want = ring.run(cfg, ring.init_state(cfg, cuda), plan, 2, 6)
+    assert torch.equal(got.markers, plain.markers)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(got.state, f), getattr(want, f)), f
+        assert torch.equal(getattr(plain.state, f), getattr(want, f)), f

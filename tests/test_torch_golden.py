@@ -166,3 +166,40 @@ def test_serve_golden_digest_in_both_packages():
     got = golden.golden_serve("cpu")
     assert got == want
     assert got[-1] == golden.GOLDEN_DIGEST_SERVE
+
+
+def jax_golden_markers():
+    from swim_tpu.obs import prof as jprof
+
+    out = {}
+    for name in golden.GOLDEN_CONFIGS:
+        cfg, nodes, at = golden.golden_config(name)
+        jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes,
+                             **golden.GOLDEN_CONFIGS[name])
+        plan = jfaults.with_loss(
+            jfaults.with_crashes(jfaults.none(cfg.n_nodes), nodes, at),
+            golden.GOLDEN_LOSS)
+        run = jprof.profiled_ring_run(
+            jcfg, jring.init_state(jcfg), plan,
+            jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS)
+        out[name] = np.asarray(run.markers)
+    return out
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_golden_marker_digest_from_both_packages(package):
+    """GOLDEN_DIGEST_MARKERS holds the phase markers of the three golden
+    runs (period scope, wave scope, Lifeguard with buddy) in the JAX
+    package and in the port on the CPU.  The markers see the phases the
+    step cuts: select, ppermute (fused only), merge and commit (pack
+    folds the buddy rows, zero in their first 256 elements here), and
+    no telemetry_tap without a tap."""
+    markers = (jax_golden_markers() if package == "jax"
+               else golden.golden_markers("cpu"))
+    assert golden.markers_digest(markers) == golden.GOLDEN_DIGEST_MARKERS
+    for name, m in markers.items():
+        m = np.asarray(m)
+        assert m.shape == (golden.GOLDEN_PERIODS, 6) and m.dtype == np.int32
+        seen = (m != 0).any(axis=0)
+        assert [seen[i] for i in (0, 2, 3, 4, 5)] == [
+            True, name != "wave", True, True, False], name

@@ -11,7 +11,9 @@
     batch of two fault programs, a small packed scenario with its
     byte bill, two periods of an in-process serving hub with one
     injected claim, two periods of an engine bridge server with one
-    raw-socket session, and 2 s of a 3-node SimCluster of real nodes;
+    raw-socket session, 2 s of a 3-node SimCluster of real nodes, two
+    profiled periods, the exposition of the cluster's registries, a
+    memory report and the CLI's `info` and `simulate`;
   * chip_smoke.py defines no top-level function, class or constant
     twice (Python keeps the later definition, so an earlier copy would
     be dead code);
@@ -32,6 +34,7 @@ import torch
 from swim_tpu_torch import SwimConfig, device
 from swim_tpu_torch.bridge import EngineBridgeServer
 from swim_tpu_torch.models import ring
+from swim_tpu_torch.obs import memwall, prof
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
 from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.serve.hub import ServeHub
@@ -72,7 +75,8 @@ def test_port_files_found():
             "servetrace.py", "types.py", "serve_tail.py", "clock.py",
             "gossip.py", "membership.py", "node.py", "cluster.py",
             "registry.py", "protocol.py", "server.py", "client.py",
-            "engine_server.py"} <= names
+            "engine_server.py", "prof.py", "expo.py", "memwall.py",
+            "trend.py", "profiling.py", "roofline.py", "cli.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
@@ -210,6 +214,19 @@ def test_steps_with_jax_unimportable():
         "c.run(2.0)\n"
         "assert c.converged_all_alive()\n"
         "assert sum(n.stats['probes'] for n in c.nodes) > 0\n"
+        "from swim_tpu_torch.obs import expo, memwall, prof\n"
+        "assert 'swim_build_info' in expo.render_prometheus(\n"
+        "    ({'node': str(n.id)}, n.registry) for n in c.nodes)\n"
+        "cfg = SwimConfig(n_nodes=64, ring_sel_scope='period')\n"
+        "r = prof.profiled_ring_run(cfg, ring.init_state(cfg, 'cpu'),\n"
+        "                           faults.none(64, 'cpu'), 0, 2)\n"
+        "assert tuple(r.markers.shape) == (2, 6)\n"
+        "assert not memwall.study_memory_analysis(64, device='cpu')[\n"
+        "    'measured']\n"
+        "from swim_tpu_torch import cli\n"
+        "assert cli.main(['--device', 'cpu', 'info']) == 0\n"
+        "assert cli.main(['--device', 'cpu', 'simulate', '--nodes', '64',\n"
+        "                 '--periods', '2']) == 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swim_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -232,7 +249,9 @@ def test_entry_points_need_a_card_by_default():
                  lambda: ring.ext_none(4),
                  lambda: ServeHub(cfg, [1], frontend="socket"),
                  lambda: EngineBridgeServer(cfg, external_id=1),
-                 lambda: serve_load.run_load(n_nodes=64, sessions=1)):
+                 lambda: serve_load.run_load(n_nodes=64, sessions=1),
+                 lambda: prof.profile_ring(cfg),
+                 lambda: memwall.study_memory_analysis(64)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

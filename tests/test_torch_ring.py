@@ -255,23 +255,29 @@ def test_engine_runs_on_cpu():
     dict(profiling=True), dict(ring_scalar_wire="packed", profiling=True),
     dict(telemetry=True, profiling=True)], ids=["kw1", "kw3", "kw4"])
 def test_out_of_slice_configs_raise(kw):
-    """The profiling tap raises naming its ROADMAP item; the packed wire
-    and telemetry, which run, do not lift the refusal."""
+    """`profiling=True`, refused until the profiler was ported, runs as
+    the reference runs it on one device: the engine and `run` give the
+    state of the same config without it, in all 14 fields."""
     cfg = SwimConfig(n_nodes=16, **{"ring_sel_scope": "period", **kw})
+    base = cfg.replace(profiling=False)
     plan = faults.none(16, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring.RingEngine(cfg, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring.run(cfg, ring.init_state(cfg, "cpu"), plan, 0, 1)
+    want = ring.run(base, ring.init_state(base, "cpu"), plan, 0, 3)
+    eng = ring.RingEngine(cfg, plan, device="cpu")
+    eng.run(3)
+    got = ring.run(cfg, ring.init_state(cfg, "cpu"), plan, 0, 3)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(eng.state, f), getattr(want, f)), f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("arg", ["ext", "tap", "prof", "program"])
 def test_out_of_slice_arguments_raise(arg):
-    """prof raises naming its ROADMAP item, also beside a tap (which
-    runs); a FaultProgram under pull-uniform probing raises as the
-    reference does.  `ext`, ported since, runs: a batch with a
+    """A FaultProgram under pull-uniform probing raises as the reference
+    does.  `ext` and `prof`, ported since, run: a batch with a
     suspicion, a death and an empty slot gives the JAX step's state in
-    all 14 fields (tolerance 0)."""
+    all 14 fields (tolerance 0); a marker-mode PhaseProbe, alone or
+    beside a tap, leaves the state and the tap's values as they are
+    without it, and marks the telemetry_tap phase only beside a tap."""
     probe = "pull" if arg == "program" else "rotor"
     cfg = SwimConfig(n_nodes=16, ring_sel_scope="period", ring_probe=probe)
     plan = faults.none(16, "cpu")
@@ -293,15 +299,24 @@ def test_out_of_slice_arguments_raise(arg):
         assert_same_state(got, want, "ext")
         assert int((got.subject >= 0).sum()) == 2
         return
-    kw, match = {
-        "prof": ({"prof": object()}, "ROADMAP.*instruments"),
-        "tap": ({"tap": {}, "prof": object()}, "ROADMAP.*instruments"),
-        "program": ({}, "pull-uniform")}[arg]
-    if arg == "program":
-        plan = faults.with_segment(faults.as_program(plan, capacity=1), 0,
-                                   start=0, end=4, kind="gray", level=0.5)
-    with pytest.raises(NotImplementedError, match=match):
-        ring.step(cfg, state, plan, rnd, **kw)
+    if arg in ("prof", "tap"):
+        from swim_tpu_torch.obs.prof import PhaseProbe
+
+        want_tap, tap = ({}, {}) if arg == "tap" else (None, None)
+        want = ring.step(cfg, ring.init_state(cfg, "cpu"), plan, rnd,
+                         tap=want_tap)
+        pr = PhaseProbe()
+        got = ring.step(cfg, state, plan, rnd, tap=tap, prof=pr)
+        for f in ring.RingState._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        for name in want_tap or {}:
+            assert torch.equal(tap[name], want_tap[name]), name
+        assert ("telemetry_tap" in pr.markers) == (arg == "tap")
+        return
+    plan = faults.with_segment(faults.as_program(plan, capacity=1), 0,
+                               start=0, end=4, kind="gray", level=0.5)
+    with pytest.raises(NotImplementedError, match="pull-uniform"):
+        ring.step(cfg, state, plan, rnd)
 
 
 def test_program_runs_and_empty_program_is_the_plain_plan():

@@ -10,8 +10,8 @@
   * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
     two ValueError refusals of a resume;
   * `detection_study` and one point of `suspicion_sweep` give the JAX
-    package's dicts; the sharded engines and the profiling tap raise
-    naming their ROADMAP item;
+    package's dicts; the sharded engines raise naming their ROADMAP
+    item, and the profiling flag leaves every study as it is;
   * the dense and rumor runners (`run_study`, `run_study_rumor`: track,
     series, final state) against the JAX runners; `pick_engine`; the
     four studies' dicts with `engine="auto"` (dense) and `"rumor"`;
@@ -218,16 +218,32 @@ def test_detection_study_and_suspicion_sweep_match_the_reference():
     (dict(engine="ring", telemetry=True, profiling=True), "instruments"),
     (dict(engine="dense", flight_record="x.jsonl", telemetry=True,
           profiling=True), "instruments")])
-def test_studies_outside_the_port_raise(kw, match):
-    """Telemetry and the flight recorder run (tests/test_torch_telemetry.py,
-    tests/test_torch_observatory.py); beside them the profiling tap still
-    raises, on every engine."""
-    with pytest.raises(NotImplementedError, match=match):
-        experiments.detection_study(n=64, periods=2, device="cpu", **kw)
-    if "flight_record" not in kw:
+def test_studies_outside_the_port_raise(kw, match, tmp_path):
+    """The sharded engines raise naming their ROADMAP item.  The
+    profiling flag, refused until the profiler was ported, runs beside
+    telemetry and the flight recorder on every engine and gives the
+    study without it (the dump's path aside)."""
+    if not kw.get("profiling"):
+        with pytest.raises(NotImplementedError, match=match):
+            experiments.detection_study(n=64, periods=2, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=match):
             experiments.fp_sweep(n=64, losses=(0.0,), periods=2,
                                  device="cpu", **kw)
+        return
+    off = {k: v for k, v in kw.items() if k != "profiling"}
+    if "flight_record" in kw:
+        kw = {**kw, "flight_record": str(tmp_path / "on.jsonl")}
+        off = {**off, "flight_record": str(tmp_path / "off.jsonl")}
+    got, want = (experiments.detection_study(n=64, periods=2, device="cpu",
+                                             **a) for a in (kw, off))
+    assert got.pop("flight_record", None) == kw.get("flight_record")
+    assert want.pop("flight_record", None) == off.get("flight_record")
+    assert got == want
+    if "flight_record" not in kw:
+        assert (experiments.fp_sweep(n=64, losses=(0.0,), periods=2,
+                                     device="cpu", **kw)
+                == experiments.fp_sweep(n=64, losses=(0.0,), periods=2,
+                                        device="cpu", **off))
 
 
 def test_golden_study_digest():
