@@ -130,8 +130,9 @@ Phases, each printed as one JSON line:
      state in every field, launches 1 / 1 / 1 a period; periods/sec
      packed and wide in 3 alternating pairs; the 8-way bill of both
      wires.  `search.search()` at its defaults (4 generations x 16
-     lanes, then `refine_boundary`) twice: equal report bytes, wall,
-     wall per generation, the boundary.
+     lanes, then `refine_boundary`) once: the report's sha256 equal to
+     golden.GOLDEN_DIGEST_SEARCH (both packages' report on the CPU),
+     wall, wall per generation, the boundary.
  13. serve: the serving hub (serve/hub.py) and its load harness
      (serve/load.py) on the card.  (a) golden.GOLDEN_DIGEST_SERVE on the
      card; (b) golden.drive_serve (8 sessions, gossip with SUSPECT, DEAD
@@ -197,6 +198,26 @@ Phases, each printed as one JSON line:
      1000000 --check --json --out auto` and `bridge --metrics-port 0`,
      whose scrape carries that artifact's swim_prof_* gauges; each
      exits 0.
+ 16. ringshard: the sharded ring engine (parallel/ring_shard.py) with
+     D = 8 shards on the one card, 1,000,000 nodes (S = 125,000 rows a
+     shard), 0.1% crashing.  For the default SwimConfig (wave scope,
+     the window ICI wire: SwimConfig pins the compact wire to period
+     scope), period scope on the compact wire and period scope on the
+     packed scalar wire, 3 periods on one device, sharded with the
+     kernels and sharded with the plain versions: all 14 fields equal,
+     launches (zeroed before, read after) 8 times the single-device
+     selb and coldsel and no wavemerge; golden.GOLDEN_DIGESTS by the
+     sharded engine; selb and coldsel on every per-shard input of one
+     more wave-scope period (112 and 8 calls) and of a period at
+     8 x 125,001 nodes (S % 4 != 0), bitwise against their plain
+     versions, with `ms_main` on shard 0's inputs; one sharded period
+     under PyTorch's sync check set to raise; the 1M pull detection
+     study on `ringshard` streaming in chunks of 4 for 12 periods, again
+     checkpointing every 4, stopped in-process after 8 and resumed:
+     summaries equal, track, series and state bitwise, the summary the
+     `ring` engine's; the wall and busy ms a period, idle share and
+     kernels a period of the sharded wave-scope period beside the
+     single-device one in the same call.
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -211,6 +232,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -230,6 +252,8 @@ from swim_tpu_torch.serve import hub as serve_hub
 from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
+from swim_tpu_torch.parallel import mesh as pmesh
+from swim_tpu_torch.parallel import ring_shard
 from swim_tpu_torch.sim import (experiments, faults, runner, scenario,
                                 search)
 from swim_tpu_torch.types import MsgKind, Status
@@ -1544,22 +1568,22 @@ def packed_phase(card: str) -> dict:
 
 
 def search_phase(card: str) -> None:
-    """search.search() at its defaults, twice: equal report bytes; wall,
-    wall per generation, the boundary."""
-    walls, texts = [], []
-    for i in range(2):
-        path = SCENARIO_DIR / f"search_{i}.json"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = search.search(out=str(path))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        texts.append(path.read_bytes())
-    if texts[0] != texts[1]:
-        raise AssertionError("search: two runs wrote different reports")
+    """search.search() at its defaults, once: the report's sha256 equal
+    to golden.GOLDEN_DIGEST_SEARCH (both packages' report on the CPU);
+    wall, wall per generation, the boundary."""
+    path = SCENARIO_DIR / "search.json"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = search.search(out=str(path))
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    sha = hashlib.sha256(path.read_bytes()).hexdigest()
+    if sha != golden.GOLDEN_DIGEST_SEARCH:
+        raise AssertionError(f"search: report sha256 {sha} != "
+                             f"golden.GOLDEN_DIGEST_SEARCH")
     gens = rep["explore"]["generations"] + len(rep["boundary"]["history"])
     b = rep["boundary"]
-    emit(phase="scenario", part="search", generations=gens,
+    emit(phase="scenario", part="search", sha256=sha, generations=gens,
          pop=rep["explore"]["pop"], lanes=gens * rep["explore"]["pop"],
          wall_s=walls, wall_s_per_generation=[w / gens for w in walls],
          archive=len(rep["explore"]["archive"]),
@@ -2213,7 +2237,11 @@ def profiled_parity(cfg, card: str) -> dict:
 
 
 TRACE_PERIODS = 2
-PROFILE_REPS = 20       # interleaved rounds of every prefix and the step
+# interleaved rounds of every prefix and the step: the best of 20 left
+# the host-paced step and its last prefix up to 15% apart now and then
+# (coverage above 105%, with or without the sharded engine's changes);
+# the best of 60 kept 12 readings in fresh processes inside 95-105%
+PROFILE_REPS = 60
 KERNEL_PHASES = {"selb_kernel": "select", "wavemerge_kernel": "merge",
                  "coldsel_kernel": "commit"}
 
@@ -2412,6 +2440,375 @@ def instruments_phase(card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------- phase 16: ringshard
+
+SHARDS = pmesh.DEFAULT_SHARDS
+SHARD_PERIODS = 3
+# config name -> SwimConfig keywords beyond n_nodes; the compact ICI
+# wire packs the one selection of a period, so SwimConfig pins it to
+# period scope and the default wave scope runs on the window wire
+SHARD_CONFIGS = {
+    "wave": {},
+    "period_compact": dict(ring_sel_scope="period", ring_ici_wire="compact"),
+    "period_packed": dict(ring_sel_scope="period", ring_scalar_wire="packed"),
+}
+SHARD_ODD_N = SHARDS * 125_001          # S % 4 == 1
+SHARD_STUDY_PERIODS = 12
+SHARD_STUDY_CHUNK = 4
+SHARD_TIMED_PERIODS = 5
+SHARD_CKPT_DIR = Path(__file__).resolve().parent / "_shard_ckpt"
+
+
+def shard_mesh():
+    return pmesh.make_mesh(devices=["cuda"] * SHARDS)
+
+
+def shard_place(cfg, plan):
+    return ring_shard.start(cfg, plan, "cuda")[1:3]
+
+
+def shard_run(cfg, plan, periods: int, plain: bool = False, seed: int = 0):
+    """The placed state after `periods` sharded periods from init."""
+    mesh, st, pl, _ = ring_shard.start(cfg, plan, "cuda")
+    return ring_shard.build_run(cfg, mesh, periods, plain=plain)(
+        st, pl, threefry.key(seed))
+
+
+def shard_parity(name: str) -> tuple[dict, object]:
+    """SHARD_PERIODS periods at N on one device, sharded with the kernels
+    and sharded with the plain versions: all 14 fields equal; the
+    sharded launches D times the single-device selb and coldsel and no
+    wavemerge.  Returns (launches, the kernels' placed state)."""
+    t0 = time.perf_counter()
+    cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS[name])
+    plan = crash_plan(cfg, SHARD_PERIODS)
+    torch.cuda.synchronize()
+    reset_launches()
+    single = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                      SHARD_PERIODS)
+    torch.cuda.synchronize()
+    one = read_launches()
+    reset_launches()
+    placed = shard_run(cfg, plan, SHARD_PERIODS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    k = pmesh.assemble(placed)
+    p = pmesh.assemble(shard_run(cfg, plan, SHARD_PERIODS, plain=True))
+    require_same(f"ringshard {name}: sharded against one device", k, single)
+    require_same(f"ringshard {name}: kernels against plain versions", k, p)
+    want = {"selb": SHARDS * one["selb"], "coldsel": SHARDS * one["coldsel"],
+            "wavemerge": 0}
+    if launches != want or one["wavemerge"] == 0:
+        raise AssertionError(f"ringshard {name}: launches {launches}, one "
+                             f"device {one}, expected {want}")
+    emit(phase="ringshard", part="parity", config=name, n_nodes=N,
+         shards=SHARDS, periods=SHARD_PERIODS,
+         fields_equal=len(ring.RingState._fields), launches=launches,
+         launches_one_device=one, suspects=int((k.rkey & 1).sum()),
+         seconds=time.perf_counter() - t0)
+    return launches, placed
+
+
+def shard_golden() -> None:
+    """golden.GOLDEN_DIGESTS by the sharded engine at D = 8."""
+    t0 = time.perf_counter()
+    for name, want in golden.GOLDEN_DIGESTS.items():
+        cfg = golden.golden_config(name)[0]
+        got = golden.digest(pmesh.assemble(shard_run(
+            cfg, golden.golden_plan(name, "cuda"), golden.GOLDEN_PERIODS,
+            seed=golden.GOLDEN_SEED)))
+        if got != want:
+            raise AssertionError(f"ringshard golden '{name}' {got} != "
+                                 f"{want}")
+    emit(phase="ringshard", part="golden", shards=SHARDS,
+         digests=list(golden.GOLDEN_DIGESTS),
+         seconds=time.perf_counter() - t0)
+
+
+def capture_shard_period(cfg, placed, plan, t: int) -> dict:
+    """One sharded period from `placed` (period t) with selb's and
+    coldsel's wrappers keeping clones of the arguments of every call."""
+    got = {"selb": [], "coldsel": []}
+    real = (selb.select_first_b, coldsel.cold_update_select)
+    lock = threading.Lock()
+
+    def keep(name, fn):
+        def wrapped(*args):
+            with lock:
+                got[name].append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+            return fn(*args)
+        return wrapped
+
+    selb.select_first_b = keep("selb", real[0])
+    coldsel.cold_update_select = keep("coldsel", real[1])
+    try:
+        rnd = ring.draw_period_ring(threefry.key(0), t, cfg, "cuda")
+        ring_shard.mapped_step(cfg, shard_mesh())(placed, plan, rnd)
+    finally:
+        selb.select_first_b, coldsel.cold_update_select = real
+    torch.cuda.synchronize()
+    return got
+
+
+def check_captured(what: str, got: dict) -> int:
+    """Each captured call's kernel against its plain version."""
+    err = 0
+    for (win, b) in got["selb"]:
+        err = max(err, require_equal(
+            f"{what} selb S={win.shape[0]}", selb.select_first_b(win, b),
+            selb.select_first_b_plain(win, b)))
+    for (cold, fr, fv, qr) in got["coldsel"]:
+        c_k, s_k = coldsel.cold_update_select(cold.clone(), fr, fv, qr)
+        c_p, s_p = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
+        err = max(err, require_equal(f"{what} coldsel cold", c_k, c_p),
+                  require_equal(f"{what} coldsel sel", s_k, s_p))
+    return err
+
+
+def shard_kernels(placed, rows: dict) -> None:
+    """selb and coldsel on the per-shard inputs of one more wave-scope
+    period at N (and of a period at SHARD_ODD_N, S % 4 != 0), bitwise
+    against their plain versions; the per-shard `ms_main_ringshard`."""
+    t0 = time.perf_counter()
+    cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS["wave"])
+    plan = shard_place(cfg, crash_plan(cfg, SHARD_PERIODS))[1]
+    got = capture_shard_period(cfg, placed, plan, SHARD_PERIODS)
+    waves = 2 + 4 * cfg.k_indirect
+    if (len(got["selb"]) != SHARDS * waves
+            or len(got["coldsel"]) != SHARDS):
+        raise AssertionError(f"ringshard: captured {len(got['selb'])} selb "
+                             f"and {len(got['coldsel'])} coldsel calls")
+    err = check_captured("ringshard", got)
+    odd_cfg = SwimConfig(n_nodes=SHARD_ODD_N, ring_sel_scope="period")
+    odd_plan = crash_plan(odd_cfg, SHARD_PERIODS)
+    odd_state = shard_run(odd_cfg, odd_plan, 2)
+    odd_plan = shard_place(odd_cfg, odd_plan)[1]
+    odd = capture_shard_period(odd_cfg, odd_state, odd_plan, 2)
+    if odd["coldsel"][0][0].shape[1] % 4 == 0:
+        raise AssertionError("ringshard: the odd shard size is a multiple "
+                             "of 4")
+    err = max(err, check_captured("ringshard odd S", odd))
+    win, b = got["selb"][0]
+    cold, fr, fv, qr = got["coldsel"][0]
+    s = win.shape[0]
+    for name, t_k, t_p, nbytes, nops in (
+            ("selb", gpu_ms(lambda: selb.select_first_b(win, b)),
+             gpu_ms(lambda: selb.select_first_b_plain(win, b), samples=5,
+                    inner=2),
+             2 * win.numel() * 4, win.numel() * 8),
+            ("coldsel",
+             gpu_ms(lambda: coldsel.cold_update_select(cold, fr, fv, qr)),
+             gpu_ms(lambda: coldsel.cold_update_select_plain(
+                 cold, fr, fv, qr), samples=5, inner=2),
+             (2 * fr.shape[0] + 3 * qr.shape[0]) * s * 4,
+             s * (fr.shape[0] + qr.shape[0] * (fr.shape[0] + 4)))):
+        bms, by = bound(nbytes, nops)
+        rows[name]["ringshard"] = dict(
+            ms_main=t_k, plain_ms_main=t_p, bytes_main=nbytes,
+            bound_ms_main=bms, bound_by=by, shard_rows=s)
+    emit(phase="ringshard", part="kernels", max_abs_err=err,
+         selb_calls=len(got["selb"]), coldsel_calls=len(got["coldsel"]),
+         odd_shard_rows=odd["coldsel"][0][0].shape[1],
+         selb=rows["selb"]["ringshard"], coldsel=rows["coldsel"]["ringshard"],
+         seconds=time.perf_counter() - t0)
+
+
+def shard_no_sync_period() -> None:
+    """One sharded period (the default SwimConfig: wave scope) at N with
+    PyTorch's sync check set to raise; the randomness drawn before."""
+    cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS["wave"])
+    st, pl = shard_place(cfg, crash_plan(cfg, SHARD_PERIODS))
+    step = ring_shard.mapped_step(cfg, shard_mesh())
+    st = step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, "cuda"))
+    rnd = ring.draw_period_ring(threefry.key(0), 1, cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(st, pl, rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit(phase="ringshard", part="no_sync_period", host_syncs_in_a_period=0)
+
+
+def shard_study(card: str) -> None:
+    """The 1M pull detection study (the study default) on `ringshard`,
+    streaming in chunks of SHARD_STUDY_CHUNK; again checkpointing every
+    chunk, stopped in-process after two chunks and resumed from its
+    directory: equal summaries, CompactTrack and series bitwise; the
+    summary equal to the `ring` engine's."""
+    t0 = time.perf_counter()
+    kw = dict(n=N, crash_fraction=CRASH_FRACTION,
+              periods=SHARD_STUDY_PERIODS, seed=0, device="cuda")
+    kept = {}
+    real_stream = runner.run_study_ring_stream
+    real_call = ring_shard.ShardedStep.__call__
+    calls = [0]
+
+    def keep_stream(*a, **k):
+        res = real_stream(*a, **k)
+        kept["stream"] = res
+        return res
+
+    def stopping_call(self, *a):
+        calls[0] += 1
+        if calls[0] > 2 * SHARD_STUDY_CHUNK:
+            raise Interrupted
+        return real_call(self, *a)
+
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    try:
+        runner.run_study_ring_stream = keep_stream
+        one = experiments.detection_study(stream=True,
+                                          chunk=SHARD_STUDY_CHUNK,
+                                          engine="ring", **kw)
+        kept.pop("stream")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        straight = experiments.detection_study(
+            stream=True, chunk=SHARD_STUDY_CHUNK, engine="ringshard", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        ref = kept.pop("stream")
+        ring_shard.ShardedStep.__call__ = stopping_call
+        try:
+            experiments.detection_study(
+                checkpoint_dir=str(SHARD_CKPT_DIR),
+                checkpoint_every=SHARD_STUDY_CHUNK, engine="ringshard", **kw)
+            raise AssertionError("the checkpointed study was not stopped")
+        except Interrupted:
+            pass
+        ring_shard.ShardedStep.__call__ = real_call
+        snaps = sorted(p.name for p in SHARD_CKPT_DIR.iterdir())
+        resumed = experiments.detection_study(
+            checkpoint_dir=str(SHARD_CKPT_DIR),
+            checkpoint_every=SHARD_STUDY_CHUNK, engine="ringshard", **kw)
+        again = kept.pop("stream")
+    finally:
+        runner.run_study_ring_stream = real_stream
+        ring_shard.ShardedStep.__call__ = real_call
+        shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    if resumed != straight:
+        raise AssertionError(f"ringshard resumed study {resumed} != "
+                             f"{straight}")
+    for part in ("track", "series"):
+        a, b = getattr(ref, part), getattr(again, part)
+        for f in a._fields:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"ringshard resumed study: {part}.{f} "
+                                     "differs")
+    require_same("ringshard resumed study state", pmesh.assemble(ref.state),
+               pmesh.assemble(again.state))
+    if {k: v for k, v in one.items() if k != "engine"} != \
+            {k: v for k, v in straight.items() if k != "engine"}:
+        raise AssertionError(f"ringshard study {straight} != ring {one}")
+    emit(phase="ringshard", part="study", n_nodes=N, shards=SHARDS,
+         periods=SHARD_STUDY_PERIODS, ring_probe=straight["ring_probe"],
+         chunk=SHARD_STUDY_CHUNK, snapshots=snaps,
+         resumed_at=2 * SHARD_STUDY_CHUNK, summaries_equal=True,
+         track_series_state_bitwise=True, equal_to_ring=True,
+         **{k: straight.get(k) for k in ("crashed", "suspect_detected",
+                                         "suspect_latency_mean",
+                                         "false_dead_views_final")},
+         study_periods_per_sec=SHARD_STUDY_PERIODS / wall,
+         seconds=time.perf_counter() - t0, card=card)
+
+
+def shard_memwall(card: str) -> None:
+    """memwall's streaming-study accounting at N (pull, 12 periods) on
+    `ringshard` and on one device in the same call: both measured, each
+    peak at least its state and inside the card's memory."""
+    t0 = time.perf_counter()
+    reps = {e: memwall.study_memory_analysis(N, engine=e, device="cuda")
+            for e in ("ring", "ringshard")}
+    for e, rep in reps.items():
+        if (not rep["measured"] or not rep["fits_budget"]
+                or rep["total_bytes"] < rep["state_bytes"]):
+            raise AssertionError(f"ringshard: memwall {e} report {rep}")
+    sh = reps["ringshard"]
+    if sh["shards"] != SHARDS or sh["shard_state_bytes"] * SHARDS != \
+            sh["state_bytes"]:
+        raise AssertionError(f"ringshard: memwall shards {sh}")
+    keys = ("state_bytes", "argument_bytes", "output_bytes", "temp_bytes",
+            "total_bytes", "budget_fraction")
+    emit(phase="ringshard", part="memwall", n_nodes=N, shards=SHARDS,
+         periods=sh["periods"], ring_probe=sh["ring_probe"],
+         shard_state_bytes=sh["shard_state_bytes"],
+         ringshard={k: sh[k] for k in keys},
+         one_device={k: reps["ring"][k] for k in keys},
+         peak_ratio=sh["total_bytes"] / reps["ring"]["total_bytes"],
+         seconds=time.perf_counter() - t0, card=card)
+
+
+def shard_timing(card: str) -> None:
+    """Wall and busy ms a period, idle share and kernels a period of the
+    default SwimConfig at N: one device and D shards in
+    the same call, SHARD_TIMED_PERIODS periods each after a warm-up,
+    bare for the wall and again under torch.profiler for the busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS["wave"])
+    plan = crash_plan(cfg, 2 * SHARD_TIMED_PERIODS)
+    single = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, 1)
+    placed = shard_run(cfg, plan, 1)
+    placed_plan = shard_place(cfg, plan)[1]
+    sharded = ring_shard.build_run(cfg, shard_mesh(), SHARD_TIMED_PERIODS)
+    arms = {
+        "one_device": lambda: ring.run(cfg, single._replace(
+            cold=single.cold.clone()), plan, 0, SHARD_TIMED_PERIODS),
+        "ringshard": lambda: sharded(placed._replace(cold=pmesh.Sharded(
+            [b.clone() for b in placed.cold.blocks], placed.cold.axis)),
+            placed_plan, threefry.key(0)),
+    }
+    out = {}
+    for name, fn in arms.items():
+        fn()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / SHARD_TIMED_PERIODS
+        launches = read_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            fn()
+            torch.cuda.synchronize()
+        busy, count = busy_ms(pr)
+        busy /= SHARD_TIMED_PERIODS
+        out[name] = dict(wall_ms=wall, busy_ms=busy,
+                         idle_share=1.0 - busy / wall,
+                         kernels_per_period=count / SHARD_TIMED_PERIODS,
+                         launches_per_period={
+                             k: v / SHARD_TIMED_PERIODS
+                             for k, v in launches.items()})
+    emit(phase="ringshard", part="timing", n_nodes=N, shards=SHARDS,
+         periods=SHARD_TIMED_PERIODS, config="wave", **out,
+         card=card)
+
+
+def ringshard_phase(rows: dict, card: str) -> dict:
+    """Phase 16; returns the kernels' launches in the wave-scope sharded
+    parity run."""
+    t0 = time.perf_counter()
+    launches = {}
+    placed = None
+    for name in SHARD_CONFIGS:
+        launches[name], st = shard_parity(name)
+        if name == "wave":
+            placed = st
+    shard_golden()
+    shard_kernels(placed, rows)
+    del placed
+    shard_no_sync_period()
+    shard_study(card)
+    shard_memwall(card)
+    shard_timing(card)
+    emit(phase="ringshard", part="done", seconds=time.perf_counter() - t0,
+         card=card)
+    return launches["wave"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -2445,12 +2842,14 @@ def main() -> None:
     launches["serve"] = serve_phase(rows, card)
     launches.update(bridge_phase(card))
     launches["instruments"] = instruments_phase(card)
+    launches["ringshard"] = ringshard_phase(rows, card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
                 "wavemerge": "swim_tpu/ops/wavemerge.py:136"}
     extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
-             "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve")
+             "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve",
+             "ringshard")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]
@@ -2472,6 +2871,7 @@ def main() -> None:
             launches_bridge=launches["bridge"][name],
             launches_bridge_golden=launches["bridge_golden"][name],
             launches_instruments=launches["instruments"][name],
+            launches_ringshard=launches["ringshard"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

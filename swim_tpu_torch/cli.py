@@ -19,10 +19,12 @@ Subcommands, with the reference's flags and JSON keys:
 
 The tensor commands run on the CUDA card unless `--device cpu` names
 the CPU (swim_tpu_torch/device.py); with no card they exit 2 and say
-so.  `--engine shard` and `ringshard` exit 2: the sharded engines wait
-for the sharding port (ROADMAP.md Queue 1, item 6).  `audit` exits 2:
-the reference audits its jaxprs and compiled HLO, and the port's
-contract families are queued (ROADMAP.md Queue 1).
+so.  `--engine ringshard` runs the sharded ring engine
+(parallel/ring_shard.py: 8 shards on the one device); `--engine shard`
+exits 2: the exchange-sharded rumor engine is queued (ROADMAP.md Queue
+1, item 1).  `audit` exits 2: the reference audits its jaxprs and
+compiled HLO, and the port's contract families are queued (ROADMAP.md
+Queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ import sys
 
 ENGINES = ("auto", "dense", "rumor", "shard", "ring", "ringshard")
 
-SHARDED_MSG = ("error: the sharded engines ('shard', 'ringshard') are not "
-               "ported yet (ROADMAP.md Queue 1, item 6: sharding)")
+SHARDED_MSG = ("error: the exchange-sharded rumor engine ('shard') is not "
+               "ported yet (ROADMAP.md Queue 1, item 1); 'ringshard' "
+               "runs")
 
 
 class _NoDevice(Exception):
@@ -55,7 +58,8 @@ def _device(args: argparse.Namespace):
 
 
 def _sharded(engine: str) -> bool:
-    if engine in ("shard", "ringshard"):
+    """True (after printing the error) for the unported 'shard'."""
+    if engine == "shard":
         print(SHARDED_MSG, file=sys.stderr)
         return True
     return False
@@ -134,8 +138,8 @@ def _reject_sel_scope(resolved_engine: str, sel_scope: str) -> bool:
     passed for an engine that would silently ignore it."""
     if sel_scope != "wave" and not resolved_engine.startswith("ring"):
         print(f"error: --sel-scope {sel_scope} has no effect on the "
-              f"'{resolved_engine}' engine; pass --engine ring",
-              file=sys.stderr)
+              f"'{resolved_engine}' engine; pass --engine ring or "
+              "ringshard", file=sys.stderr)
         return True
     return False
 
@@ -164,14 +168,28 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         plan = faults.with_random_crashes(
             plan, threefry.key(args.seed + 1), args.crash_fraction,
             0, max(1, args.periods // 2))
-    mod = {"dense": dense, "ring": ring, "rumor": rumor}[engine]
-    state = mod.init_state(cfg, dev)
+    if engine == "ringshard":
+        from swim_tpu_torch.parallel import mesh as pmesh
+        from swim_tpu_torch.parallel import ring_shard
+
+        mesh, state, placed_plan, _ = ring_shard.start(cfg, plan, dev)
+        run_fn = ring_shard.build_run(cfg, mesh, args.periods)
+
+        def do_run(st):
+            return pmesh.assemble(run_fn(st, placed_plan,
+                                         threefry.key(args.seed)))
+    else:
+        mod = {"dense": dense, "ring": ring, "rumor": rumor}[engine]
+        state = mod.init_state(cfg, dev)
+
+        def do_run(st):
+            return mod.run(cfg, st, plan, args.seed, args.periods)
 
     prof = (profiling.trace(args.profile) if args.profile
             else contextlib.nullcontext())
     t0 = time.perf_counter()
     with prof:
-        state = mod.run(cfg, state, plan, args.seed, args.periods)
+        state = do_run(state)
         profiling.block_until_ready(state)
     dt = time.perf_counter() - t0
 
@@ -179,7 +197,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
     live = ~crashed
     if engine == "dense":
         dead_views = lattice.is_dead(state.key).cpu().numpy()
-    elif engine == "ring":
+    elif engine in ("ring", "ringshard"):
         dead_views = None          # summarized via the dissemination floor
     else:
         dead_views = (lattice.is_dead(rumor.view_matrix(cfg, state))
@@ -195,7 +213,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         # a period-scope (deviation R5) run must never be quotable as an
         # exact wave-scope one
         **({"ring_sel_scope": cfg.ring_sel_scope}
-           if engine == "ring" else {}),
+           if engine in ("ring", "ringshard") else {}),
     }
     if dead_views is not None:
         import numpy as np
@@ -226,7 +244,8 @@ def _cmd_study(args: argparse.Namespace) -> int:
         resolved = experiments.pick_engine(args.nodes, args.engine)
         if args.engine != "auto" and not resolved.startswith("ring"):
             print("error: --mem-report accounts the ring study "
-                  "pipeline; pass --engine ring", file=sys.stderr)
+                  "pipeline; pass --engine ring or ringshard",
+                  file=sys.stderr)
             return 2
         from swim_tpu_torch.obs import memwall
 
@@ -238,7 +257,8 @@ def _cmd_study(args: argparse.Namespace) -> int:
                 args.nodes, periods=args.periods,
                 crash_fraction=args.crash_fraction,
                 variant="stacked" if args.stream == "off" else "stream",
-                engine="ring", device=_device(args),
+                engine=("ringshard" if resolved == "ringshard"
+                        else "ring"), device=_device(args),
                 probe=args.probe or "pull", **cfg_kw)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
@@ -256,8 +276,8 @@ def _cmd_study(args: argparse.Namespace) -> int:
         resolved = experiments.pick_engine(args.nodes, args.engine)
         if not resolved.startswith("ring"):
             print(f"error: --probe {args.probe} has no effect on the "
-                  f"'{resolved}' engine; pass --engine ring",
-                  file=sys.stderr)
+                  f"'{resolved}' engine; pass --engine ring or "
+                  "ringshard", file=sys.stderr)
             return 2
         kw["ring_probe"] = args.probe   # flows into SwimConfig
     if args.telemetry:
@@ -541,7 +561,7 @@ def _cmd_audit(args: argparse.Namespace) -> int:
     print("error: the reference's audit verifies its contracts against "
           "the jaxprs and the compiled HLO of its JAX programs; the "
           "port's contract families are not ported yet (ROADMAP.md "
-          "Queue 1)", file=sys.stderr)
+          "Queue 1, item 2)", file=sys.stderr)
     return 2
 
 

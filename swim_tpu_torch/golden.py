@@ -54,6 +54,13 @@ GOLDEN_DIGEST_REPLAY_STORM is the sha256 of the verdict artifact of the
 library scenario `replay_storm` (a 16-node SimCluster of real nodes
 under loss, duplication and stale replay; sim/scenario.py), its
 `out_dir` written as "OUT".
+
+GOLDEN_DIGEST_SEARCH is the sha256 of the report file that
+`sim/search.py`'s `search(out=path)` writes at its defaults (4
+generations of 16 lanes, seed 0, then the flap boundary refinement).
+It was computed on the CPU with this package and, the same bytes, with
+the JAX package's `swim_tpu/sim/search.py`; chip_smoke.py holds one
+search on the card to it.
 """
 from __future__ import annotations
 
@@ -96,6 +103,9 @@ STUDY_CRASHES = dict(seed=1, fraction=0.01, start=2, end=20)
 STUDY_CHUNK = 16
 GOLDEN_DIGEST_STUDY = (
     "fc526b3b9e4d8fa9cf20d31a65a12197ccc1b3492924eeb364179b470e7b492d")
+
+GOLDEN_DIGEST_SEARCH = (
+    "ef0889fdcbbef7e38903221be4759f7e85ea2bd4d16e679d3bcb75a312468a05")
 
 ENGINE_N = {"dense": 256, "rumor": 4096, "rumor_lifeguard": 4096}
 ENGINE_LOSS = 0.05

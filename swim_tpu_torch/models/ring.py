@@ -46,7 +46,8 @@ field of the incoming state is left untouched.
 
 Every cross-node movement goes through `GlobalOps`, under the
 reference's seam names and roll labels, so that obs/ici.py can tally
-the bytes a sharded layout would move.
+the bytes a sharded layout would move and parallel/ring_shard.py can
+run the same step on one node shard (its ShardOps).
 
 Host syncs: none inside `step`.  `run` reads `state.step` once and
 copies the whole run's rotor offsets to the device once;
@@ -99,7 +100,10 @@ def geometry(cfg: SwimConfig) -> RingGeometry:
 
 class RingState(NamedTuple):
     """The reference's 14 fields, same order, shapes and layouts; u32
-    fields are int32 carriers.  `cold` is word-major [RW, N]."""
+    fields are int32 carriers.  `cold` is word-major [RW, N]: its node
+    axis is the last, as SHARD_AXES tells parallel/mesh.py."""
+
+    SHARD_AXES = {"cold": 1}   # class attribute (not annotated: no field)
 
     win: torch.Tensor        # u32[N, WW]  heard-bits, youngest WW words
     cold: torch.Tensor       # u32[RW, N]  heard-bits, cold ring
@@ -398,32 +402,50 @@ def _recip_table(n: int, device) -> torch.Tensor:
 
 class GlobalOps:
     """Cross-node operations of the single-device engine: the seams of
-    the reference's GlobalOps (ring.py:625-756; its scatter-max is
-    ops/scatter.py `scatter_max`), plus the three kernel steps (their
-    plain versions with `plain`).  `step` routes through these the
-    reference's rolls (with its labels), global sums, gathers by node
-    id, heard-bit lookups and first-k compactions; on one device each
-    is the plain PyTorch op it names, and obs/ici.py's CountingOps
-    overrides them to tally the bytes of the sharded layout.  A roll's
-    `itemsize` is the bytes per value of the reference's wire dtype
-    where this port carries the values in a wider one (a u16 lane in
-    int32).  Node-id vectors given as int64 index without a
+    the reference's GlobalOps (ring.py:625-756), plus the three kernel
+    steps (their plain versions with `plain`).  `step` routes through
+    these the reference's node identity (`ids`, `zeros_nodes`,
+    `full_nodes`), rolls (with its labels), global sums and maxima,
+    scatters and gathers by node id, heard-bit lookups and first-k
+    compactions; on one device each is the plain PyTorch op it names.
+    obs/ici.py's CountingOps overrides them to tally the bytes of the
+    sharded layout, and parallel/ring_shard.py's ShardOps computes the
+    same values from one node shard with in-process collectives.  A
+    roll's `itemsize` is the bytes per value of the reference's wire
+    dtype where this port carries the values in a wider one (a u16 lane
+    in int32).  Node-id vectors given as int64 index without a
     conversion."""
 
     def __init__(self, cfg: SwimConfig, device, plain: bool = False):
         self.n = cfg.n_nodes
         self.device = device
         self.plain = plain
-        self.ids = torch.arange(self.n, dtype=I32, device=device)
+        self._ids = torch.arange(self.n, dtype=I32, device=device)
+
+    # -- node identity ----------------------------------------------------
+    def ids(self) -> torch.Tensor:
+        """int32 global ids of the node rows held here."""
+        return self._ids
+
+    def zeros_nodes(self, dtype, cols: int | None = None) -> torch.Tensor:
+        shape = (self.n,) if cols is None else (self.n, cols)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def full_nodes(self, val, dtype) -> torch.Tensor:
+        return torch.full((self.n,), val, dtype=dtype, device=self.device)
 
     # -- reductions -------------------------------------------------------
     def gsum(self, partial: torch.Tensor) -> torch.Tensor:
         """Global sum given this device's partial: the partial itself."""
         return partial
 
+    def gmax(self, partial: torch.Tensor) -> torch.Tensor:
+        """Global max given this device's partial (telemetry)."""
+        return partial
+
     # -- communication ----------------------------------------------------
     def _roll(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-        idx = torch.remainder(self.ids.to(torch.int64) + d, self.n)
+        idx = torch.remainder(self._ids.to(torch.int64) + d, self.n)
         return x[idx]
 
     def roll_from(self, x: torch.Tensor, d: torch.Tensor, label=None,
@@ -440,12 +462,30 @@ class GlobalOps:
         return tuple(self._roll(x, d) for x in parts)
 
     # -- node-axis scatter/gather by global node id -----------------------
+    def scatter_max(self, dst, idx, val, unsigned: bool):
+        """dst[idx] <- max(dst[idx], val) (u32 order when `unsigned`);
+        idx outside [0, n) drops."""
+        return scatter.scatter_max(dst, idx, val, unsigned=unsigned)
+
     def scatter_add(self, dst, idx, val: int):
         valid = (idx >= 0) & (idx < dst.shape[0])
         out = dst.clone()
         out.scatter_add_(0, torch.where(valid, idx, 0).to(torch.int64),
                          torch.where(valid, val, 0).to(dst.dtype))
         return out
+
+    def scatter_or_word(self, win, rows, cols, bits):
+        """win[rows, cols] |= bits, in place, by an add (the caller's
+        bits are disjoint from the word's and from each other, so no
+        add carries).  A row wraps from below as JAX's scatter index
+        does and drops outside [-n, n)."""
+        n = win.shape[0]
+        rows = torch.where(rows < 0, rows + n, rows)
+        ok = (rows >= 0) & (rows < n)
+        win.index_put_((torch.where(ok, rows, 0).to(torch.int64),
+                        cols.to(torch.int64)),
+                       torch.where(ok, bits, 0), accumulate=True)
+        return win
 
     def gather(self, arr, idx):
         """arr[idx] for a node-axis arr; idx replicated, in [0, n)."""
@@ -466,7 +506,7 @@ class GlobalOps:
 
     def knows_self(self, win, cold, slot_pos, slot):
         """Heard-bit of each row's own node for ring slots `slot`."""
-        return self.knows_words(win, cold, slot_pos, self.ids, slot)
+        return self.knows_words(win, cold, slot_pos, self._ids, slot)
 
     def knows_words(self, win, cold, slot_pos, rows, slot):
         """Heard-bit of global node ids `rows` for ring slots `slot`."""
@@ -565,7 +605,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     r_tot, s_cap = g.rw * WORD, cfg.sentinels
     ob = g.ow * WORD
     t = state.step
-    ids = ops.ids
+    ids = ops.ids()
     rr = torch.arange(r_tot, dtype=I32, device=dev)
     lanes = torch.arange(ob, dtype=I32, device=dev)
     crashed = faults.crashed_mask(plan, t)
@@ -605,8 +645,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     retire = out_used & ~carry & ~keep
     out_dead = out_used & lattice.is_dead(out_key)
     tomb = retire & out_dissem
-    gone_key = scatter.scatter_max(gone_key, torch.where(tomb, out_sub, n),
-                                   out_key, unsigned=True)
+    gone_key = ops.scatter_max(gone_key, torch.where(tomb, out_sub, n),
+                               out_key, unsigned=True)
     overflow = overflow + _sum32(retire & out_dead & ~out_dissem)
 
     # ---- Phase 0b: invalidate the previous generation of the fresh cols ---
@@ -621,7 +661,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     fresh_rows = cold.index_select(0, fresh_word_rows.to(torch.int64))
     inv_knowers = ops.gsum(_lane_counts(fresh_rows, active))
     inv_tomb = inv_used & (inv_knowers >= live_total)
-    gone_key = scatter.scatter_max(
+    gone_key = ops.scatter_max(
         gone_key, torch.where(inv_tomb, inv_sub, n), inv_key, unsigned=True)
     subject = scatter.set_drop(
         subject, torch.where(inv_used, fresh_slots, r_tot), -1)
@@ -662,26 +702,26 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     top_key, top_slot = [], []
     remaining = used
     for _ in range(g.c):
-        bk = scatter.scatter_max(torch.zeros_like(ids),
-                                 torch.where(remaining, subject, n), rkey,
-                                 unsigned=True)
+        bk = ops.scatter_max(ops.zeros_nodes(I32),
+                             torch.where(remaining, subject, n), rkey,
+                             unsigned=True)
         bk_at_r = ops.gather(bk, subj_cl)
         hit = remaining & (rkey == bk_at_r) & (bk_at_r != 0)
-        bs = scatter.scatter_max(torch.full_like(ids, -1),
-                                 torch.where(hit, subject, n), rr,
-                                 unsigned=False)
+        bs = ops.scatter_max(ops.full_nodes(-1, I32),
+                             torch.where(hit, subject, n), rr,
+                             unsigned=False)
         top_key.append(bk)
         top_slot.append(bs)
         remaining = remaining & ~(rr == ops.gather(bs, subj_cl))
-    n_per_subj = ops.scatter_add(torch.zeros_like(ids), sub_or_n, 1)
+    n_per_subj = ops.scatter_add(ops.zeros_nodes(I32), sub_or_n, 1)
     index_overflow = state.index_overflow + ops.gsum(
         _sum32(n_per_subj > g.c))
     sus_hit = used & lattice.is_suspect(rkey)
-    sus_bk = scatter.scatter_max(torch.zeros_like(ids),
-                                 torch.where(sus_hit, subject, n), rkey,
-                                 unsigned=True)
-    sus_slot = scatter.scatter_max(
-        torch.full_like(ids, -1),
+    sus_bk = ops.scatter_max(ops.zeros_nodes(I32),
+                             torch.where(sus_hit, subject, n), rkey,
+                             unsigned=True)
+    sus_slot = ops.scatter_max(
+        ops.full_nodes(-1, I32),
         torch.where(sus_hit & (rkey == ops.gather(sus_bk, subj_cl)),
                     subject, n), rr,
         unsigned=False)
@@ -871,7 +911,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         deliver(ok2, s_off)
         acked = ok2 & prober
         need = prober & ~acked
-        relayed = torch.zeros((n,), dtype=torch.bool, device=dev)
+        relayed = ops.zeros_nodes(torch.bool)
         for a in range(k):
             q = rnd.q_off[a]
             d4 = s_off - q
@@ -1011,9 +1051,9 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         acked_lane = d_fwd_ok & (pr.d_back >= loss_f)
         # indirect: k proxies, two-hop paths with composed legs
         need = probe_live & ~acked_lane
-        relayed_lane = torch.zeros((n,), dtype=torch.bool, device=dev)
-        px_deliver = torch.zeros((n,), dtype=torch.bool, device=dev)
-        px_src = torch.zeros((n,), dtype=I32, device=dev)
+        relayed_lane = ops.zeros_nodes(torch.bool)
+        px_deliver = ops.zeros_nodes(torch.bool)
+        px_src = ops.zeros_nodes(I32)
         for b in range(k):
             p_b = draw_id(pr.px_u[:, b]).to(torch.int64)
             pid_pb = ops.gather_nodewise(pid, p_b)
@@ -1206,19 +1246,14 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     stime = scatter.set_drop(stime, wslot, 0)
 
     # originators hear their rumor: add the one-hot into the fresh win
-    # cols (add == or: freshly allocated lanes are bit-disjoint).  A
-    # hearer row wraps from below as JAX's scatter index does and drops
-    # outside [-N, N); only an external hearer can lie outside [0, N)
-    fw = (lane_c // WORD).clamp(0, g.ow - 1).to(torch.int64)
-    fbit = lane_c.clamp(0, ob - 1) % WORD
-    hear_w = torch.where(hear_c < 0, hear_c + n, hear_c)
-    hear_ok = alloc_ok & (hear_w >= 0) & (hear_w < n)
-    rows = torch.where(hear_ok, hear_w, 0).to(torch.int64)
-    one = torch.ones_like(fbit, dtype=torch.int64)
-    add = torch.where(hear_ok, one << fbit.to(torch.int64), 0)
-    fresh = u32.to_u64(win[:, g.ww - g.ow:])
-    fresh.index_put_((rows, fw), add, accumulate=True)
-    win[:, g.ww - g.ow:] = u32.from_u64(fresh)
+    # cols (add == or: freshly allocated lanes are bit-disjoint); only
+    # an external hearer can lie outside [0, N)
+    fw = (lane_c // WORD).clamp(0, g.ow - 1)
+    fbit = (lane_c.clamp(0, ob - 1) % WORD).to(torch.int64)
+    one = torch.ones_like(fbit)
+    win = ops.scatter_or_word(
+        win, torch.where(alloc_ok, hear_c, n), g.ww - g.ow + fw,
+        torch.where(alloc_ok, u32.from_u64(one << fbit), 0))
 
     # sentinel joins
     joiner = placed & susp_c
@@ -1256,12 +1291,13 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
 
     if tap is not None:
         row_bits = occ_bits.clamp(max=b_pig)
-        tap["sel_slots_selected"] = _sum32(row_bits)
-        tap["sel_rows_saturated"] = _sum32((row_bits >= b_pig) & active)
-        tap["sel_slots_max"] = row_bits.max()
-        tap["win_occupancy"] = _sum32(occ_bits)
-        tap["waves_delivered"] = _sum32(torch.stack(tap_oks))
-        tap["probes_failed"] = _sum32(failed)
+        tap["sel_slots_selected"] = ops.gsum(_sum32(row_bits))
+        tap["sel_rows_saturated"] = ops.gsum(
+            _sum32((row_bits >= b_pig) & active))
+        tap["sel_slots_max"] = ops.gmax(row_bits.max())
+        tap["win_occupancy"] = ops.gsum(_sum32(occ_bits))
+        tap["waves_delivered"] = ops.gsum(_sum32(torch.stack(tap_oks)))
+        tap["probes_failed"] = ops.gsum(_sum32(failed))
         tap["overflow"] = overflow
         tap["index_overflow"] = index_overflow
         if prof is not None:

@@ -30,9 +30,12 @@ beside a run, never a run of the arm.  Like the reference's trace, it
 charges both branches of the sentinel probes' `lax.cond`.
 
 The bill is static per (cfg, d, plan's segment count): shapes and the
-collective set are constants of the configuration.  It states bytes
-only: the reference's time model divides them by a TPU link rate,
-which this port does not carry (ROADMAP.md Queue 1: sharding).
+collective set are constants of the configuration.  The sharded engine
+(parallel/ring_shard.py) records the same bytes for its exchanges, but
+for the compacted sentinel branch, which it does not run.  The bill
+states bytes only: the reference's time model divides them by a TPU
+link rate, and the port's shards share one card, where no link is
+crossed.
 """
 from __future__ import annotations
 

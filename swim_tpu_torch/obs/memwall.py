@@ -14,8 +14,13 @@ the meta device it reports only the trees' bytes (state, carry and
 arguments, counted on the meta device, so nothing is allocated at size
 N), with `measured: false`.
 
-`engine="ringshard"` (the sharded layout's per-device accounting) waits
-for the sharding port (ROADMAP.md Queue 1, item 6).  Exposed as
+`engine="ringshard"` accounts the sharded engine's streaming study
+(parallel/ring_shard.py, `pmesh.DEFAULT_SHARDS` shards on the device):
+the report adds the shard count and one shard's state bytes
+(`shard_state_bytes`: its node-axis blocks plus its own copy of the
+replicated tables), and on the card the measured peak of the whole
+program, all shards together on the one card.  The reference's
+deviceless compile for a TPU mesh has no counterpart here.  Exposed as
 `swim-tpu-torch study detection --mem-report [--device cpu]`; obs/expo.py
 `render_memwall` renders a report as swim_mem_* gauges.
 """
@@ -47,23 +52,26 @@ MEM_GAUGES = {
 
 
 def _tree_bytes(tree) -> int:
+    """Bytes of a tree's tensors; a placed tensor counts every block."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if hasattr(tree, "blocks"):
+        return sum(_tree_bytes(b) for b in tree.blocks)
     if isinstance(tree, (tuple, list)):
         return sum(_tree_bytes(x) for x in tree)
     return 0
 
 
 def _study_inputs(cfg, n: int, periods: int, crash_fraction: float,
-                  variant: str, dev):
-    """(state, plan, track or None, crashes) of the study at `n` on
-    `dev`: crashes drawn as detection_study draws them, the streaming
-    runner's CompactTrack over them."""
+                  variant: str, dev, engine: str = "ring"):
+    """(state, plan, track or None, crashes, step_fn or None) of the
+    study at `n` on `dev`: crashes drawn as detection_study draws them,
+    the streaming runner's CompactTrack over them; for "ringshard" the
+    state and plan placed by `ring_shard.start` and its sharded step."""
     from swim_tpu_torch.models import ring
     from swim_tpu_torch.sim import faults, runner
     from swim_tpu_torch.utils import threefry
 
-    state = ring.init_state(cfg, dev)
     if dev.type == "meta":
         plan = faults.none(n, dev)
         crashes = max(1, round(n * crash_fraction))
@@ -72,15 +80,20 @@ def _study_inputs(cfg, n: int, periods: int, crash_fraction: float,
                                                    device=dev)
                                        for _ in range(5)))
                  if variant == "stream" else None)
-        return state, plan, track, crashes
-    plan = faults.with_random_crashes(
-        faults.none(n, dev), threefry.key(1), crash_fraction, 2,
-        max(3, periods // 2))
-    track = (runner.compact_track_init(plan, periods)
-             if variant == "stream" else None)
-    crashes = (int(track.subjects.shape[0]) if track is not None
-               else int((plan.crash_step < periods).sum()))
-    return state, plan, track, crashes
+    else:
+        plan = faults.with_random_crashes(
+            faults.none(n, dev), threefry.key(1), crash_fraction, 2,
+            max(3, periods // 2))
+        track = (runner.compact_track_init(plan, periods)
+                 if variant == "stream" else None)
+        crashes = (int(track.subjects.shape[0]) if track is not None
+                   else int((plan.crash_step < periods).sum()))
+    if engine == "ringshard":
+        from swim_tpu_torch.parallel import ring_shard
+
+        _, state, plan, step_fn = ring_shard.start(cfg, plan, dev)
+        return state, plan, track, crashes, step_fn
+    return ring.init_state(cfg, dev), plan, track, crashes, None
 
 
 def study_memory_analysis(n: int, periods: int = 12,
@@ -106,13 +119,11 @@ def study_memory_analysis(n: int, periods: int = 12,
 
     if variant not in ("stream", "stacked"):
         raise ValueError(f"unknown memwall variant {variant!r}")
-    if engine == "ringshard":
-        raise NotImplementedError(
-            "ringshard memory analysis is the sharded layout's per-device "
-            "accounting, not ported yet (ROADMAP.md Queue 1, item 6: "
-            "sharding)")
-    if engine != "ring":
+    if engine not in ("ring", "ringshard"):
         raise ValueError(f"unknown memwall engine {engine!r}")
+    if engine == "ringshard" and variant != "stream":
+        raise ValueError("ringshard memory analysis covers the streaming "
+                         "study (variant='stream')")
     dev = devmod.resolve(device)
     cfg_kw.setdefault("ring_probe", probe)
     cfg = SwimConfig(n_nodes=n, **cfg_kw)
@@ -120,8 +131,9 @@ def study_memory_analysis(n: int, periods: int = 12,
     if on_card:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
-    state, plan, track, crashes = _study_inputs(
-        cfg, n, periods, crash_fraction, variant, dev if on_card else META)
+    state, plan, track, crashes, step_fn = _study_inputs(
+        cfg, n, periods, crash_fraction, variant, dev if on_card else META,
+        engine)
     carry = (state, track) if variant == "stream" else state
     args = (state, track, plan) if variant == "stream" else (state, plan)
     if budget_bytes is None:
@@ -141,6 +153,11 @@ def study_memory_analysis(n: int, periods: int = 12,
         "hbm_budget_bytes": int(budget_bytes),
         "measured": on_card,
     }
+    if engine == "ringshard":
+        from swim_tpu_torch.parallel import mesh as pmesh
+
+        report["shards"] = step_fn.mesh.size
+        report["shard_state_bytes"] = _tree_bytes(pmesh.block(state, 0))
     if not on_card:
         return report
 
@@ -148,7 +165,7 @@ def study_memory_analysis(n: int, periods: int = 12,
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     if variant == "stream":
-        stepper = runner.make_stepper(cfg, plan, ring.step)
+        stepper = runner.make_stepper(cfg, plan, ring.step, step_fn)
         out = runner._run_study_ring_chunk(cfg, state, track, plan, key,
                                            periods, stepper)
     else:

@@ -21,11 +21,22 @@ Any other device raises; nothing falls back.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from swim_tpu_torch import _kernels
 
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one launch, under a lock: the sharded engine launches from
+    one thread per shard."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def cold_update_select_plain(cold, flush_rows, flush_vals, q_rows):
@@ -63,7 +74,6 @@ def cold_update_select(cold, flush_rows, flush_vals, q_rows):
     """cold int32[RW, N] (u32 carrier, updated in place), flush_rows
     int32[OW], flush_vals int32[OW, N], q_rows int32[Q, N] ->
     (cold, sel int32[Q, N])."""
-    global launches
     _check(cold, flush_rows, flush_vals, q_rows)
     if cold.device.type == "cpu":
         return cold_update_select_plain(cold, flush_rows, flush_vals, q_rows)
@@ -81,5 +91,5 @@ def cold_update_select(cold, flush_rows, flush_vals, q_rows):
               q_rows.data_ptr(), sel.data_ptr(), n, rw, flush_rows.shape[0],
               q_rows.shape[0], _kernels.stream_of(cold))
     _kernels.check("coldsel", code)
-    launches += 1
+    _count_launch()
     return cold, sel

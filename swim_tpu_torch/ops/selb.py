@@ -16,6 +16,8 @@ raises; nothing falls back.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from swim_tpu_torch import _kernels
@@ -23,6 +25,15 @@ from swim_tpu_torch.ops import u32
 
 WORD = 32
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one launch, under a lock: the sharded engine launches from
+    one thread per shard."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def select_first_b_plain(win_masked: torch.Tensor, b: int) -> torch.Tensor:
@@ -47,7 +58,6 @@ def select_first_b_plain(win_masked: torch.Tensor, b: int) -> torch.Tensor:
 
 def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
     """int32 carrier [N, WW] -> int32 carrier [N, WW]."""
-    global launches
     if win_masked.dtype != torch.int32 or win_masked.dim() != 2:
         raise ValueError("select_first_b wants an int32 [N, WW] carrier, "
                          f"got {win_masked.dtype} {tuple(win_masked.shape)}")
@@ -66,5 +76,5 @@ def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
     code = fn(win_masked.data_ptr(), out.data_ptr(), n, ww,
               min(b, ww * WORD), _kernels.stream_of(win_masked))
     _kernels.check("selb", code)
-    launches += 1
+    _count_launch()
     return out

@@ -19,12 +19,23 @@ other device raises; nothing falls back.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from swim_tpu_torch import _kernels
 
 MAX_WAVES = 32
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one launch, under a lock: the sharded engine launches from
+    one thread per shard."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def merge_waves_plain(win, sel, oks, offs, bcol, bval):
@@ -66,7 +77,6 @@ def merge_waves(win, sel, oks, offs, bcol, bval):
     """win int32[N, WW] (u32 carrier, updated in place), sel int32[N, WW],
     oks bool[V, N] (by receiver), offs int32[V] (any sign), bcol
     int32[VB, N], bval int32[VB, N] (VB may be 0) -> win."""
-    global launches
     _check(win, sel, oks, offs, bcol, bval)
     if win.device.type == "cpu":
         return merge_waves_plain(win, sel, oks, offs, bcol, bval)
@@ -81,5 +91,5 @@ def merge_waves(win, sel, oks, offs, bcol, bval):
               offs.data_ptr(), bcol.data_ptr(), bval.data_ptr(), n, ww,
               oks.shape[0], bcol.shape[0], _kernels.stream_of(win))
     _kernels.check("wavemerge", code)
-    launches += 1
+    _count_launch()
     return win

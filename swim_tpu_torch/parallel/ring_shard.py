@@ -1,0 +1,529 @@
+"""The sharded ring engine (port of `swim_tpu/parallel/ring_shard.py`).
+
+The same `ring.step` body runs once per node shard, each shard a thread
+of `mesh.run_spmd` holding S = N/D rows, with `ShardOps` supplying the
+cross-shard data movement through the in-process collectives of
+parallel/mesh.py.  Every method returns the values GlobalOps computes
+on the whole node axis, restricted to this shard's rows (node-axis
+results) or equal on every shard (reductions and gathers), so the
+placed state is bitwise the single-device engine's:
+
+  * rolls: a roll by d = k*S + r is rows [r, S) of shard me+k and rows
+    [0, r) of shard me+k+1.  k and r stay on the device (the shift is a
+    device scalar and reading it would wait for the card), so the
+    blocks are picked by indexing the posted blocks with a device
+    index.  On the packed scalar wire (`ring_scalar_wire="packed"`) a
+    wave's scalars travel as one u8 bundle (ops/wavepack.py), bools at
+    one bit a node, narrow codes at their wire width, and both
+    neighbour blocks unpack before the r-row stitch;
+  * the wave merge: per wave, the rolled selection block ORed in under
+    the wave's mask.  On the "compact" ICI wire the first-B selection
+    is packed once into slot indices [S, B] and each wave moves one
+    packed block (plus one boundary block a period).  The fused
+    wavemerge kernel needs the whole node axis, so it is not run here;
+  * global sums and maxima: integer sums (max) of the shards' partials;
+  * scatters and gathers by global node id: each shard applies the
+    updates addressed to its rows; a gather sums the owner's value (one
+    owner per id);
+  * the pull branch's random-peer reads: a ring pass, the query bundle
+    visiting every shard once;
+  * first-k compaction: local compaction, a gather of D small key
+    blocks, a top-k.
+
+`select_first_b` and `cold_update_select` run the CUDA kernels on each
+shard's own blocks (u32[S, WW] rows, cold u32[RW, S]); the plain
+versions with `plain=True`, and on CPU tensors.
+
+`place` splits a whole state and plan onto the mesh by the reference's
+spec tables (`_state_specs`, `_plan_specs`, `_rnd_specs`),
+`mapped_step` gives the sharded step(state, plan, rnd) on placed
+trees, `build_run` a run of periods, and `mesh.assemble` the whole
+state back; `start` places a fresh state and a plan on the default
+mesh of one device and builds its step.  A `ShardedStep`'s `record`, when set to a list, receives
+every exchange of shard 0 with its label, dtype, shape and the bytes
+the reference's sharded layout moves for it per device (the
+convention of obs/ici.py's bill).
+"""
+from __future__ import annotations
+
+import torch
+
+from swim_tpu_torch.config import SwimConfig
+from swim_tpu_torch.models import ring
+from swim_tpu_torch.obs.engine import frame_from_tap
+from swim_tpu_torch.ops import coldsel, scatter, selb, u32, wavepack
+from swim_tpu_torch.parallel import mesh as pmesh
+from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
+from swim_tpu_torch.utils import threefry
+
+I32 = torch.int32
+I64 = torch.int64
+
+
+class ShardOps:
+    """GlobalOps for shard `rank` of `n_shards`, over the collectives
+    `coll` (see the module note)."""
+
+    supports_random_gather = True   # the ring-pass exchanges
+
+    def __init__(self, cfg: SwimConfig, n_shards: int, rank: int,
+                 coll: pmesh.Collectives, device, plain: bool = False,
+                 record: list | None = None):
+        self.n = cfg.n_nodes
+        self.d = n_shards
+        self.s = self.n // n_shards
+        self.rank = rank
+        self.lo = rank * self.s
+        self.coll = coll
+        self.device = device
+        self.plain = plain
+        self.record = record
+        self.wire = cfg.ring_ici_wire
+        self.scalar_wire = cfg.ring_scalar_wire
+        g = ring.geometry(cfg)
+        self.ww = g.ww
+        self.b_pig = min(cfg.max_piggyback, g.ww * ring.WORD)
+        self._ids = self.lo + torch.arange(self.s, dtype=I32, device=device)
+        self._rows = torch.arange(self.s, dtype=I64, device=device)
+
+    def _log(self, op: str, payload: torch.Tensor, terms: dict) -> None:
+        if self.record is not None:
+            self.record.append({
+                "op": op, "dtype": str(payload.dtype).removeprefix("torch."),
+                "shape": tuple(payload.shape),
+                "bytes": sum(terms.values()), "terms": dict(terms)})
+
+    # -- node identity ----------------------------------------------------
+    def ids(self) -> torch.Tensor:
+        return self._ids
+
+    def zeros_nodes(self, dtype, cols: int | None = None) -> torch.Tensor:
+        shape = (self.s,) if cols is None else (self.s, cols)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def full_nodes(self, val, dtype) -> torch.Tensor:
+        return torch.full((self.s,), val, dtype=dtype, device=self.device)
+
+    # -- reductions -------------------------------------------------------
+    def gsum(self, partial: torch.Tensor) -> torch.Tensor:
+        self._log("psum", partial, {"psum_scalar": 4 * partial.numel()})
+        return self.coll.psum(self.rank, partial)
+
+    def gmax(self, partial: torch.Tensor) -> torch.Tensor:
+        return self.coll.pmax(self.rank, partial)
+
+    # -- communication ----------------------------------------------------
+    def _shift(self, d):
+        """(k, r) of a global shift d = k*S + r, device tensors."""
+        dd = torch.remainder(torch.as_tensor(d, device=self.device)
+                             .to(I64), self.n)
+        return dd // self.s, torch.remainder(dd, self.s)
+
+    def _pair(self, stacked: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        """[2, ...]: the blocks of shards me+k and me+k+1, picked from the
+        posted blocks by a device index."""
+        j = torch.remainder(self.rank + k, self.d)
+        return stacked.index_select(
+            0, torch.stack([j, torch.remainder(j + 1, self.d)]))
+
+    def _stitch(self, a: torch.Tensor, b: torch.Tensor,
+                r: torch.Tensor) -> torch.Tensor:
+        """Rows [r, r + S) of a ++ b."""
+        return torch.cat([a, b]).index_select(0, r + self._rows)
+
+    def roll_from(self, x: torch.Tensor, d, label=None,
+                  itemsize=None) -> torch.Tensor:
+        """x at global node (i + d) mod n for my rows i.  A lone bool
+        vector on the packed scalar wire ships as a one-part bundle (1
+        bit a node); a carrier wider than the wire (`itemsize`) ships
+        its low bytes."""
+        if (self.scalar_wire == "packed" and x.dim() == 1
+                and x.dtype == torch.bool):
+            return self.roll_bundle((x,), d, labels=(label,))[0]
+        if itemsize is not None and itemsize < x.element_size():
+            return self._roll_packed((x,), d, (label,), (itemsize,))[0]
+        k, r = self._shift(d)
+        stacked = self.coll.stack(self.rank, x)
+        self._log("ppermute", x, {label or "roll": 2 * x.numel()
+                                  * x.element_size()})
+        a, b = self._pair(stacked, k)
+        return self._stitch(a, b, r)
+
+    def _roll_packed(self, parts, d, labels, itemsizes):
+        k, r = self._shift(d)
+        payload = wavepack.pack_bundle(parts, itemsizes)
+        stacked = self.coll.stack(self.rank, payload)
+        terms: dict = {}
+        for x, lb, sz in zip(parts, labels, itemsizes):
+            key = lb or "roll"
+            terms[key] = (terms.get(key, 0)
+                          + 2 * wavepack.bundle_nbytes(x, sz))
+        self._log("ppermute", payload, terms)
+        pa, pb = (wavepack.unpack_bundle(p, parts, itemsizes)
+                  for p in self._pair(stacked, k))
+        return tuple(self._stitch(xa, xb, r) for xa, xb in zip(pa, pb))
+
+    def roll_bundle(self, parts, d, labels=None, itemsizes=None):
+        """roll_from over several same-offset node vectors: one u8
+        payload on the packed scalar wire, one roll each on the wide."""
+        if not parts:
+            return ()
+        labels = labels or (None,) * len(parts)
+        itemsizes = itemsizes or (None,) * len(parts)
+        if self.scalar_wire != "packed":
+            return tuple(self.roll_from(x, d, label=lb, itemsize=sz)
+                         for x, lb, sz in zip(parts, labels, itemsizes))
+        return self._roll_packed(tuple(parts), d, tuple(labels),
+                                 tuple(itemsizes))
+
+    # -- node-axis scatter/gather by global node id -----------------------
+    def _local(self, idx):
+        """Global id -> local row; a row not held here -> S (drops)."""
+        owned = (idx >= self.lo) & (idx < self.lo + self.s)
+        return torch.where(owned, idx - self.lo, self.s), owned
+
+    def scatter_max(self, dst, idx, val, unsigned: bool):
+        li, _ = self._local(idx)
+        return scatter.scatter_max(dst, li, val, unsigned=unsigned)
+
+    def scatter_add(self, dst, idx, val: int):
+        li, owned = self._local(idx)
+        out = dst.clone()
+        out.scatter_add_(0, torch.where(owned, li, 0).to(I64),
+                         torch.where(owned, val, 0).to(dst.dtype))
+        return out
+
+    def scatter_or_word(self, win, rows, cols, bits):
+        li, owned = self._local(rows)
+        win.index_put_((torch.where(owned, li, 0).to(I64), cols.to(I64)),
+                       torch.where(owned, bits, 0), accumulate=True)
+        return win
+
+    def gather(self, arr, idx):
+        """arr[idx] for a node-axis arr and replicated ids: the owner's
+        value, summed over the shards."""
+        self._log("psum", idx, {"gather_psum": 4 * max(idx.numel(), 1)})
+        li, owned = self._local(idx)
+        v = arr[li.clamp(0, self.s - 1).to(I64)]
+        if v.dtype == torch.bool:
+            return self.coll.psum(self.rank,
+                                  torch.where(owned, v, False).to(I32)) > 0
+        return self.coll.psum(self.rank, torch.where(owned, v, 0).to(v.dtype))
+
+    # -- the pull branch's ring-pass exchanges ----------------------------
+    def _shift1(self, xs: tuple) -> tuple:
+        """Every tensor of xs from shard me-1 (one ring hop)."""
+        if self.d == 1:
+            return xs
+        stacked = self.coll.stack_many(self.rank, xs)
+        self._log("ppermute", xs[-1], {
+            "ring_pass": sum(x.numel() * x.element_size() for x in xs)})
+        src = (self.rank - 1) % self.d
+        return tuple(s[src] for s in stacked)
+
+    def gather_nodewise(self, arr, idx):
+        """arr[idx] for a node-axis arr and node-axis global ids [S]:
+        the query travels the ring, each shard answers what it owns."""
+        q = idx.to(I64)
+        acc = torch.zeros((self.s,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                          device=arr.device)
+        for _ in range(self.d):
+            owned = (q >= self.lo) & (q < self.lo + self.s)
+            v = arr[(q - self.lo).clamp(0, self.s - 1)]
+            ow = owned.reshape((-1,) + (1,) * (arr.dim() - 1))
+            acc = torch.where(ow, v, acc)
+            q, acc = self._shift1((q, acc))
+        return acc
+
+    def gather_rows(self, mat, idx):
+        return self.gather_nodewise(mat, idx)
+
+    def knows_nodewise(self, win, cold, slot_pos, rows, slot):
+        """Heard-bit of global node ids `rows` [S] for ring slots `slot`
+        [S]: the queried word travels the ring, the bit stays home."""
+        ok, wcol, word_r, bit = slot_pos(slot)
+        q, f, c, r = rows.to(I64), ok, wcol.to(I64), word_r.to(I64)
+        acc = torch.zeros((self.s,), dtype=win.dtype, device=win.device)
+        for _ in range(self.d):
+            owned = (q >= self.lo) & (q < self.lo + self.s)
+            lr = (q - self.lo).clamp(0, self.s - 1)
+            word = torch.where(f, win[lr, c], cold[r, lr])
+            acc = torch.where(owned, word, acc)
+            q, f, c, r, acc = self._shift1((q, f, c, r, acc))
+        return (slot >= 0) & u32.bit_of(acc, bit)
+
+    def knows_self(self, win, cold, slot_pos, slot):
+        """Heard-bit of each local row for ring slots `slot` [S]: no
+        exchange."""
+        ok, wcol, word_r, bit = slot_pos(slot)
+        word = torch.where(ok, win[self._rows, wcol.to(I64)],
+                           cold[word_r.to(I64), self._rows])
+        return (slot >= 0) & u32.bit_of(word, bit)
+
+    def knows_words(self, win, cold, slot_pos, rows, slot):
+        """Heard-bit of replicated global ids `rows` for ring slots
+        `slot`: the owner's bit, summed over the shards."""
+        self._log("psum", slot, {"knows_psum": 4 * max(slot.numel(), 1)})
+        ok, wcol, word_r, bit = slot_pos(slot)
+        lr, owned = self._local(rows)
+        lrc = lr.clamp(0, self.s - 1).to(I64)
+        word = torch.where(ok, win[lrc, wcol.to(I64)],
+                           cold[word_r.to(I64), lrc])
+        kn = (slot >= 0) & u32.bit_of(word, bit)
+        return self.coll.psum(self.rank,
+                              torch.where(owned, kn, False).to(I32)) > 0
+
+    def knows_sentinels(self, win, cold, slot_pos, rows, slot):
+        """The sentinel probes: the full-batch branch, as on one
+        device."""
+        return self.knows_words(win, cold, slot_pos, rows, slot)
+
+    def first_true_nodes(self, valid, k):
+        """Local compaction, a gather of the D candidate blocks keyed
+        n - id, one top-k (descending keys = ascending ids)."""
+        kl = min(k, self.s)
+        lidx = scatter.first_true(valid, kl, self.s)
+        gidx = torch.where(lidx < self.s, lidx + self.lo, self.n)
+        gk = torch.where(gidx < self.n, self.n - gidx, 0).to(I32)
+        self._log("all_gather", gk, {"candidates_all_gather":
+                                     4 * self.d * kl})
+        merged = self.coll.stack(self.rank, gk).reshape(-1)
+        kk2 = torch.topk(merged, min(k, self.d * kl)).values
+        idx = torch.where(kk2 > 0, self.n - kk2, self.n).to(I32)
+        if k > idx.shape[0]:
+            idx = torch.cat([idx, torch.full((k - idx.shape[0],), self.n,
+                                             dtype=I32, device=idx.device)])
+        return idx
+
+    # -- the wave merge ---------------------------------------------------
+    def _forced(self, col, val) -> torch.Tensor:
+        """u32[S, WW]: bit `val` in column `col` of each row (0 = none)."""
+        wids = torch.arange(self.ww, dtype=I32, device=col.device)[None, :]
+        return torch.where(col[:, None] == wids, val[:, None], 0)
+
+    def merge_waves(self, win, sel, oks, offs, bcols=(), bvals=()):
+        """The fused period-scope delivery, `win` updated in place: each
+        wave's rolled selection ORed in under its mask, on the window or
+        the compact ICI wire, then the receiver-aligned forced bits."""
+        if self.wire == "compact":
+            idx = wavepack.pack_slots(sel, self.b_pig)
+            sz = wavepack.slot_dtype(self.ww).itemsize
+            wire = wavepack.narrow_bytes(idx, sz)
+            nxt = self.coll.stack(self.rank, wire)[(self.rank + 1) % self.d]
+            self._log("ppermute", wire,
+                      {"sel_wire_boundary": wire.numel()})
+            both = torch.cat([wire, nxt])
+            for ok, d in zip(oks, offs):
+                k, r = self._shift(d)
+                z = both.index_select(0, r + self._rows)
+                stacked = self.coll.stack(self.rank, z)
+                self._log("ppermute", z, {"roll_sel_waves": z.numel()})
+                j = torch.remainder(self.rank + k, self.d)
+                y = stacked.index_select(0, j.reshape(1))[0]
+                rolled = wavepack.unpack_slots(
+                    wavepack.widen_bytes(y, idx.dtype), self.ww)
+                win |= torch.where(ok[:, None], rolled, 0)
+        else:
+            for ok, d in zip(oks, offs):
+                win |= torch.where(ok[:, None], self.roll_from(
+                    sel, d, label="roll_sel_waves"), 0)
+        for col, val in zip(bcols, bvals):
+            win |= self._forced(col, val)
+        return win
+
+    def merge_wave(self, win, sel, ok, d, cv=None):
+        """One wave in-line (the reference's wave-scope delivery): the
+        sender's forced bit ORed into its selection row, that block
+        rolled, ORed in under ok."""
+        if cv is not None:
+            sel = sel | self._forced(cv[0], cv[1])
+        win |= torch.where(ok[:, None],
+                           self.roll_from(sel, d, label="roll_sel_waves"), 0)
+        return win
+
+    # -- the kernel steps, per shard -------------------------------------
+    def select_first_b(self, win_masked, b):
+        if self.plain:
+            return selb.select_first_b_plain(win_masked, b)
+        return selb.select_first_b(win_masked, b)
+
+    def cold_update_select(self, cold, flush_rows, flush_vals, q_rows):
+        fn = (coldsel.cold_update_select_plain if self.plain
+              else coldsel.cold_update_select)
+        return fn(cold, flush_rows, flush_vals, q_rows)
+
+
+# ---------------------------------------------------------------------------
+# Spec tables and the public place / step / run API
+# ---------------------------------------------------------------------------
+
+
+def _state_specs(cfg: SwimConfig) -> ring.RingState:
+    """The node axis of each RingState field (None = replicated)."""
+    return ring.RingState(
+        win=0, cold=1, inc_self=0, lha=0, gone_key=0,
+        subject=None, rkey=None, birth0=None, sent_node=None,
+        sent_time=None, confirmed=None, overflow=None,
+        index_overflow=None, step=None)
+
+
+def _plan_specs(program: bool = False):
+    base = FaultPlan(crash_step=0, loss=None, partition_id=0,
+                     partition_start=None, partition_end=None, join_step=0)
+    if not program:
+        return base
+    # the node-axis lanes shard with the nodes; the segment table is
+    # a handful of scalars a segment, replicated
+    return FaultProgram(
+        base=base, domain_id=0, seg_start=None, seg_end=None,
+        seg_period=None, seg_on=None, seg_domain=None, seg_kind=None,
+        seg_level=None)
+
+
+def _rnd_specs(cfg: SwimConfig) -> ring.RingRandomness:
+    if cfg.ring_probe == "pull":
+        # the rotor legs are empty (0,) tensors under pull: replicated;
+        # every pull uniform is per node
+        return ring.RingRandomness(
+            s_off=None, q_off=None, loss_w1=None, loss_w2=None,
+            loss_w3=None, loss_w4=None, loss_w5=None, loss_w6=None,
+            lha_u=None,
+            pull=ring.PullRandomness(*(0,) * len(ring.PullRandomness._fields)))
+    return ring.RingRandomness(
+        s_off=None, q_off=None, loss_w1=0, loss_w2=0, loss_w3=0,
+        loss_w4=0, loss_w5=0, loss_w6=0, lha_u=0, pull=None)
+
+
+def _check(cfg: SwimConfig, mesh: pmesh.Mesh) -> int:
+    d = mesh.size
+    if cfg.n_nodes % d != 0:
+        raise ValueError(
+            f"n_nodes={cfg.n_nodes} must divide over {d} shards")
+    return d
+
+
+def place(cfg: SwimConfig, mesh: pmesh.Mesh, state: ring.RingState, plan):
+    """(placed state, placed plan): each field split onto the mesh by
+    the spec tables; `plan` a FaultPlan or a FaultProgram."""
+    _check(cfg, mesh)
+    st = pmesh.place_tree(state, _state_specs(cfg), mesh)
+    pl = pmesh.place_tree(plan, _plan_specs(isinstance(plan, FaultProgram)),
+                          mesh)
+    return st, pl
+
+
+def _slice_rnd(rnd, specs, lo: int, s: int):
+    if rnd is None:
+        return None
+    if isinstance(rnd, tuple):
+        return type(rnd)(*(_slice_rnd(x, sp, lo, s)
+                           for x, sp in zip(rnd, specs)))
+    return rnd if specs is None else rnd.narrow(specs, lo, s)
+
+
+class ShardedStep:
+    """The sharded step(state, plan, rnd) on a placed state and plan and
+    a whole RingRandomness (as `ring.draw_period_ring` draws it): the
+    placed next state, with cfg.telemetry its EngineFrame and with
+    cfg.profiling the int32 phase-marker vector (obs/prof.py) appended,
+    `(state, frame?, markers?)`.  Both extras are reductions over the
+    shards, equal on every shard.  `plain=True` runs the kernels' plain
+    versions; `record`, a list, collects shard 0's exchanges."""
+
+    def __init__(self, cfg: SwimConfig, mesh: pmesh.Mesh,
+                 plain: bool = False):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.plain = plain
+        self.d = _check(cfg, mesh)
+        self.record: list | None = None
+
+    def __call__(self, state, plan, rnd):
+        cfg, d = self.cfg, self.d
+        s = cfg.n_nodes // d
+        rspecs = _rnd_specs(cfg)
+        record = self.record
+
+        def body(rank, coll):
+            from swim_tpu_torch.obs.prof import PhaseProbe
+
+            dev = self.mesh.devices[rank]
+            ops = ShardOps(cfg, d, rank, coll, dev, plain=self.plain,
+                           record=record if rank == 0 else None)
+            tap = {} if cfg.telemetry else None
+            pr = PhaseProbe() if cfg.profiling else None
+            st = ring.step(cfg, pmesh.block(state, rank),
+                           pmesh.block(plan, rank),
+                           _slice_rnd(rnd, rspecs, rank * s, s), ops=ops,
+                           tap=tap, prof=pr)
+            extras = []
+            if cfg.telemetry:
+                extras.append(frame_from_tap(tap, dev))
+            if cfg.profiling:
+                extras.append(pr.marker_vector())
+            return st, extras
+
+        out = pmesh.run_spmd(self.mesh, body)
+        st = pmesh.gather_blocks([o[0] for o in out], _state_specs(cfg))
+        extras = out[0][1]
+        return (st, *extras) if extras else st
+
+
+def mapped_step(cfg: SwimConfig, mesh: pmesh.Mesh,
+                plain: bool = False) -> ShardedStep:
+    """The sharded step on placed trees (see ShardedStep); the study
+    runners take it as their `step_fn`."""
+    return ShardedStep(cfg, mesh, plain)
+
+
+def build_step(cfg: SwimConfig, mesh: pmesh.Mesh,
+               plain: bool = False) -> ShardedStep:
+    """step(state, plan, rnd) with explicit collectives: mapped_step."""
+    return mapped_step(cfg, mesh, plain)
+
+
+def start(cfg: SwimConfig, plan, device):
+    """(mesh, placed initial state, placed plan, sharded step): the
+    engine's set-up on pmesh.DEFAULT_SHARDS shards of `device`, as the
+    studies, memwall and the CLI run it."""
+    mesh = pmesh.make_mesh(devices=[device] * pmesh.DEFAULT_SHARDS)
+    state, plan = place(cfg, mesh, ring.init_state(cfg, device), plan)
+    return mesh, state, plan, mapped_step(cfg, mesh)
+
+
+def build_run(cfg: SwimConfig, mesh: pmesh.Mesh, periods: int,
+              plain: bool = False):
+    """run(state, plan, root_key): `periods` sharded periods from a
+    placed state, the randomness of each drawn as `ring.run` draws it
+    (`root_key` a threefry key, `threefry.key(seed)`).  With
+    cfg.telemetry it returns (state, EngineFrame of [periods] series),
+    with cfg.profiling the [periods, len(PHASES)] markers appended;
+    otherwise the placed state."""
+    sm = mapped_step(cfg, mesh, plain)
+    extras = cfg.telemetry or cfg.profiling
+
+    def run(state, plan, root_key):
+        if isinstance(root_key, int):
+            root_key = threefry.key(root_key)
+        ys = []
+        t0 = int(pmesh.assemble(state.step))
+        for rnd in ring.period_randomness(cfg, root_key, t0, periods,
+                                          state.win.device):
+            out = sm(state, plan, rnd)
+            if extras:
+                state = out[0]
+                ys.append(out[1:])
+            else:
+                state = out
+        if not extras:
+            return state
+        return (state, *(_stack_extra(col) for col in zip(*ys)))
+
+    return run
+
+
+def _stack_extra(col):
+    if isinstance(col[0], tuple):
+        return type(col[0])(*(torch.stack(f) for f in zip(*col)))
+    return torch.stack(col)
+

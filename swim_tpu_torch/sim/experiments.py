@@ -14,9 +14,12 @@ arguments:
 
 Engine selection as in the reference: "auto" picks the exact dense
 engine up to `DENSE_MAX` nodes and the O(R*N) rumor engine above;
-"ring" is the ring engine.  The sharded engines ("shard",
-"ringshard") are not ported and raise.  Every study runs on the CUDA
-card unless `device` names another device.
+"ring" is the ring engine, "ringshard" the same engine sharded over
+the node axis (parallel/ring_shard.py: `pmesh.DEFAULT_SHARDS` shards on
+the study's device, stepped through its mapped step; the census reads
+the state assembled from the shards).  The exchange-sharded rumor
+engine ("shard") is not ported and raises.  Every study runs on the
+CUDA card unless `device` names another device.
 
 `detection_study(telemetry=True)` adds the per-period EngineFrame
 digest and a health summary, and dumps the flight recorder on an
@@ -35,6 +38,7 @@ from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import dense, ring, rumor
 from swim_tpu_torch.obs.health import HealthMonitor
 from swim_tpu_torch.obs.recorder import FlightRecorder
+from swim_tpu_torch.parallel import mesh as pmesh
 from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.utils import metrics, threefry
 
@@ -52,14 +56,15 @@ def pick_engine(n: int, engine: str = "auto") -> str:
     return "dense" if n <= DENSE_MAX else "rumor"
 
 
-ENGINES = ("dense", "rumor", "ring")
+ENGINES = ("dense", "rumor", "ring", "ringshard")
+RING_ENGINES = ("ring", "ringshard")
 
 
 def _require_ported(engine: str) -> None:
-    if engine in ("shard", "ringshard"):
+    if engine == "shard":
         raise NotImplementedError(
-            f"study engine '{engine}' is not ported (ROADMAP.md Queue 1: "
-            "sharding)")
+            "study engine 'shard' (the exchange-sharded rumor engine) is "
+            "not ported (ROADMAP.md Queue 1, item 1)")
     if engine not in ENGINES:
         raise ValueError(f"unknown study engine '{engine}'")
 
@@ -67,10 +72,22 @@ def _require_ported(engine: str) -> None:
 def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
                engine: str, dev, stream: bool = False, ckpt=None,
                chunk: int = 0):
-    if stream and engine != "ring":
+    if stream and engine not in RING_ENGINES:
         raise ValueError(
             f"streaming studies cover the ring engines only, not "
             f"'{engine}'")
+    if engine == "ringshard":
+        from swim_tpu_torch.parallel import ring_shard
+
+        _, state, plan, step_fn = ring_shard.start(cfg, plan, dev)
+        if stream:
+            res = runner.run_study_ring_stream(cfg, state, plan, key,
+                                               periods, step_fn,
+                                               chunk=chunk, ckpt=ckpt)
+        else:
+            res = runner.run_study_ring(cfg, state, plan, key, periods,
+                                        step_fn)
+        return res._replace(state=pmesh.assemble(res.state))
     if engine == "dense":
         return runner.run_study(cfg, dense.init_state(cfg, dev), plan, key,
                                 periods)
@@ -151,7 +168,7 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     engine = pick_engine(n, engine)
     _require_ported(engine)
     dev = devmod.resolve(device)
-    if engine == "ring":
+    if engine in RING_ENGINES:
         cfg_kw.setdefault("ring_probe", "pull")
     cfg = SwimConfig(n_nodes=n, **cfg_kw)
     # stream="auto": the ring engine's O(crashes) runner from
@@ -160,8 +177,8 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     if isinstance(stream, bool):
         do_stream = stream
     else:
-        do_stream = engine == "ring" and (n >= STREAM_AUTO_NODES
-                                          or checkpoint_dir is not None)
+        do_stream = engine in RING_ENGINES and (
+            n >= STREAM_AUTO_NODES or checkpoint_dir is not None)
     ckpt = None
     if checkpoint_dir is not None:
         if not do_stream:
@@ -175,7 +192,7 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
     out = {"study": "detection", "n": n, "periods": periods,
            "engine": engine, "crash_fraction": crash_fraction,
            "suspicion_periods": cfg.suspicion_periods}
-    if engine == "ring":
+    if engine in RING_ENGINES:
         out["ring_probe"] = cfg.ring_probe
         out["stream"] = bool(do_stream)
     out.update(runner.detection_summary(res, plan, periods))
@@ -198,7 +215,8 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
             # the probe regime of the law check: only the ring engine
             # can deviate (rotor, R1); dense and rumor probe uniformly
             study = {"n": n, "periods": periods, "engine": engine,
-                     "probe": cfg.ring_probe if engine == "ring" else "pull",
+                     "probe": (cfg.ring_probe if engine in RING_ENGINES
+                               else "pull"),
                      "crash_step": crash.tolist(),
                      "false_dead_views_final": int(np.asarray(
                          false_dead)[-1])}
@@ -289,7 +307,7 @@ def lifeguard_ablation(n: int = 1_000_000, crash_fraction: float = 0.001,
     dev = devmod.resolve(device)
     arm_defs = [("vanilla", False, {}), ("lifeguard", True, {})]
     if budget_arms:
-        if engine != "ring":
+        if engine not in RING_ENGINES:
             raise ValueError("budget_arms sweeps ring_orig_words — ring "
                              "engines only")
         arm_defs += [("vanilla_ob8", False, {"ring_orig_words": 8}),

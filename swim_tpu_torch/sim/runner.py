@@ -15,7 +15,11 @@ directly), `run_study_rumor` (rumor: per-rumor counts of live knowers,
 `run_study_ring_stream` (ring: the census `ring.live_knower_counts`).
 The streaming ring runner keeps the compact track, runs in chunks of
 periods and can checkpoint between chunks (`StudyCheckpointer`) and
-resume bitwise.  The per-period values stay on the device and are
+resume bitwise.  The ring runners also step a placed state (the sharded
+engine, parallel/ring_shard.py) through its `mapped_step` as `step_fn`:
+the census then reads the state assembled from its shards
+(`_census_state`, the one copy a period, inside the period's time), and
+the result holds the placed state.  The per-period values stay on the device and are
 stacked at the end (a chunk's end for the stream): no host sync inside
 a period.  Counts are int32 with int32 wrap, as the reference's (the
 sums are taken in int64 and cut to 32 bits).
@@ -42,6 +46,7 @@ from swim_tpu_torch.obs import analyze
 from swim_tpu_torch.obs.engine import (concat_frames, frame_from_tap,
                                        stack_frames)
 from swim_tpu_torch.ops import lattice, u32
+from swim_tpu_torch.parallel import mesh as pmesh
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import checkpoint, prng
@@ -160,9 +165,16 @@ def _max_incarnation(st) -> torch.Tensor:
     return u32.flip(u32.flip(inc).max())
 
 
+def _census_state(state) -> ring.RingState:
+    """The whole state the census reads: a placed state assembled from
+    its shards (one copy of it), any other state as it is."""
+    return pmesh.assemble(state)
+
+
 def _census(cfg: SwimConfig, st: ring.RingState, base: FaultPlan):
     """What every study body reads after a step: (t, crashed, up,
-    knowers, gone_not_alive, gone_dead) of the period just run."""
+    knowers, gone_not_alive, gone_dead) of the period just run.  `st`
+    and `base` are whole (_census_state)."""
     t, crashed, up = _observers(st, base)
     knowers = ring.live_knower_counts(cfg, st, up)
     gone = st.gone_key
@@ -216,27 +228,33 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     stepper = make_stepper(cfg, plan, ring.step, step_fn)
     n = cfg.n_nodes
     dev = state.win.device
-    base = faults.base_of(plan)
+    base = pmesh.assemble(faults.base_of(plan))
     track = _new_track(n, dev)
     rows, frames = [], []
-    for rnd in ring.period_randomness(cfg, root_key, int(state.step),
+    for rnd in ring.period_randomness(cfg, root_key, _step_of(state),
                                       periods, dev):
         state, frame = stepper(state, rnd)
         frames.append(frame)
-        t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, state,
+        whole = _census_state(state)
+        t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, whole,
                                                                base)
         not_alive, dead_seen, dead_all, counts = _subject_flags(
-            n, state.subject, state.rkey, knowers, up, gone_na, gone_dead)
+            n, whole.subject, whole.rkey, knowers, up, gone_na, gone_dead)
         track = StudyTrack(
             first_suspect=_first(track.first_suspect, not_alive, crashed, t),
             first_dead_view=_first(track.first_dead_view, dead_seen,
                                    crashed, t),
             disseminated=_first(track.disseminated, dead_all, crashed, t))
         rows.append((counts[0], counts[1],
-                     _false_dead_views(state.subject, state.rkey, knowers,
+                     _false_dead_views(whole.subject, whole.rkey, knowers,
                                        up, gone_dead),
-                     _max_incarnation(state)))
+                     _max_incarnation(whole)))
     return RingStudyResult(state, track, _stack(rows), _frames(frames))
+
+
+def _step_of(state) -> int:
+    """The period counter of a whole or placed state, on the host."""
+    return int(pmesh.assemble(state.step))
 
 
 def _new_track(n: int, dev) -> StudyTrack:
@@ -346,7 +364,7 @@ def compact_track_init(plan, periods: int) -> CompactTrack:
     """The subjects that can crash within the study window, ascending
     (the order of study_milestones' restriction of the full track).
     Reads the crash schedule to the host once."""
-    base = faults.base_of(plan)
+    base = pmesh.assemble(faults.base_of(plan))
     dev = base.crash_step.device
     crash = base.crash_step.cpu().numpy()
     subjects = np.flatnonzero(crash < periods).astype(np.int32)
@@ -385,11 +403,12 @@ def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
                  stepper):
     """One period of a streaming study, all on the device (no host
     read): (state, track, the period's series row, its EngineFrame or
-    None)."""
+    None).  `base` is the plan's whole FaultPlan."""
     state, frame = stepper(state, rnd)
-    t, _, up, knowers, gone_na, gone_dead = _census(cfg, state, base)
+    whole = _census_state(state)
+    t, _, up, knowers, gone_na, gone_dead = _census(cfg, whole, base)
     not_alive, dead_seen, dead_all = _compact_subject_flags(
-        track.subjects, state.subject, state.rkey, knowers, up,
+        track.subjects, whole.subject, whole.rkey, knowers, up,
         gone_na, gone_dead)
     crashed = t >= track.crash_step
     track = track._replace(
@@ -397,11 +416,12 @@ def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
         first_dead_view=_first(track.first_dead_view, dead_seen,
                                crashed, t),
         disseminated=_first(track.disseminated, dead_all, crashed, t))
-    counts = _view_counts(state.subject, state.rkey, knowers, up, gone_dead)
+    counts = _view_counts(whole.subject, whole.rkey, knowers, up,
+                          gone_dead)
     return state, track, (counts[0], counts[1],
-                          _false_dead_views(state.subject, state.rkey,
+                          _false_dead_views(whole.subject, whole.rkey,
                                             knowers, up, gone_dead),
-                          _max_incarnation(state)), frame
+                          _max_incarnation(whole)), frame
 
 
 def _run_study_ring_chunk(cfg: SwimConfig, state, track: CompactTrack,
@@ -411,9 +431,9 @@ def _run_study_ring_chunk(cfg: SwimConfig, state, track: CompactTrack,
     clock is state.step, so chained chunks reproduce one long run
     bitwise."""
     dev = state.win.device
-    base = faults.base_of(plan)
+    base = pmesh.assemble(faults.base_of(plan))
     rows, frames = [], []
-    for rnd in ring.period_randomness(cfg, root_key, int(state.step),
+    for rnd in ring.period_randomness(cfg, root_key, _step_of(state),
                                       periods, dev):
         state, track, row, frame = study_period(cfg, state, track, base,
                                                 rnd, stepper)

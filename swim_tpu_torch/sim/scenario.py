@@ -20,8 +20,9 @@ same verdict.
 
 Entry points run on the CUDA card unless `device` names another.
 `engine="real"` (`replay_storm`) runs a core/cluster.py SimCluster of
-real nodes on the host; `ringshard` arms raise with the sharded engines
-(ROADMAP.md Queue 1, item 6).
+real nodes on the host; `ringshard` arms run the sharded ring engine
+(parallel/ring_shard.py), whose verdicts are the `ring` arms' but for
+the engine's name.
 """
 from __future__ import annotations
 

@@ -13,9 +13,9 @@ equal to its serial run.
   * the ring batch (Lifeguard, period scope, telemetry) equals the JAX
     `_run_study_batch` on the same programs and keys, lane by lane:
     state, track, series and frames;
-  * `shard` is refused (ValueError), as in the reference; `ringshard`
-    raises NotImplementedError naming the sharding item; a lane count
-    that differs from the key count is refused.
+  * `shard` is refused (ValueError), as in the reference; a `ringshard`
+    batch (the sharded ring engine, 8 shards) equals the ring batch lane
+    for lane; a lane count that differs from the key count is refused.
 
 The serial studies under programs are held to the JAX package by
 tests/test_torch_program.py, test_torch_dense.py and
@@ -205,9 +205,14 @@ def test_refused_engines_and_key_counts():
     with pytest.raises(ValueError, match="fault-program"):
         experiments._run_study_batch(cfg, progs, [threefry.key(0)], T,
                                      "shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sharding"):
-        experiments._run_study_batch(cfg, progs, [threefry.key(0)], T,
-                                     "ringshard", device="cpu")
+    keys = [threefry.key(0)]
+    got = experiments._run_study_batch(cfg, progs, keys, T, "ringshard",
+                                       device="cpu")
+    want = experiments._run_study_batch(cfg, progs, keys, T, "ring",
+                                        device="cpu")
+    assert len(leaves(got)) == len(leaves(want)) > 0
+    for g, w in zip(leaves(got), leaves(want)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError, match="root keys"):
         experiments._run_study_batch(cfg, progs * 2, [threefry.key(0)], T,
                                      "ring", device="cpu")

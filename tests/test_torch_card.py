@@ -37,7 +37,12 @@ conftest, which imports JAX,
     EngineBridgeServer on the card gives GOLDEN_DIGEST_BRIDGE, with the
     kernels' launches a period;
   * the phase profiler: GOLDEN_DIGEST_MARKERS on the card, and a
-    profiled run whose kernels equal their plain versions and ring.run.
+    profiled run whose kernels equal their plain versions and ring.run;
+  * the sharded ring engine (8 shards on the card) equals the
+    single-device engine and its plain versions in wave scope and on
+    the compact and packed wires, with 8x the selb and coldsel
+    launches and no wavemerge, and a sharded period makes no host sync;
+    memwall measures the sharded streaming study's peak on the card.
 """
 from __future__ import annotations
 
@@ -482,3 +487,68 @@ def test_profiled_run_and_marker_digest_on_the_card(cuda):
     for f in ring.RingState._fields:
         assert torch.equal(getattr(got.state, f), getattr(want, f)), f
         assert torch.equal(getattr(plain.state, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(ring_sel_scope="period", ring_ici_wire="compact",
+             ring_scalar_wire="packed")], ids=["wave", "compact_packed"])
+def test_ringshard_equals_one_device_on_the_card(cuda, kw):
+    """The sharded ring engine, 8 shards on the card, at 20,000 nodes for
+    4 periods: state equal to the single-device engine's and to its own
+    plain versions, selb and coldsel launched 8 times as often as on one
+    device and wavemerge never; one more sharded period makes no host
+    sync."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import ring_shard
+
+    n, periods = 20_000, 4
+    cfg = SwimConfig(n_nodes=n, **kw)
+    plan = faults.with_random_crashes(faults.none(n, cuda),
+                                      threefry.key(1), 0.01, 0, periods)
+    mesh = pmesh.make_mesh(devices=[cuda] * 8)
+
+    def launches():
+        return (selb.launches, coldsel.launches, wavemerge.launches)
+
+    def sharded(plain):
+        st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, cuda),
+                                  plan)
+        return ring_shard.build_run(cfg, mesh, periods, plain=plain)(
+            st, pl, 3), pl
+
+    before = launches()
+    want = ring.run(cfg, ring.init_state(cfg, cuda), plan, 3, periods)
+    mid = launches()
+    got, pl = sharded(False)
+    after = launches()
+    one = [b - a for a, b in zip(before, mid)]
+    assert [b - a for a, b in zip(mid, after)] == [8 * one[0], 8 * one[1], 0]
+    plain = pmesh.assemble(sharded(True)[0])
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(pmesh.assemble(got), f),
+                           getattr(want, f)), f
+        assert torch.equal(getattr(plain, f), getattr(want, f)), f
+    rnd = ring.draw_period_ring(threefry.key(3), periods, cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ring_shard.mapped_step(cfg, mesh)(got, pl, rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_ringshard_memwall_is_measured_on_the_card(cuda):
+    """memwall's ringshard row on the card (80,000 nodes, 4 periods of the
+    streaming pull study on 8 shards): a measured peak at least the
+    placed state's bytes and inside the card's memory, the state bytes
+    8 equal shards'."""
+    from swim_tpu_torch.obs import memwall
+
+    rep = memwall.study_memory_analysis(80_000, periods=4,
+                                        engine="ringshard", device=cuda)
+    assert rep["measured"] is True and rep["platform"] == "cuda"
+    assert rep["shards"] == 8
+    assert rep["shard_state_bytes"] * 8 == rep["state_bytes"]
+    assert rep["state_bytes"] <= rep["total_bytes"] <= \
+        rep["hbm_budget_bytes"]
+    assert rep["fits_budget"] is True

@@ -7,7 +7,8 @@ the same arguments: `info` (JSON), `demo` (every byte), `simulate`
 `study detection` (tiny), `scenario list` and `show`, `trend` over a
 tmp_path repo, and `observe` on a dump written by the port's flight
 recorder.  `profile` prints a well-formed report and writes its
-artifact; the sharded engines and `audit` exit 2 with their reasons;
+artifact; `shard` and `audit` exit 2 with their reasons, and
+`--engine ringshard` prints the ring engine's output;
 without a card a tensor command exits 2 naming the missing card.
 Tolerance: exact.
 """
@@ -125,11 +126,24 @@ def test_profile_prints_a_well_formed_report(capsys, tmp_path):
     ["study", "detection", "--engine", "ringshard"], ["audit"]],
     ids=["sim-ringshard", "sim-shard", "study-ringshard", "audit"])
 def test_unported_commands_exit_2(capsys, argv):
-    assert cli.main(["--device", "cpu", *argv]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1" in err
-    if argv[0] != "audit":
-        assert "item 6" in err
+    """`shard` and `audit` exit 2 naming their ROADMAP items; `ringshard`,
+    ported since, runs: its simulate and study print the ring engine's
+    JSON but for the engine's name (and simulate's timing fields)."""
+    if "ringshard" not in argv:
+        assert cli.main(["--device", "cpu", *argv]) == 2
+        err = capsys.readouterr().err
+        assert "ROADMAP.md Queue 1" in err
+        assert ("item 2" if argv[0] == "audit" else "item 1") in err
+        return
+    small = ["--nodes", "64", "--periods", "6"]
+    outs = []
+    for engine in ("ringshard", "ring"):
+        args = [a if a != "ringshard" else engine for a in argv] + small
+        assert cli.main(["--device", "cpu", *args]) == 0
+        out = json.loads(capsys.readouterr().out)
+        assert out.pop("engine") == engine
+        outs.append({k: v for k, v in out.items() if k not in TIMING})
+    assert outs[0] == outs[1]
 
 
 def test_without_a_card_the_tensor_commands_exit_nonzero(capsys):

@@ -5,8 +5,9 @@
     `swim_tpu.*` (walked with `ast`; `swim_tpu_torch` itself shares the
     first letters and is allowed);
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
-    imports the port, runs a few CPU periods of each path and engine, a
-    small streaming study, a small study with the default engine and
+    imports the port, runs a few CPU periods of each path and engine, two
+    periods of the sharded ring engine on 8 shards, a small streaming
+    study, a small study with the default engine and
     telemetry, its flight-recorder dump read back by the analyzer, a
     batch of two fault programs, a small packed scenario with its
     byte bill, two periods of an in-process serving hub with one
@@ -142,6 +143,12 @@ def test_steps_with_jax_unimportable():
         "    chunk=2)\n"
         "assert int(res.state.step) == 4\n"
         "assert res.series.dead_views.numel() == 4\n"
+        "from swim_tpu_torch.parallel import mesh as pmesh, ring_shard\n"
+        "mesh = pmesh.make_mesh(devices=['cpu'] * 8)\n"
+        "st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, 'cpu'),\n"
+        "                          plan)\n"
+        "st = ring_shard.build_run(cfg, mesh, 2)(st, pl, 0)\n"
+        "assert int(pmesh.assemble(st).step) == 2\n"
         "from swim_tpu_torch.models import dense, rumor\n"
         "for mod in (dense, rumor):\n"
         "    cfg = SwimConfig(n_nodes=64, lifeguard=True)\n"

@@ -145,8 +145,22 @@ def test_memwall_cpu_reports_tree_bytes_only():
     plan_bytes = jmemwall._tree_bytes(
         jax.eval_shape(lambda: jfaults.none(4096)))
     assert got["argument_bytes"] == got["carry_bytes"] + plan_bytes
-    with pytest.raises(NotImplementedError, match="item 6"):
-        memwall.study_memory_analysis(64, device="cpu", engine="ringshard")
+    # the sharded engine's row: 8 shards, each its S = N/8 node-axis
+    # rows and its own copy of the replicated tables
+    sh = memwall.study_memory_analysis(4096, periods=12, device="cpu",
+                                       engine="ringshard")
+    rcfg = JSwimConfig(n_nodes=4096, ring_probe="pull")
+    rsd = jax.eval_shape(lambda: jring.init_state(rcfg))
+    node = sum(jmemwall._tree_bytes(getattr(rsd, f)) for f in
+               ("win", "cold", "inc_self", "lha", "gone_key"))
+    rep = got["state_bytes"] - node
+    assert sh["shards"] == 8 and sh["measured"] is False
+    assert sh["shard_state_bytes"] == node // 8 + rep
+    assert sh["state_bytes"] == node + 8 * rep
+    assert sh["crashes"] == got["crashes"]
+    with pytest.raises(ValueError, match="stream"):
+        memwall.study_memory_analysis(64, device="cpu", engine="ringshard",
+                                      variant="stacked")
     with pytest.raises(ValueError, match="variant"):
         memwall.study_memory_analysis(64, device="cpu", variant="x")
 

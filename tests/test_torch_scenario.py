@@ -20,7 +20,8 @@ bill against `swim_tpu.obs.ici`.
     and seed), dense and study-mode specs; `run(batch=True)` gives the
     serial bytes; `replay_storm` (the real-node arm: a SimCluster of
     core/node.py nodes) gives the reference's verdict bytes and passes;
-    a `ringshard` spec raises naming the sharding item; without a card
+    a `ringshard` spec gives the `ring` spec's verdict but for the
+    engine's name, serial and batched; without a card
     the entry points given no device raise.
 
 Torch runs on one thread.  Tolerance: exact.
@@ -28,6 +29,7 @@ Torch runs on one thread.  Tolerance: exact.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -329,18 +331,28 @@ def test_verdict_bytes_match_the_reference(case, tmp_path):
 
 
 def test_replay_storm_and_ringshard_raise(tmp_path):
-    """Of the two engines that raised, `ringshard` still does (the
-    sharding item); `replay_storm` runs since the host protocol layer is
-    ported (its bytes: test_replay_storm_verdict_matches_the_reference)."""
+    """Both engines that raised run now: `replay_storm` since the host
+    protocol layer was ported (its bytes:
+    test_replay_storm_verdict_matches_the_reference), and a `ringshard`
+    spec, whose verdict, serial and batched, is the same spec's on the
+    `ring` engine but for the engine's name."""
     verdict, _ = scenario.run(scenario.get("replay-storm"),
                               out_dir=str(tmp_path), device="cpu")
     assert verdict["arms"]["real"]["engine"] == "real"
-    shard = scenario.Scenario(name="shard", n=32, periods=2,
-                              engine="ringshard", config=RING_CFG)
-    for batch in (False, True):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            scenario.run(shard, out_dir=str(tmp_path), batch=batch,
-                         device="cpu")
+    verdicts = {}
+    for engine in ("ringshard", "ring"):
+        sc = scenario.Scenario(name="shard", n=32, periods=4, engine=engine,
+                               config=RING_CFG)
+        for batch in (False, True):
+            out = tmp_path / f"{engine}_{batch}"
+            v, _ = scenario.run(sc, out_dir=str(out), batch=batch,
+                                device="cpu")
+            text = json.dumps(v, sort_keys=True, default=str).replace(
+                str(out), "OUT")
+            verdicts[engine, batch] = text.replace(f'"{engine}"', '"ENGINE"')
+    assert verdicts["ringshard", False] == verdicts["ring", False] \
+        == verdicts["ringshard", True] == verdicts["ring", True]
+    assert '"ENGINE"' in verdicts["ring", False]
 
 
 def test_replay_storm_verdict_matches_the_reference(tmp_path):

@@ -302,6 +302,49 @@ class TestGaugeSurface:
             assert name in text
 
 
+class _SlowSocket:
+    """A socket whose receives return 30 ms late."""
+
+    def __init__(self, sock):
+        self._sock = sock
+
+    def recvfrom(self, size):
+        data = self._sock.recvfrom(size)
+        time.sleep(0.03)
+        return data
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)
+
+
+class _SendLog(dict):
+    """The sampler's seq -> send-time table, keeping every send time it
+    is given in `sent`, in send order."""
+
+    def __init__(self):
+        super().__init__()
+        self.sent: list[float] = []
+
+    def __setitem__(self, seq, t):
+        self.sent.append(t)
+        super().__setitem__(seq, t)
+
+
+class _SlowFirstSocketArm(serve_load._ClientArm):
+    """A client arm whose first socket's receive thread runs slow, with
+    the send time of every echo logged as the sampler records it."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._echo_sent = _SendLog()
+        self.send_times = self._echo_sent.sent
+
+    def _recv_loop(self, sock):
+        if sock is self._socks[0]:
+            sock = _SlowSocket(sock)
+        super()._recv_loop(sock)
+
+
 class TestLoadHarnessSmoke:
     @pytest.mark.parametrize("frontend", FRONTENDS)
     def test_run_load_small(self, frontend):
@@ -318,9 +361,17 @@ class TestLoadHarnessSmoke:
 
     def test_echoes_are_sampled_while_the_engine_steps(self):
         # the port's sampler sends no echo once the engine has stopped
-        # stepping (the first always goes); unset, it sends them all
+        # stepping (the first always goes); unset, it sends them all.
+        # Each socket has its own receive thread, which appends a window
+        # when its reply arrives: the windows come in arrival order, not
+        # send order.  Here the first socket's thread is slowed, as the
+        # whole suite's load once did, so its replies land late; what
+        # the sampler guarantees is checked instead: every echo sent
+        # got one window, the windows ordered by their begin are the
+        # sends ordered by send time, each ends at or after its begin,
+        # and the RTT recorded beside it is that window's
         hub = make_hub(list(range(4)))
-        arm = serve_load._ClientArm(hub.address, 4, n_sockets=2)
+        arm = _SlowFirstSocketArm(hub.address, 4, n_sockets=2)
         try:
             stepped = threading.Event()
             stepped.set()
@@ -328,8 +379,15 @@ class TestLoadHarnessSmoke:
             assert len(arm.rtts_ms) == 1
             arm.sample_echoes(6, settle_s=5.0, stop=threading.Event())
             assert len(arm.rtts_ms) == 7
-            starts = [b for b, _ in arm.echo_windows]
-            assert starts == sorted(starts)
+            assert not arm._echo_sent          # every echo answered
+            windows = arm.echo_windows
+            assert len(windows) == len(arm.rtts_ms) == 7
+            for (begin, end), rtt in zip(windows, arm.rtts_ms):
+                assert end >= begin
+                assert rtt == (end - begin) * 1e3
+            starts = sorted(b for b, _ in windows)
+            assert len(set(starts)) == 7       # one window per send
+            assert starts == sorted(arm.send_times)
         finally:
             arm.close()
             hub.close()

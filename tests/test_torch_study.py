@@ -10,8 +10,9 @@
   * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
     two ValueError refusals of a resume;
   * `detection_study` and one point of `suspicion_sweep` give the JAX
-    package's dicts; the sharded engines raise naming their ROADMAP
-    item, and the profiling flag leaves every study as it is;
+    package's dicts; `shard` raises naming its ROADMAP item,
+    `ringshard` gives the ring engine's studies, and the profiling flag
+    leaves every study as it is;
   * the dense and rumor runners (`run_study`, `run_study_rumor`: track,
     series, final state) against the JAX runners; `pick_engine`; the
     four studies' dicts with `engine="auto"` (dense) and `"rumor"`;
@@ -219,10 +220,23 @@ def test_detection_study_and_suspicion_sweep_match_the_reference():
     (dict(engine="dense", flight_record="x.jsonl", telemetry=True,
           profiling=True), "instruments")])
 def test_studies_outside_the_port_raise(kw, match, tmp_path):
-    """The sharded engines raise naming their ROADMAP item.  The
-    profiling flag, refused until the profiler was ported, runs beside
-    telemetry and the flight recorder on every engine and gives the
-    study without it (the dump's path aside)."""
+    """The exchange-sharded rumor engine raises naming its ROADMAP item;
+    `ringshard`, refused until the sharded ring was ported, gives the
+    ring engine's studies but for the engine's name.  The profiling
+    flag, refused until the profiler was ported, runs beside telemetry
+    and the flight recorder on every engine and gives the study without
+    it (the dump's path aside)."""
+    if kw.get("engine") == "ringshard":
+        for study, args in ((experiments.detection_study,
+                             dict(n=64, periods=2)),
+                            (experiments.fp_sweep,
+                             dict(n=64, losses=(0.0,), periods=2))):
+            got = study(device="cpu", engine="ringshard", **args)
+            want = study(device="cpu", engine="ring", **args)
+            assert got.pop("engine") == "ringshard"
+            assert want.pop("engine") == "ring"
+            assert got == want
+        return
     if not kw.get("profiling"):
         with pytest.raises(NotImplementedError, match=match):
             experiments.detection_study(n=64, periods=2, device="cpu", **kw)
