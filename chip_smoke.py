@@ -185,9 +185,12 @@ Phases, each printed as one JSON line:
      period under PyTorch's sync check set to raise;
      golden.GOLDEN_DIGEST_MARKERS on the card; `profile_ring` at 1M in
      period scope and in the default wave scope with a device trace:
-     per-phase ms, step ms, coverage (95-105%: at least 100% by
+     per-phase ms, step ms, its wall coverage, the roofline band, the
+     top kernels; the same attribution by device time, each prefix and
+     the step traced with torch.profiler: per-phase device ms and the
+     device-time coverage, which must lie in 95-105% (at least 100% by
      construction, the excess is what the clamp of negative prefix
-     differences dropped), the roofline band, the top kernels; then 2
+     differences dropped); then 2
      traced periods of each scope whose trace holds each kernel as
      often as its wrapper launched it, under its phase; marker mode on
      against off, wall ms a period in 3 alternating pairs (printed, not
@@ -218,6 +221,22 @@ Phases, each printed as one JSON line:
      `ring` engine's; the wall and busy ms a period, idle share and
      kernels a period of the sharded wave-scope period beside the
      single-device one in the same call.
+ 17. shard: the exchange-sharded rumor engine (parallel/shard_engine.py)
+     with D = 8 shards on the one card, 1,000,000 nodes (R = 4,096), 0.1%
+     crashing, loss 0.1.  3 periods against `rumor.step` on one device,
+     all 12 fields equal every period, and one more sharded period under
+     PyTorch's sync check set to raise; `exchange_slack=1` without loss:
+     period 0's overflow exceeds the lossless engine's by exactly the
+     acks over their W2 slots, and after 3 periods every field is in
+     its range; golden.ENGINE_DIGESTS["rumor"] and ["rumor_lifeguard"]
+     by the sharded engine; `fp_sweep(n=100_000, periods=20)` on
+     `shard` equal to `rumor` but for the engine's name, with wall ms a
+     study period of each; the peak memory of a 1M study period whose
+     census sums the shards' counts against one that assembles the
+     state; 5 periods at 1M after warm-up, sharded and on one device,
+     each with only its own state on the card: wall, busy, idle share,
+     kernels a period, peak memory.  The port's kernels launch 0 times
+     in the phase (`launches_shard`).
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -253,7 +272,7 @@ from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
 from swim_tpu_torch.parallel import mesh as pmesh
-from swim_tpu_torch.parallel import ring_shard
+from swim_tpu_torch.parallel import ring_shard, shard_engine
 from swim_tpu_torch.sim import (experiments, faults, runner, scenario,
                                 search)
 from swim_tpu_torch.types import MsgKind, Status
@@ -2237,11 +2256,13 @@ def profiled_parity(cfg, card: str) -> dict:
 
 
 TRACE_PERIODS = 2
-# interleaved rounds of every prefix and the step: the best of 20 left
-# the host-paced step and its last prefix up to 15% apart now and then
-# (coverage above 105%, with or without the sharded engine's changes);
-# the best of 60 kept 12 readings in fresh processes inside 95-105%
+# interleaved rounds of every prefix and the step for profile_ring's wall
+# attribution (printed, not checked: the host-paced step and its last
+# prefix drift up to 17% apart, at 20 rounds and at 60)
 PROFILE_REPS = 60
+# calls of every prefix and of the step under one trace each, for the
+# device-time attribution that the coverage check reads
+DEVICE_REPS = 5
 KERNEL_PHASES = {"selb_kernel": "select", "wavemerge_kernel": "merge",
                  "coldsel_kernel": "commit"}
 
@@ -2281,30 +2302,94 @@ def traced_launches(cfg, name: str) -> dict:
     return found
 
 
+def device_attribution(cfg) -> dict:
+    """profile_ring's phase attribution by device time: the prefixes and
+    the full step of profile_ring's settled 1M period (its plan, settle
+    and seed), each called DEVICE_REPS times under one torch.profiler
+    trace, every call with its own copy of `cold` made before the
+    trace.  A phase takes the device ms of its prefix less the prefix
+    before (clamped at 0), telemetry_tap the rest of the full step.
+    Device time does not wait for the host, so the prefixes order as
+    their kernels do; coverage is 100% plus what the clamp dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from swim_tpu_torch.obs.engine import frame_from_tap
+
+    settle, reps = 2, DEVICE_REPS
+    plan = faults.with_random_crashes(faults.none(cfg.n_nodes, "cuda"),
+                                      threefry.key(1), CRASH_FRACTION, 0,
+                                      settle)
+    state = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, settle)
+    rnds = [ring.draw_period_ring(threefry.key(0), 1_000 + i, cfg, "cuda")
+            for i in range(reps)]
+    active = prof.phases_for(cfg)
+
+    def prefix(phase):
+        return lambda st, rnd: ring.step(cfg, st, plan, rnd, tap={},
+                                         prof=prof.PhaseProbe(until=phase))
+
+    def full(st, rnd):
+        tap: dict = {}
+        st = ring.step(cfg, st, plan, rnd, tap=tap)
+        return st, frame_from_tap(tap, st.win.device)
+
+    fns = {p: prefix(p) for p in active if p != "telemetry_tap"}
+    fns["full"] = full
+    dev_ms = {}
+    for name, fn in fns.items():
+        fn(state._replace(cold=state.cold.clone()), rnds[0])    # warm-up
+        colds = [state.cold.clone() for _ in range(reps)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            for cold, rnd in zip(colds, rnds):
+                fn(state._replace(cold=cold), rnd)
+            torch.cuda.synchronize()
+        dev_ms[name] = busy_ms(pr)[0] / reps
+        del colds
+    phases, prev = {}, 0.0
+    for phase in active:
+        if phase == "telemetry_tap":
+            phases[phase] = max(dev_ms["full"] - prev, 0.0)
+        else:
+            phases[phase] = max(dev_ms[phase] - prev, 0.0)
+            prev = dev_ms[phase]
+    return {"step_device_ms": dev_ms["full"], "prefix_device_ms": dev_ms,
+            "phases": phases, "coverage_pct":
+            sum(phases.values()) / dev_ms["full"] * 100.0}
+
+
 def profile_report(cfg, name: str, card: str) -> dict:
     """profile_ring at 1M with a device trace: per-phase ms, step ms,
-    coverage, the roofline band and the top kernels; then a traced run
-    whose kernel events match the wrappers' launch counts.
+    its wall coverage, the roofline band and the top kernels; the same
+    attribution by device time (`device_attribution`), whose coverage
+    must lie in 95-105%; then a traced run whose kernel events match
+    the wrappers' launch counts.
 
-    Coverage is at least 100% by construction: profile_ring clamps each
-    prefix difference at 0 and adds the rest of the full step as the
-    telemetry term, so what it reads above 100% is the time the clamp
-    dropped, where a prefix ran slower than a longer one.  Above 105%
-    the prefix times do not order within 5% of the step and the
-    attribution is noise: that fails."""
+    Both coverages are at least 100% by construction (each prefix
+    difference is clamped at 0 and the telemetry term takes the rest of
+    the full step); what they read above 100% is what the clamp dropped,
+    where a prefix ran longer than a longer one.  The wall coverage of
+    the host-paced step is printed: prefix walls spread by up to 15%
+    between rounds.  Device times order as the prefixes' kernels do, so
+    above 105% the attribution is wrong: that fails."""
     import tempfile
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tdir:
         rep = prof.profile_ring(cfg, reps=PROFILE_REPS, trace_dir=tdir,
                                 top_k=8)
-    if not 95.0 <= rep["coverage_pct"] <= 105.0:
-        raise AssertionError(f"instruments: {name} coverage "
-                             f"{rep['coverage_pct']}% outside 95-105%")
+    dev = device_attribution(cfg)
+    if not 95.0 <= dev["coverage_pct"] <= 105.0:
+        raise AssertionError(f"instruments: {name} device-time coverage "
+                             f"{dev['coverage_pct']}% outside 95-105%")
     found = traced_launches(cfg, name)
     emit(phase="instruments", part="profile", config=name,
          n_nodes=cfg.n_nodes, step_ms=rep["step_ms"], pps=rep["pps"],
          coverage_pct=rep["coverage_pct"],
+         device_coverage_pct=dev["coverage_pct"],
+         step_device_ms=dev["step_device_ms"],
+         device_phases=dev["phases"],
+         prefix_device_ms=dev["prefix_device_ms"],
          phases={r["phase"]: r["ms"] for r in rep["phases"]},
          roofline=rep["roofline"], kernels_in_trace=found,
          trace_periods=TRACE_PERIODS,
@@ -2809,6 +2894,272 @@ def ringshard_phase(rows: dict, card: str) -> dict:
     return launches["wave"]
 
 
+# ------------------------------------------------------- phase 17: shard
+
+SHARD_LOSS = 0.1
+SHARD_FP_N = 100_000
+SHARD_FP_PERIODS = 20
+
+
+def shard_cfg_plan(loss: float):
+    """The default SwimConfig at N, 0.1% crashing in the first
+    PARITY_PERIODS periods, under `loss`."""
+    cfg = SwimConfig(n_nodes=N)
+    return cfg, faults.with_loss(crash_plan(cfg, PARITY_PERIODS), loss)
+
+
+def placed_equal(what: str, placed, whole) -> int:
+    """Every field of a placed RumorState, block by block, equal to the
+    matching rows of a single-device state (no assembled copy)."""
+    for f in rumor.RumorState._fields:
+        leaf, want = getattr(placed, f), getattr(whole, f)
+        s = want.shape[0] // len(leaf.blocks) if leaf.axis == 0 else 0
+        for i, b in enumerate(leaf.blocks):
+            w = want if leaf.axis is None else want[i * s:(i + 1) * s]
+            if not torch.equal(b, w):
+                raise AssertionError(f"{what}: {f} differs on shard {i}")
+    return len(rumor.RumorState._fields)
+
+
+def shard_rumor_parity() -> None:
+    """PARITY_PERIODS periods at N on D shards against rumor.step on one
+    device: all 12 fields equal every period; then one more sharded
+    period under PyTorch's sync check set to raise."""
+    t0 = time.perf_counter()
+    cfg, plan = shard_cfg_plan(SHARD_LOSS)
+    _, st, pl, step = shard_engine.start(cfg, plan, "cuda")
+    single = rumor.init_state(cfg, "cuda")
+    key = threefry.key(0)
+    for t in range(PARITY_PERIODS):
+        rnd = rumor.draw_period_rumor(key, t, cfg, "cuda")
+        st = step(st, pl, rnd)
+        single = rumor.step(cfg, single, plan, rnd)
+        fields = placed_equal(f"shard period {t}", st, single)
+    used = single.subject >= 0
+    stats = dict(rumors=int(used.sum()),
+                 suspects=int((used & lattice.is_suspect(single.rkey)).sum()),
+                 overflow=int(single.overflow))
+    del single
+    rnd = rumor.draw_period_rumor(key, PARITY_PERIODS, cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(st, pl, rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit(phase="shard", part="parity", n_nodes=N, shards=SHARDS,
+         periods=PARITY_PERIODS, loss=SHARD_LOSS, fields_equal=fields,
+         no_sync_period=True, **stats, seconds=time.perf_counter() - t0)
+
+
+def w2_excess(plan, rnd, n_loc: int) -> int:
+    """The acks of period 0 that exchange_slack=1 cannot carry: the pings
+    delivered to each shard's rows beyond its n_loc W2 slots (uniform
+    targets; at period 0 no node believes another dead)."""
+    ids = torch.arange(N, dtype=torch.int32, device="cuda")
+    idx = (rnd.base.target_u * float(N - 1)).to(torch.int32).clamp(max=N - 2)
+    tgt = idx + (idx >= ids).to(torch.int32)
+    up = plan.crash_step > 0
+    ok = up & up[tgt.long()] & (rnd.base.loss_w1 >= plan.loss)
+    per = torch.bincount((tgt[ok] // n_loc).long(), minlength=SHARDS)
+    return int((per - n_loc).clamp(min=0).sum())
+
+
+def shard_overflow() -> None:
+    """exchange_slack=1 at N without loss (at loss 0.1 the acks stay
+    under their slots): period 0 from the same state as the lossless
+    engine, whose overflow it exceeds by exactly the acks its W2 blocks
+    cannot hold; then PARITY_PERIODS - 1 more periods, every field in
+    its range."""
+    t0 = time.perf_counter()
+    cfg, plan = shard_cfg_plan(0.0)
+    mesh, st0, pl, lossless = shard_engine.start(cfg, plan, "cuda")
+    tight = shard_engine.build_step(cfg, mesh, exchange_slack=1)
+    key = threefry.key(0)
+    rnd = rumor.draw_period_rumor(key, 0, cfg, "cuda")
+    base = int(lossless(st0, pl, rnd).overflow.blocks[0])
+    st = tight(st0, pl, rnd)
+    del st0
+    dropped = int(st.overflow.blocks[0]) - base
+    want = w2_excess(plan, rnd, N // SHARDS)
+    if want == 0 or dropped != want:
+        raise AssertionError(f"shard slack 1: overflow grew by {dropped}, "
+                             f"{want} acks over their slots")
+    for t in range(1, PARITY_PERIODS):
+        st = tight(st, pl, rumor.draw_period_rumor(key, t, cfg, "cuda"))
+    w = pmesh.assemble(st._replace(knows=None))
+    t = PARITY_PERIODS
+    used = w.subject >= 0
+    bad = {
+        "subject": bool(((w.subject < -1) | (w.subject >= N)).any()),
+        "sent_node": bool(((w.sent_node < -1) | (w.sent_node >= N)).any()),
+        "birth": bool((used & ((w.birth < 0) | (w.birth >= t))).any()),
+        "sent_time": bool(((w.sent_node >= 0) & ((w.sent_time < 0)
+                                                 | (w.sent_time >= t)))
+                          .any()),
+        "lha": bool(((w.lha < 0) | (w.lha > cfg.lha_max)).any()),
+        "inc_self": bool(u32.ugt(w.inc_self, t).any()),
+        "rkey": bool((used & (lattice.incarnation_of(w.rkey) > t)).any()),
+        "step": int(w.step) != t, "overflow": int(w.overflow) <= base}
+    if any(bad.values()):
+        raise AssertionError(f"shard slack 1: fields out of range {bad}")
+    emit(phase="shard", part="overflow", n_nodes=N, shards=SHARDS,
+         exchange_slack=1, loss=0.0, periods=t, w2_acks_dropped=dropped,
+         overflow_lossless_period0=base, overflow=int(w.overflow),
+         fields_in_range=len(bad), seconds=time.perf_counter() - t0)
+
+
+def shard_rumor_golden() -> None:
+    t0 = time.perf_counter()
+    for name in ("rumor", "rumor_lifeguard"):
+        got = golden.digest(golden.engine_run("cuda", name, sharded=True))
+        if got != golden.ENGINE_DIGESTS[name]:
+            raise AssertionError(f"shard golden '{name}' {got} != "
+                                 f"{golden.ENGINE_DIGESTS[name]}")
+    emit(phase="shard", part="golden", shards=SHARDS,
+         digests=["rumor", "rumor_lifeguard"],
+         seconds=time.perf_counter() - t0)
+
+
+def shard_fp_study(card: str) -> None:
+    """fp_sweep at SHARD_FP_N nodes on `shard` and on `rumor`: equal but
+    for the engine's name; wall ms per study period of each."""
+    kw = dict(n=SHARD_FP_N, periods=SHARD_FP_PERIODS, device="cuda")
+    out, wall = {}, {}
+    for engine in ("rumor", "shard"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[engine] = experiments.fp_sweep(engine=engine, **kw)
+        torch.cuda.synchronize()
+        wall[engine] = time.perf_counter() - t0
+    if out["shard"].pop("engine") != "shard" or out["shard"] != \
+            {k: v for k, v in out["rumor"].items() if k != "engine"}:
+        raise AssertionError(f"shard fp_sweep {out['shard']} != rumor "
+                             f"{out['rumor']}")
+    periods = SHARD_FP_PERIODS * len(out["rumor"]["points"])
+    emit(phase="shard", part="study", study="fp_sweep", n_nodes=SHARD_FP_N,
+         study_periods=periods, equal_to_rumor=True,
+         wall_ms_per_study_period={e: w * 1e3 / periods
+                                   for e, w in wall.items()},
+         points=out["rumor"]["points"], card=card)
+
+
+def shard_census_peaks() -> dict:
+    """The peak memory of one 1M sharded study period whose census sums
+    each shard's knower counts (runner's) and of the same period whose
+    census reads the assembled state, from one warm placed state."""
+    cfg, plan = shard_cfg_plan(SHARD_LOSS)
+    _, st, pl, step = shard_engine.start(cfg, plan, "cuda")
+    key = threefry.key(0)
+    res = runner.run_study_rumor(cfg, st, pl, key, 1, step)
+    base = faults.base_of(plan)
+    rnd = rumor.draw_period_rumor(key, 1, cfg, "cuda")
+    steppers = {
+        "per_shard": runner.make_stepper(cfg, pl, rumor.step, step),
+        "assembled": lambda s, r: (pmesh.assemble(step(s, pl, r)), None)}
+    peaks, rows = {}, {}
+    for name, stepper in steppers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, _, row, _ = runner.rumor_study_period(cfg, res.state, res.track,
+                                                 base, rnd, stepper)
+        torch.cuda.synchronize()
+        rows[name] = [int(x) for x in row]
+        peaks[name] = torch.cuda.max_memory_allocated() - before
+    if rows["per_shard"] != rows["assembled"]:
+        raise AssertionError(f"shard census rows differ {rows}")
+    return peaks
+
+
+def shard_rumor_timing(card: str) -> dict:
+    """SHARD_TIMED_PERIODS periods at N after one warm-up period: the
+    sharded engine and rumor.run on one device, each with only its own
+    state on the card: wall, device busy (torch.profiler), idle share,
+    kernels a period, peak memory; the port's kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, plan = shard_cfg_plan(SHARD_LOSS)
+    key = threefry.key(0)
+
+    def one_device():
+        st = rumor.run(cfg, rumor.init_state(cfg, "cuda"), plan, 0, 1)
+        return lambda: rumor.run(cfg, st, plan, 0, SHARD_TIMED_PERIODS)
+
+    def sharded():
+        mesh, st, pl, _ = shard_engine.start(cfg, plan, "cuda")
+        st = shard_engine.build_run(cfg, mesh, 1)(st, pl, key)
+        run = shard_engine.build_run(cfg, mesh, SHARD_TIMED_PERIODS)
+        return lambda: run(st, pl, key)
+
+    out = {}
+    for name, make in (("one_device", one_device), ("shard", sharded)):
+        fn = make()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / SHARD_TIMED_PERIODS
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            fn()
+            torch.cuda.synchronize()
+        busy, count = busy_ms(pr)
+        busy /= SHARD_TIMED_PERIODS
+        out[name] = dict(wall_ms=wall, busy_ms=busy,
+                         idle_share=1.0 - busy / wall,
+                         kernels_per_period=count / SHARD_TIMED_PERIODS,
+                         peak_bytes=peak, allocated_before=before,
+                         launches=launches,
+                         top_ops=top_device_ops(pr, SHARD_TIMED_PERIODS))
+        del fn
+    return out
+
+
+def top_device_ops(pr, periods: int, k: int = 8) -> list:
+    """The k device activities of a profile with the most time: (name,
+    ms a period, calls a period)."""
+    ms, calls = {}, {}
+    cuda_type = torch.autograd.DeviceType.CUDA
+    for e in pr.profiler.kineto_results.events():
+        if e.device_type() == cuda_type:
+            name = e.name()[:60]
+            ms[name] = ms.get(name, 0.0) + e.duration_ns() / 1e6
+            calls[name] = calls.get(name, 0) + 1
+    top = sorted(ms, key=ms.get, reverse=True)[:k]
+    return [(nm, ms[nm] / periods, calls[nm] / periods) for nm in top]
+
+
+def shard_phase(card: str) -> dict:
+    """Phase 17: the exchange-sharded rumor engine at N on D shards;
+    returns the port's kernel launches over the phase (none)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    shard_rumor_parity()
+    shard_overflow()
+    shard_rumor_golden()
+    shard_fp_study(card)
+    peaks = shard_census_peaks()
+    timing = shard_rumor_timing(card)
+    emit(phase="shard", part="timing", n_nodes=N, shards=SHARDS,
+         periods=SHARD_TIMED_PERIODS, loss=SHARD_LOSS, **timing,
+         census_peak_bytes=peaks, card=card)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"shard: the port's kernels launched "
+                             f"{launches}")
+    emit(phase="shard", part="done", launches=launches,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -2843,6 +3194,7 @@ def main() -> None:
     launches.update(bridge_phase(card))
     launches["instruments"] = instruments_phase(card)
     launches["ringshard"] = ringshard_phase(rows, card)
+    launches["shard"] = shard_phase(card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -2872,6 +3224,7 @@ def main() -> None:
             launches_bridge_golden=launches["bridge_golden"][name],
             launches_instruments=launches["instruments"][name],
             launches_ringshard=launches["ringshard"][name],
+            launches_shard=launches["shard"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -20,11 +20,11 @@ Subcommands, with the reference's flags and JSON keys:
 The tensor commands run on the CUDA card unless `--device cpu` names
 the CPU (swim_tpu_torch/device.py); with no card they exit 2 and say
 so.  `--engine ringshard` runs the sharded ring engine
-(parallel/ring_shard.py: 8 shards on the one device); `--engine shard`
-exits 2: the exchange-sharded rumor engine is queued (ROADMAP.md Queue
-1, item 1).  `audit` exits 2: the reference audits its jaxprs and
-compiled HLO, and the port's contract families are queued (ROADMAP.md
-Queue 1, item 2).
+(parallel/ring_shard.py) and `--engine shard` the exchange-sharded
+rumor engine (parallel/shard_engine.py), each on 8 shards of the one
+device.  `audit` exits 2: the reference audits its jaxprs and compiled
+HLO, and the port's contract families are queued (ROADMAP.md Queue 1,
+item 2).
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ import os
 import sys
 
 ENGINES = ("auto", "dense", "rumor", "shard", "ring", "ringshard")
-
-SHARDED_MSG = ("error: the exchange-sharded rumor engine ('shard') is not "
-               "ported yet (ROADMAP.md Queue 1, item 1); 'ringshard' "
-               "runs")
 
 
 class _NoDevice(Exception):
@@ -55,14 +51,6 @@ def _device(args: argparse.Namespace):
             "error: no CUDA card: PyTorch sees none, and the tensor "
             "commands run on the card unless --device cpu names the CPU"
         ) from e
-
-
-def _sharded(engine: str) -> bool:
-    """True (after printing the error) for the unported 'shard'."""
-    if engine == "shard":
-        print(SHARDED_MSG, file=sys.stderr)
-        return True
-    return False
 
 
 def _cmd_info(args: argparse.Namespace) -> int:
@@ -155,7 +143,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
     from swim_tpu_torch.utils import profiling, threefry
 
     engine = experiments.pick_engine(args.nodes, args.engine)
-    if _sharded(engine) or _reject_sel_scope(engine, args.sel_scope):
+    if _reject_sel_scope(engine, args.sel_scope):
         return 2
     dev = _device(args)
     cfg = SwimConfig(n_nodes=args.nodes, suspicion_mult=args.suspicion_mult,
@@ -168,12 +156,15 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         plan = faults.with_random_crashes(
             plan, threefry.key(args.seed + 1), args.crash_fraction,
             0, max(1, args.periods // 2))
-    if engine == "ringshard":
+    if engine in ("shard", "ringshard"):
         from swim_tpu_torch.parallel import mesh as pmesh
-        from swim_tpu_torch.parallel import ring_shard
 
-        mesh, state, placed_plan, _ = ring_shard.start(cfg, plan, dev)
-        run_fn = ring_shard.build_run(cfg, mesh, args.periods)
+        if engine == "shard":
+            from swim_tpu_torch.parallel import shard_engine as par_mod
+        else:
+            from swim_tpu_torch.parallel import ring_shard as par_mod
+        mesh, state, placed_plan, _ = par_mod.start(cfg, plan, dev)
+        run_fn = par_mod.build_run(cfg, mesh, args.periods)
 
         def do_run(st):
             return pmesh.assemble(run_fn(st, placed_plan,
@@ -234,8 +225,6 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
 def _cmd_study(args: argparse.Namespace) -> int:
     from swim_tpu_torch.sim import experiments
 
-    if _sharded(args.engine):
-        return 2
     if args.mem_report:
         if args.study != "detection":
             print("error: --mem-report is a detection-study option",

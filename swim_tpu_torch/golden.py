@@ -30,7 +30,8 @@ ENGINE_DIGESTS holds the digest after `engine_run(device, name)` for
 the dense and rumor engines (40 periods, loss 0.05, crashes at a few
 nodes, seed 0): `dense` (N = 256), `rumor` (N = 4096) and
 `rumor_lifeguard` (N = 4096, Lifeguard with buddy and dynamic
-suspicion).
+suspicion); the exchange-sharded engine gives the rumor digests
+(`engine_run(device, name, sharded=True)`).
 
 GOLDEN_DIGEST_SERVE is serve/load.py's `state_digest` after
 `drive_serve` on a serving hub (serve/hub.py) of SERVE_N = 4096 nodes
@@ -234,13 +235,22 @@ def engine_config(name: str) -> SwimConfig:
                       lifeguard=name == "rumor_lifeguard")
 
 
-def engine_run(device=None, name: str = "dense"):
-    """The fixed run whose digest is ENGINE_DIGESTS[name], on `device`."""
+def engine_run(device=None, name: str = "dense", sharded: bool = False):
+    """The fixed run whose digest is ENGINE_DIGESTS[name], on `device`.
+    `sharded` runs a rumor name on the exchange-sharded engine (the
+    default mesh of `device`) and returns the assembled state."""
     cfg = engine_config(name)
     nodes, at = ENGINE_CRASHES[name]
     plan = faults.with_loss(
         faults.with_crashes(faults.none(cfg.n_nodes, device), nodes, at),
         ENGINE_LOSS)
+    if sharded:
+        from swim_tpu_torch.parallel import mesh as pmesh
+        from swim_tpu_torch.parallel import shard_engine
+
+        mesh, state, plan, _ = shard_engine.start(cfg, plan, device)
+        return pmesh.assemble(shard_engine.build_run(
+            cfg, mesh, GOLDEN_PERIODS)(state, plan, GOLDEN_SEED))
     mod = dense if name == "dense" else rumor
     return mod.run(cfg, mod.init_state(cfg, device), plan, GOLDEN_SEED,
                    GOLDEN_PERIODS)

@@ -278,6 +278,201 @@ def _select_first_b(kn: torch.Tensor, cand_idx: torch.Tensor, b: int):
     return cand_idx[wpos.to(I64)], val
 
 
+class Table(NamedTuple):
+    """The rumor table after Phase 0's retirement, with what the later
+    phases read of it (the period's incoming keys are state.rkey)."""
+
+    subject: torch.Tensor     # i32[R]  -1 = free, after retirement
+    gone_key: torch.Tensor    # u32[N]  tombstones, after retirement
+    used: torch.Tensor        # bool[R] subject >= 0
+    age: torch.Tensor         # i32[R]  periods since birth
+    is_susp_r: torch.Tensor   # bool[R]
+    is_dead_r: torch.Tensor   # bool[R]
+    same_subj: torch.Tensor   # bool[R, R] incoming subjects equal
+
+
+def _retire(cfg: SwimConfig, state: RumorState, t, knowers: torch.Tensor,
+            live_total: torch.Tensor) -> Table:
+    """Phase 0: retire stale rumors, DEAD ones into `gone_key` once all
+    `live_total` live nodes heard them (`knowers`: live knowers per
+    rumor)."""
+    used = state.subject >= 0
+    age = t - state.birth
+    pend_horizon = (cfg.suspicion_max_periods
+                    if cfg.lifeguard and cfg.dynamic_suspicion
+                    else cfg.suspicion_periods) + 2
+    rkey = state.rkey
+    is_susp_r = lattice.is_suspect(rkey)
+    is_dead_r = lattice.is_dead(rkey)
+    gone_at_subj = state.gone_key[state.subject.clamp(min=0).to(I64)]
+    same_subj = state.subject[:, None] == state.subject[None, :]
+    glob_refuted = ((same_subj & used[None, :]
+                     & u32.ugt(rkey[None, :], rkey[:, None])).any(dim=-1)
+                    | u32.ugt(gone_at_subj, rkey))
+    pending = (is_susp_r & ~state.confirmed & ~glob_refuted
+               & (age < pend_horizon))
+    disseminated = knowers >= live_total
+    retire_dead = used & is_dead_r & disseminated
+    gone_key = scatter.scatter_max(
+        state.gone_key, torch.where(retire_dead, state.subject,
+                                    cfg.n_nodes), rkey, unsigned=True)
+    keep = used & torch.where(is_dead_r, ~disseminated,
+                              (age < cfg.gossip_window) | pending)
+    subject = torch.where(keep, state.subject, -1)
+    return Table(subject, gone_key, subject >= 0, age, is_susp_r, is_dead_r,
+                 same_subj)
+
+
+def _candidates(cfg: SwimConfig, tb: Table, rr: torch.Tensor):
+    """Phase B, the global piggyback candidates (deviation 1):
+    (eligible bool[R], cand_idx i32[W], cand_valid bool[W]), youngest
+    first, ties by slot; ineligible slots by slot after them."""
+    eligible = tb.used & (tb.age >= 0) & (tb.age < cfg.gossip_window)
+    score = torch.where(eligible, tb.age * cfg.rumor_slots + rr, BIG + rr)
+    cand_idx = torch.topk(score, _pig_window(cfg), largest=False,
+                          sorted=True).indices.to(I32)
+    return eligible, cand_idx, eligible[cand_idx.to(I64)]
+
+
+def _deadlines(cfg: SwimConfig, state: RumorState, plan: FaultPlan, t,
+               tb: Table):
+    """Phase C's sentinel clocks (deviation 2): (deadline_hit bool[R,
+    S]: a live sentinel's suspicion timed out, higher bool[R, R]: rumor
+    r' outranks rumor r about the same subject)."""
+    snode = state.sent_node
+    if cfg.lifeguard and cfg.dynamic_suspicion:
+        filled = (snode >= 0).sum(dim=-1)
+        timeout = dynamic_timeout_table(cfg, snode.device)[
+            filled.clamp(0, cfg.sentinels)][:, None]
+    else:
+        timeout = cfg.suspicion_periods
+    sact = (snode >= 0) & (plan.crash_step[snode.clamp(min=0).to(I64)] > t)
+    deadline_hit = sact & (t >= state.sent_time + timeout)
+    rkey = state.rkey
+    higher = (tb.same_subj & tb.used[None, :]
+              & u32.ugt(rkey[None, :], rkey[:, None]))
+    return deadline_hit, higher
+
+
+def _confirm(state: RumorState, tb: Table, deadline_hit: torch.Tensor,
+             refuted: torch.Tensor):
+    """Timed-out suspicions no sentinel saw refuted: (confirm bool[R],
+    the confirming sentinel i32[R], the DEAD keys u32[R])."""
+    can_confirm = deadline_hit & ~refuted
+    dead_key_r = lattice.dead_key(lattice.incarnation_of(state.rkey))
+    confirm = (tb.used & tb.is_susp_r & ~state.confirmed
+               & u32.ugt(dead_key_r,
+                         tb.gone_key[tb.subject.clamp(min=0).to(I64)])
+               & can_confirm.any(dim=-1))
+    conf_s = can_confirm.to(I32).argmax(dim=-1)
+    return confirm, state.sent_node.gather(1, conf_s[:, None])[:, 0], \
+        dead_key_r
+
+
+class Originated(NamedTuple):
+    """The rumor table after Phase D, and where its candidates went."""
+
+    subject: torch.Tensor
+    rkey: torch.Tensor
+    birth: torch.Tensor
+    confirmed: torch.Tensor
+    sent_node: torch.Tensor
+    sent_time: torch.Tensor
+    overflow: torch.Tensor
+    newly: torch.Tensor       # bool[R]  slots allocated this period
+    placed: torch.Tensor      # bool[cb] candidate holds a slot
+    slot: torch.Tensor        # i32[cb]  its slot (-1 none)
+    orig: torch.Tensor        # i32[cb]  its originator
+
+
+def _originate(cfg: SwimConfig, state: RumorState, t, tb: Table,
+               overflow: torch.Tensor, c_subj, c_key, c_orig, c_valid,
+               c_src, c_susp) -> Originated:
+    """Phase D (deviation 4): the first `_budget` valid candidates, in
+    candidate order, deduplicated among themselves (the earlier wins)
+    and against the table, take free slots; placed suspect-class
+    candidates join their rumor's sentinels; confirmations mark their
+    suspicion.  The caller clears the heard-bits of `newly` and lets
+    the originators hear their rumors."""
+    r_cap, s_cap = cfg.rumor_slots, cfg.sentinels
+    dev = c_valid.device
+    cb = _budget(cfg)
+    subject, rkey, used = tb.subject, state.rkey, tb.used
+    total = c_valid.sum(dtype=I32)
+    m = c_valid.shape[0]
+    ci = scatter.first_true(c_valid, cb, m)
+    got = ci < m
+    ci = ci.clamp(max=m - 1).to(I64)
+    subj_c = torch.where(got, c_subj[ci], -1)
+    key_c = torch.where(got, c_key[ci], 0)
+    orig_c = torch.where(got, c_orig[ci], 0)
+    src_c = torch.where(got, c_src[ci], -1)
+    susp_c = got & c_susp[ci]
+    overflow = overflow + (total - cb).clamp(min=0)
+
+    # dedup within the candidates (the earlier wins)
+    eq = (subj_c[:, None] == subj_c[None, :]) & (key_c[:, None]
+                                                 == key_c[None, :])
+    earlier = torch.ones((cb, cb), dtype=torch.bool, device=dev).tril(-1)
+    dup_mask = eq & earlier & got[None, :] & got[:, None]
+    dup_prev = dup_mask.any(dim=-1)
+    win_idx = dup_mask.to(I32).argmax(dim=-1)
+
+    # dedup against the table
+    ex = (used[None, :] & (subj_c[:, None] == subject[None, :])
+          & (key_c[:, None] == rkey[None, :]))
+    ex_match = ex.any(dim=-1)
+    ex_slot = ex.to(I32).argmax(dim=-1).to(I32)
+
+    needs_slot = got & ~dup_prev & ~ex_match
+    free_slots = scatter.first_true(~used, cb, r_cap)
+    n_free = (~used).sum(dtype=I32)
+    apos = needs_slot.to(I32).cumsum(0, dtype=I32) - 1
+    alloc_ok = needs_slot & (apos < n_free.clamp(max=cb))
+    slot_new = torch.where(alloc_ok,
+                           free_slots[apos.clamp(0, cb - 1).to(I64)], -1)
+    overflow = overflow + (needs_slot & ~alloc_ok).sum(dtype=I32)
+
+    slot_f0 = torch.where(ex_match, ex_slot, slot_new)
+    slot_f = torch.where(dup_prev, slot_f0[win_idx.to(I64)], slot_f0)
+    placed = got & (slot_f >= 0)
+
+    # write the allocated slots (distinct by construction)
+    wslot = torch.where(alloc_ok, slot_f, r_cap)
+    subject = scatter.set_drop(subject, wslot, subj_c)
+    rkey_new = scatter.set_drop(rkey, wslot, key_c)
+    birth = scatter.set_drop(state.birth, wslot, t)
+    confirmed = scatter.set_drop(state.confirmed, wslot, False)
+    snode = scatter.set_drop(state.sent_node, wslot, -1)
+    stime = scatter.set_drop(state.sent_time, wslot, 0)
+    newly = scatter.set_drop(torch.zeros((r_cap,), dtype=torch.bool,
+                                         device=dev), wslot, True)
+
+    # sentinel joins: a placed suspect-class candidate is an independent
+    # suspector; it takes a free sentinel slot if it is new there
+    joiner = placed & susp_c
+    tgt_r = torch.where(joiner, slot_f, r_cap)
+    tgt_cl = tgt_r.clamp(0, r_cap - 1).to(I64)
+    already = (snode[tgt_cl] == orig_c[:, None]).any(dim=-1) & joiner
+    joiner = joiner & ~already
+    tgt_r = torch.where(joiner, slot_f, r_cap)
+    same_r = tgt_r[:, None] == tgt_r[None, :]
+    grp_rank = (same_r & earlier & joiner[None, :]).sum(dim=-1, dtype=I32)
+    fill_now = (snode[tgt_cl] >= 0).sum(dim=-1, dtype=I32)
+    spos = fill_now + grp_rank
+    j_ok = joiner & (spos < s_cap)
+    wr = torch.where(j_ok, tgt_r, r_cap)
+    ws = spos.clamp(0, s_cap - 1)
+    snode = scatter.set_drop(snode, wr, orig_c, col=ws)
+    stime = scatter.set_drop(stime, wr, t, col=ws)
+
+    # mark the confirmed suspicions whose DEAD rumor landed
+    confirmed = scatter.set_drop(
+        confirmed, torch.where(placed & (src_c >= 0), src_c, r_cap), True)
+    return Originated(subject, rkey_new, birth, confirmed, snode, stime,
+                      overflow, newly, placed, slot_f, orig_c)
+
+
 def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
          rnd: RumorRandomness, *, tap=None, prof=None) -> RumorState:
     """One protocol period for all N nodes (reference rumor.py:212-649).
@@ -301,33 +496,10 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     up = ~crashed & joined
 
     # ---- Phase 0: retire stale rumors -------------------------------------
-    used = state.subject >= 0
-    age = t - state.birth
-    window = cfg.gossip_window
-    pend_horizon = (cfg.suspicion_max_periods
-                    if cfg.lifeguard and cfg.dynamic_suspicion
-                    else cfg.suspicion_periods) + 2
+    tb = _retire(cfg, state, t, live_knowers(state.knows, up),
+                 up.sum(dtype=I32))
+    subject, gone_key, used = tb.subject, tb.gone_key, tb.used
     rkey = state.rkey
-    is_susp_r = lattice.is_suspect(rkey)
-    is_dead_r = lattice.is_dead(rkey)
-    subj_cl = state.subject.clamp(min=0).to(I64)
-    gone_at_subj = state.gone_key[subj_cl]
-    same_subj = state.subject[:, None] == state.subject[None, :]
-    glob_refuted = ((same_subj & used[None, :]
-                     & u32.ugt(rkey[None, :], rkey[:, None])).any(dim=-1)
-                    | u32.ugt(gone_at_subj, rkey))
-    pending = (is_susp_r & ~state.confirmed & ~glob_refuted
-               & (age < pend_horizon))
-    live_total = up.sum(dtype=I32)
-    disseminated = live_knowers(state.knows, up) >= live_total
-    retire_dead = used & is_dead_r & disseminated
-    gone_key = scatter.scatter_max(
-        state.gone_key, torch.where(retire_dead, state.subject, n), rkey,
-        unsigned=True)
-    keep = used & torch.where(is_dead_r, ~disseminated,
-                              (age < window) | pending)
-    subject = torch.where(keep, state.subject, -1)
-    used = subject >= 0
     st = state._replace(subject=subject, gone_key=gone_key)
 
     # ---- Phase A: probe targets (deviation 3) -----------------------------
@@ -351,7 +523,6 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
             bad = bad & (_believes_dead(st, target)
                          | ~joined[target.to(I64)])
         prober = up & ~bad & (n >= 2)
-    t64 = target.to(I64)
 
     # proxies: uniform over j not in {i, T(i)}
     lo = torch.minimum(ids, target)
@@ -369,13 +540,7 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
 
     # ---- Phase B: global piggyback candidates (deviation 1) ---------------
     b_pig = min(cfg.max_piggyback, r_cap)
-    w_pig = _pig_window(cfg)
-    eligible = used & (age >= 0) & (age < window)
-    # youngest first, ties by slot; ineligible slots by slot after them
-    score = torch.where(eligible, age * r_cap + rr, BIG + rr)
-    cand_idx = torch.topk(score, w_pig, largest=False,
-                          sorted=True).indices.to(I32)
-    cand_valid = eligible[cand_idx.to(I64)]
+    eligible, cand_idx, cand_valid = _candidates(cfg, tb, rr)
     cand64 = cand_idx.to(I64)
 
     if prof is not None and prof.cut("select", target):
@@ -466,127 +631,43 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
         lha = torch.where(refute, (lha + 1).clamp(0, cfg.lha_max), lha)
 
     # 3. suspicion expiry via sentinels (deviation 2)
-    snode = state.sent_node
-    if cfg.lifeguard and cfg.dynamic_suspicion:
-        filled = (snode >= 0).sum(dim=-1)
-        timeout = dynamic_timeout_table(cfg, dev)[filled.clamp(0, s_cap)]
-        timeout = timeout[:, None]
-    else:
-        timeout = cfg.suspicion_periods
-    snode_cl = snode.clamp(min=0).to(I64)
-    sact = (snode >= 0) & (plan.crash_step[snode_cl] > t)
-    deadline_hit = sact & (t >= state.sent_time + timeout)         # [R, S]
-    higher = (same_subj & used[None, :]
-              & u32.ugt(rkey[None, :], rkey[:, None]))             # [R, R]
+    deadline_hit, higher = _deadlines(cfg, state, plan, t, tb)
+    snode_cl = state.sent_node.clamp(min=0).to(I64)
     refuted = torch.stack([(higher & knows[snode_cl[:, s]]).any(dim=-1)
                            for s in range(s_cap)], dim=-1)         # [R, S]
-    can_confirm = deadline_hit & ~refuted
-    dead_key_r = lattice.dead_key(lattice.incarnation_of(rkey))
-    subj_cl = subject.clamp(min=0).to(I64)
-    confirm = (used & is_susp_r & ~state.confirmed
-               & u32.ugt(dead_key_r, gone_key[subj_cl])
-               & can_confirm.any(dim=-1))
-    conf_s = can_confirm.to(I32).argmax(dim=-1)
-    conf_node = snode.gather(1, conf_s[:, None])[:, 0]
+    confirm, conf_node, dead_key_r = _confirm(state, tb, deadline_hit,
+                                              refuted)
 
     # ---- Phase D: originations (deviation 4) ------------------------------
     # candidate order is priority: confirms, then refutes, then suspects
-    cb = _budget(cfg)
-    c_subj = torch.cat([subject, ids, target])
-    c_key = torch.cat([dead_key_r, lattice.alive_key(new_inc), susp_key])
-    c_orig = torch.cat([conf_node.clamp(min=0), ids, ids])
-    c_valid = torch.cat([confirm, refute, mk_suspect | re_suspect])
-    c_src = torch.cat([rr, torch.full((2 * n,), -1, dtype=I32, device=dev)])
-    c_susp = torch.cat([torch.zeros((r_cap + n,), dtype=torch.bool,
-                                    device=dev),
-                        torch.ones((n,), dtype=torch.bool, device=dev)])
-    total = c_valid.sum(dtype=I32)
-    m = c_valid.shape[0]
-    ci = scatter.first_true(c_valid, cb, m)
-    got = ci < m
-    ci = ci.clamp(max=m - 1).to(I64)
-    subj_c = torch.where(got, c_subj[ci], -1)
-    key_c = torch.where(got, c_key[ci], 0)
-    orig_c = torch.where(got, c_orig[ci], 0)
-    src_c = torch.where(got, c_src[ci], -1)
-    susp_c = got & c_susp[ci]
-    overflow = state.overflow + (total - cb).clamp(min=0)
-
-    # dedup within the candidates (the earlier wins)
-    eq = (subj_c[:, None] == subj_c[None, :]) & (key_c[:, None]
-                                                 == key_c[None, :])
-    earlier = torch.ones((cb, cb), dtype=torch.bool, device=dev).tril(-1)
-    dup_mask = eq & earlier & got[None, :] & got[:, None]
-    dup_prev = dup_mask.any(dim=-1)
-    win_idx = dup_mask.to(I32).argmax(dim=-1)
-
-    # dedup against the table
-    ex = (used[None, :] & (subj_c[:, None] == subject[None, :])
-          & (key_c[:, None] == rkey[None, :]))
-    ex_match = ex.any(dim=-1)
-    ex_slot = ex.to(I32).argmax(dim=-1).to(I32)
-
-    needs_slot = got & ~dup_prev & ~ex_match
-    free_slots = scatter.first_true(~used, cb, r_cap)
-    n_free = (~used).sum(dtype=I32)
-    apos = needs_slot.to(I32).cumsum(0, dtype=I32) - 1
-    alloc_ok = needs_slot & (apos < n_free.clamp(max=cb))
-    slot_new = torch.where(alloc_ok,
-                           free_slots[apos.clamp(0, cb - 1).to(I64)], -1)
-    overflow = overflow + (needs_slot & ~alloc_ok).sum(dtype=I32)
-
-    slot_f0 = torch.where(ex_match, ex_slot, slot_new)
-    slot_f = torch.where(dup_prev, slot_f0[win_idx.to(I64)], slot_f0)
-    placed = got & (slot_f >= 0)
-
-    # write the allocated slots (distinct by construction)
-    wslot = torch.where(alloc_ok, slot_f, r_cap)
-    subject = scatter.set_drop(subject, wslot, subj_c)
-    rkey_new = scatter.set_drop(rkey, wslot, key_c)
-    birth = scatter.set_drop(state.birth, wslot, t)
-    confirmed = scatter.set_drop(state.confirmed, wslot, False)
-    snode = scatter.set_drop(snode, wslot, -1)
-    stime = scatter.set_drop(state.sent_time, wslot, 0)
+    od = _originate(
+        cfg, state, t, tb, state.overflow,
+        c_subj=torch.cat([subject, ids, target]),
+        c_key=torch.cat([dead_key_r, lattice.alive_key(new_inc), susp_key]),
+        c_orig=torch.cat([conf_node.clamp(min=0), ids, ids]),
+        c_valid=torch.cat([confirm, refute, mk_suspect | re_suspect]),
+        c_src=torch.cat([rr, torch.full((2 * n,), -1, dtype=I32,
+                                        device=dev)]),
+        c_susp=torch.cat([torch.zeros((r_cap + n,), dtype=torch.bool,
+                                      device=dev),
+                          torch.ones((n,), dtype=torch.bool, device=dev)]))
     # clear the heard-bits of reused slots, then the originators hear
     # their rumors
-    newly = scatter.set_drop(torch.zeros((r_cap,), dtype=torch.bool,
-                                         device=dev), wslot, True)
-    knows &= ~newly[None, :]
-    kbuf[torch.where(placed, orig_c, n).to(I64),
-         slot_f.clamp(min=0).to(I64)] = true
-
-    # sentinel joins: a placed suspect-class candidate is an independent
-    # suspector; it takes a free sentinel slot if it is new there
-    joiner = placed & susp_c
-    tgt_r = torch.where(joiner, slot_f, r_cap)
-    tgt_cl = tgt_r.clamp(0, r_cap - 1).to(I64)
-    already = (snode[tgt_cl] == orig_c[:, None]).any(dim=-1) & joiner
-    joiner = joiner & ~already
-    tgt_r = torch.where(joiner, slot_f, r_cap)
-    same_r = tgt_r[:, None] == tgt_r[None, :]
-    grp_rank = (same_r & earlier & joiner[None, :]).sum(dim=-1, dtype=I32)
-    fill_now = (snode[tgt_cl] >= 0).sum(dim=-1, dtype=I32)
-    spos = fill_now + grp_rank
-    j_ok = joiner & (spos < s_cap)
-    wr = torch.where(j_ok, tgt_r, r_cap)
-    ws = spos.clamp(0, s_cap - 1)
-    snode = scatter.set_drop(snode, wr, orig_c, col=ws)
-    stime = scatter.set_drop(stime, wr, t, col=ws)
-
-    # mark the confirmed suspicions whose DEAD rumor landed
-    confirmed = scatter.set_drop(
-        confirmed, torch.where(placed & (src_c >= 0), src_c, r_cap), True)
+    knows &= ~od.newly[None, :]
+    kbuf[torch.where(od.placed, od.orig, n).to(I64),
+         od.slot.clamp(min=0).to(I64)] = true
 
     # inactive nodes are frozen (their heard-bits of reused slots are
     # still cleared above)
     inc_self = torch.where(up, inc_self, state.inc_self)
     lha = torch.where(up, lha, state.lha)
 
-    if prof is not None and prof.cut("commit", rkey_new, u32=True):
+    if prof is not None and prof.cut("commit", od.rkey, u32=True):
         return prof.capture(
             knows=knows, inc_self=inc_self, lha=lha, gone_key=gone_key,
-            subject=subject, rkey=rkey_new, birth=birth, snode=snode,
-            stime=stime, confirmed=confirmed, overflow=overflow)
+            subject=od.subject, rkey=od.rkey, birth=od.birth,
+            snode=od.sent_node, stime=od.sent_time, confirmed=od.confirmed,
+            overflow=od.overflow)
 
     if tap is not None:
         row_bits = first_val[0].sum(dim=-1, dtype=I32)           # [N]
@@ -602,15 +683,15 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
         tap["waves_delivered"] = torch.cat(
             [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
         tap["probes_failed"] = failed.sum(dtype=I32)
-        tap["overflow"] = overflow
+        tap["overflow"] = od.overflow
         if prof is not None:
             prof.cut("telemetry_tap", tap["sel_slots_selected"])
 
     return RumorState(
         knows=knows, inc_self=inc_self, lha=lha, gone_key=gone_key,
-        subject=subject, rkey=rkey_new, birth=birth, sent_node=snode,
-        sent_time=stime, confirmed=confirmed, overflow=overflow,
-        step=t + 1)
+        subject=od.subject, rkey=od.rkey, birth=od.birth,
+        sent_node=od.sent_node, sent_time=od.sent_time,
+        confirmed=od.confirmed, overflow=od.overflow, step=t + 1)
 
 
 def run(cfg: SwimConfig, state: RumorState, plan: FaultPlan, seed: int,

@@ -261,6 +261,7 @@ class Collectives:
         self._check()
         self._slots[rank] = x
         if rank == self.d - 1:
+            self._out = None        # free the last result first
             self._out = combine(self._slots)
             self._slots = [None] * self.d
         self.pass_turn(rank)

@@ -17,9 +17,13 @@ engine up to `DENSE_MAX` nodes and the O(R*N) rumor engine above;
 "ring" is the ring engine, "ringshard" the same engine sharded over
 the node axis (parallel/ring_shard.py: `pmesh.DEFAULT_SHARDS` shards on
 the study's device, stepped through its mapped step; the census reads
-the state assembled from the shards).  The exchange-sharded rumor
-engine ("shard") is not ported and raises.  Every study runs on the
-CUDA card unless `device` names another device.
+the state assembled from the shards); "shard" the exchange-sharded
+rumor engine (parallel/shard_engine.py, on as many shards, lossless:
+the rumor engine's result; the census sums each shard's knower
+counts).  The result's state is assembled from the shards.  Every
+study runs on the CUDA card unless `device` names another device.
+`SwimConfig(telemetry=True)` with "shard" raises ValueError: the
+engine has no tap (the reference fails there unpacking the frame).
 
 `detection_study(telemetry=True)` adds the per-period EngineFrame
 digest and a health summary, and dumps the flight recorder on an
@@ -56,15 +60,11 @@ def pick_engine(n: int, engine: str = "auto") -> str:
     return "dense" if n <= DENSE_MAX else "rumor"
 
 
-ENGINES = ("dense", "rumor", "ring", "ringshard")
+ENGINES = ("dense", "rumor", "shard", "ring", "ringshard")
 RING_ENGINES = ("ring", "ringshard")
 
 
 def _require_ported(engine: str) -> None:
-    if engine == "shard":
-        raise NotImplementedError(
-            "study engine 'shard' (the exchange-sharded rumor engine) is "
-            "not ported (ROADMAP.md Queue 1, item 1)")
     if engine not in ENGINES:
         raise ValueError(f"unknown study engine '{engine}'")
 
@@ -76,6 +76,17 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
         raise ValueError(
             f"streaming studies cover the ring engines only, not "
             f"'{engine}'")
+    if engine == "shard":
+        from swim_tpu_torch.parallel import shard_engine
+
+        if cfg.telemetry:
+            raise ValueError("the exchange-sharded rumor engine ('shard') "
+                             "has no telemetry tap; use 'rumor' or "
+                             "'ringshard' for telemetry studies")
+        _, state, plan, step_fn = shard_engine.start(cfg, plan, dev)
+        res = runner.run_study_rumor(cfg, state, plan, key, periods,
+                                     step_fn)
+        return res._replace(state=pmesh.assemble(res.state))
     if engine == "ringshard":
         from swim_tpu_torch.parallel import ring_shard
 

@@ -19,7 +19,11 @@ resume bitwise.  The ring runners also step a placed state (the sharded
 engine, parallel/ring_shard.py) through its `mapped_step` as `step_fn`:
 the census then reads the state assembled from its shards
 (`_census_state`, the one copy a period, inside the period's time), and
-the result holds the placed state.  The per-period values stay on the device and are
+the result holds the placed state.  `run_study_rumor` steps the
+exchange-sharded rumor engine (parallel/shard_engine.py) the same way;
+its census counts each shard's block of `knows` and sums the counts in
+int32 (`_live_knowers`), never assembling the [N, R] matrix, and reads
+the other fields assembled.  The per-period values stay on the device and are
 stacked at the end (a chunk's end for the stream): no host sync inside
 a period.  Counts are int32 with int32 wrap, as the reference's (the
 sums are taken in int64 and cut to 32 bits).
@@ -317,40 +321,56 @@ def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
     return StudyResult(state, track, _stack(rows), _frames(frames))
 
 
+def _live_knowers(knows, up: torch.Tensor) -> torch.Tensor:
+    """rumor.live_knowers of a whole or a placed heard-bit matrix: a
+    placed one counts each shard's block against its rows of `up` and
+    sums the counts in int32 (the whole matrix's bits)."""
+    if not isinstance(knows, pmesh.Sharded):
+        return rumor.live_knowers(knows, up)
+    s = knows.blocks[0].shape[0]
+    return torch.stack([rumor.live_knowers(b, up[i * s:(i + 1) * s])
+                        for i, b in enumerate(knows.blocks)]).sum(
+                            0, dtype=I32)
+
+
 def rumor_study_period(cfg: SwimConfig, state: rumor.RumorState,
                        track: StudyTrack, base: FaultPlan, rnd, stepper):
     """One period of the rumor study, all on the device: (state, track,
     the period's series row, its EngineFrame or None).  The live-knower
     counts of the rumors are taken once; the tombstone floor holds only
-    DEAD keys."""
+    DEAD keys.  A placed state's fields but `knows` are read assembled."""
     state, frame = stepper(state, rnd)
-    t, crashed, up = _observers(state, base)
-    knowers = rumor.live_knowers(state.knows, up)
-    gone_dead = lattice.is_dead(state.gone_key)
+    st = pmesh.assemble(state._replace(knows=None))
+    t, crashed, up = _observers(st, base)
+    knowers = _live_knowers(state.knows, up)
+    gone_dead = lattice.is_dead(st.gone_key)
     not_alive, dead_seen, dead_all, counts = _subject_flags(
-        cfg.n_nodes, state.subject, state.rkey, knowers, up, gone_dead,
+        cfg.n_nodes, st.subject, st.rkey, knowers, up, gone_dead,
         gone_dead)
     track = StudyTrack(
         first_suspect=_first(track.first_suspect, not_alive, crashed, t),
         first_dead_view=_first(track.first_dead_view, dead_seen, crashed, t),
         disseminated=_first(track.disseminated, dead_all, crashed, t))
     return state, track, (counts[0], counts[1],
-                          _false_dead_views(state.subject, state.rkey,
+                          _false_dead_views(st.subject, st.rkey,
                                             knowers, up, gone_dead),
-                          _max_incarnation(state)), frame
+                          _max_incarnation(st)), frame
 
 
 def run_study_rumor(cfg: SwimConfig, state: rumor.RumorState, plan,
-                    root_key: tuple[int, int],
-                    periods: int) -> RumorStudyResult:
+                    root_key: tuple[int, int], periods: int,
+                    step_fn=None) -> RumorStudyResult:
     """Rumor-engine study with the full StudyTrack.  `root_key` is a
-    threefry key (`threefry.key(seed)`).  Reads state.step once."""
+    threefry key (`threefry.key(seed)`).  `step_fn(state, plan, rnd)`
+    overrides the step: the exchange-sharded engine
+    (parallel/shard_engine.py `build_step`) on a placed state and plan.
+    Reads state.step once."""
     dev = state.knows.device
-    base = faults.base_of(plan)
+    base = pmesh.assemble(faults.base_of(plan))
     track = _new_track(cfg.n_nodes, dev)
     rows, frames = [], []
-    t0 = int(state.step)
-    stepper = make_stepper(cfg, plan, rumor.step)
+    t0 = _step_of(state)
+    stepper = make_stepper(cfg, plan, rumor.step, step_fn)
     for t in range(t0, t0 + periods):
         state, track, row, frame = rumor_study_period(
             cfg, state, track, base,

@@ -42,7 +42,10 @@ conftest, which imports JAX,
     single-device engine and its plain versions in wave scope and on
     the compact and packed wires, with 8x the selb and coldsel
     launches and no wavemerge, and a sharded period makes no host sync;
-    memwall measures the sharded streaming study's peak on the card.
+    memwall measures the sharded streaming study's peak on the card;
+  * the exchange-sharded rumor engine (8 shards on the card) gives the
+    rumor golden digests and the single-device rumor study, launches no
+    kernel, and a sharded study period makes no host sync.
 """
 from __future__ import annotations
 
@@ -552,3 +555,44 @@ def test_ringshard_memwall_is_measured_on_the_card(cuda):
     assert rep["state_bytes"] <= rep["total_bytes"] <= \
         rep["hbm_budget_bytes"]
     assert rep["fits_budget"] is True
+
+
+@pytest.mark.parametrize("name", ["rumor", "rumor_lifeguard"])
+def test_card_shard_engine_gives_the_golden_digest(cuda, name):
+    """The exchange-sharded rumor engine, 8 shards on the card."""
+    assert (golden.digest(golden.engine_run(cuda, name, sharded=True))
+            == golden.ENGINE_DIGESTS[name])
+
+
+def test_shard_engine_equals_one_device_on_the_card(cuda):
+    """The exchange-sharded rumor engine at 20,000 nodes for 3 study
+    periods equals the single-device rumor study and launches no kernel
+    of the port; one more sharded study period makes no host sync."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import shard_engine
+
+    n = 20_000
+    cfg = SwimConfig(n_nodes=n)
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(n, cuda), threefry.key(1), 0.01, 0, 3), 0.1)
+    key = threefry.key(3)
+    want = runner.run_study_rumor(cfg, rumor.init_state(cfg, cuda), plan,
+                                  key, 3)
+    before = (selb.launches, coldsel.launches, wavemerge.launches)
+    _, st, pl, step = shard_engine.start(cfg, plan, cuda)
+    got = runner.run_study_rumor(cfg, st, pl, key, 3, step)
+    assert (selb.launches, coldsel.launches, wavemerge.launches) == before
+    for f in rumor.RumorState._fields:
+        assert torch.equal(pmesh.assemble(getattr(got.state, f)),
+                           getattr(want.state, f)), f
+    for a, b in zip(got.track + got.series, want.track + want.series):
+        assert torch.equal(a, b)
+    rnd = rumor.draw_period_rumor(key, 3, cfg, cuda)
+    stepper = runner.make_stepper(cfg, pl, rumor.step, step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.rumor_study_period(cfg, got.state, got.track,
+                                  faults.base_of(plan), rnd, stepper)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -7,8 +7,9 @@ the same arguments: `info` (JSON), `demo` (every byte), `simulate`
 `study detection` (tiny), `scenario list` and `show`, `trend` over a
 tmp_path repo, and `observe` on a dump written by the port's flight
 recorder.  `profile` prints a well-formed report and writes its
-artifact; `shard` and `audit` exit 2 with their reasons, and
-`--engine ringshard` prints the ring engine's output;
+artifact; `audit` exits 2 with its reason, `--engine ringshard`
+prints the ring engine's output and `--engine shard` the rumor
+engine's;
 without a card a tensor command exits 2 naming the missing card.
 Tolerance: exact.
 """
@@ -126,24 +127,31 @@ def test_profile_prints_a_well_formed_report(capsys, tmp_path):
     ["study", "detection", "--engine", "ringshard"], ["audit"]],
     ids=["sim-ringshard", "sim-shard", "study-ringshard", "audit"])
 def test_unported_commands_exit_2(capsys, argv):
-    """`shard` and `audit` exit 2 naming their ROADMAP items; `ringshard`,
-    ported since, runs: its simulate and study print the ring engine's
-    JSON but for the engine's name (and simulate's timing fields)."""
-    if "ringshard" not in argv:
+    """`audit` exits 2 naming its ROADMAP item; `ringshard` and `shard`,
+    ported since, run: their simulate and study print the ring (rumor)
+    engine's JSON but for the engine's name (and simulate's timing
+    fields)."""
+    if argv == ["audit"]:
         assert cli.main(["--device", "cpu", *argv]) == 2
         err = capsys.readouterr().err
-        assert "ROADMAP.md Queue 1" in err
-        assert ("item 2" if argv[0] == "audit" else "item 1") in err
+        assert "ROADMAP.md Queue 1" in err and "item 2" in err
         return
+    sharded = argv[-1]
     small = ["--nodes", "64", "--periods", "6"]
+    if sharded == "shard":
+        # crashes under loss, long enough for one to be seen by all
+        small = ["--nodes", "64", "--periods", "16", "--crash-fraction",
+                 "0.05", "--loss", "0.1"]
     outs = []
-    for engine in ("ringshard", "ring"):
-        args = [a if a != "ringshard" else engine for a in argv] + small
+    for engine in (sharded, {"ringshard": "ring", "shard": "rumor"}[sharded]):
+        args = [a if a != sharded else engine for a in argv] + small
         assert cli.main(["--device", "cpu", *args]) == 0
         out = json.loads(capsys.readouterr().out)
         assert out.pop("engine") == engine
         outs.append({k: v for k, v in out.items() if k not in TIMING})
     assert outs[0] == outs[1]
+    if sharded == "shard":
+        assert outs[0]["crashed_detected_by_all_live"] > 0
 
 
 def test_without_a_card_the_tensor_commands_exit_nonzero(capsys):

@@ -37,6 +37,7 @@ from swim_tpu_torch.bridge import EngineBridgeServer
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.obs import memwall, prof
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
+from swim_tpu_torch.parallel import shard_engine
 from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.serve.hub import ServeHub
 from swim_tpu_torch.sim import faults
@@ -77,7 +78,8 @@ def test_port_files_found():
             "gossip.py", "membership.py", "node.py", "cluster.py",
             "registry.py", "protocol.py", "server.py", "client.py",
             "engine_server.py", "prof.py", "expo.py", "memwall.py",
-            "trend.py", "profiling.py", "roofline.py", "cli.py"} <= names
+            "trend.py", "profiling.py", "roofline.py", "cli.py",
+            "shard_engine.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
@@ -148,6 +150,11 @@ def test_steps_with_jax_unimportable():
         "st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, 'cpu'),\n"
         "                          plan)\n"
         "st = ring_shard.build_run(cfg, mesh, 2)(st, pl, 0)\n"
+        "assert int(pmesh.assemble(st).step) == 2\n"
+        "from swim_tpu_torch.parallel import shard_engine\n"
+        "cfg = SwimConfig(n_nodes=64)\n"
+        "mesh, st, pl, _ = shard_engine.start(cfg, plan, 'cpu')\n"
+        "st = shard_engine.build_run(cfg, mesh, 2)(st, pl, 0)\n"
         "assert int(pmesh.assemble(st).step) == 2\n"
         "from swim_tpu_torch.models import dense, rumor\n"
         "for mod in (dense, rumor):\n"
@@ -258,7 +265,9 @@ def test_entry_points_need_a_card_by_default():
                  lambda: EngineBridgeServer(cfg, external_id=1),
                  lambda: serve_load.run_load(n_nodes=64, sessions=1),
                  lambda: prof.profile_ring(cfg),
-                 lambda: memwall.study_memory_analysis(64)):
+                 lambda: memwall.study_memory_analysis(64),
+                 lambda: shard_engine.start(SwimConfig(n_nodes=16), plan,
+                                            None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

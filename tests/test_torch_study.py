@@ -220,21 +220,22 @@ def test_detection_study_and_suspicion_sweep_match_the_reference():
     (dict(engine="dense", flight_record="x.jsonl", telemetry=True,
           profiling=True), "instruments")])
 def test_studies_outside_the_port_raise(kw, match, tmp_path):
-    """The exchange-sharded rumor engine raises naming its ROADMAP item;
-    `ringshard`, refused until the sharded ring was ported, gives the
-    ring engine's studies but for the engine's name.  The profiling
-    flag, refused until the profiler was ported, runs beside telemetry
-    and the flight recorder on every engine and gives the study without
-    it (the dump's path aside)."""
-    if kw.get("engine") == "ringshard":
+    """`ringshard` and `shard`, refused until the sharded engines were
+    ported, give the ring (rumor) engine's studies but for the engine's
+    name.  The profiling flag, refused until the profiler was ported,
+    runs beside telemetry and the flight recorder on every engine and
+    gives the study without it (the dump's path aside)."""
+    if kw.get("engine") in ("ringshard", "shard"):
+        sharded = kw["engine"]
+        single = {"ringshard": "ring", "shard": "rumor"}[sharded]
         for study, args in ((experiments.detection_study,
                              dict(n=64, periods=2)),
                             (experiments.fp_sweep,
                              dict(n=64, losses=(0.0,), periods=2))):
-            got = study(device="cpu", engine="ringshard", **args)
-            want = study(device="cpu", engine="ring", **args)
-            assert got.pop("engine") == "ringshard"
-            assert want.pop("engine") == "ring"
+            got = study(device="cpu", engine=sharded, **args)
+            want = study(device="cpu", engine=single, **args)
+            assert got.pop("engine") == sharded
+            assert want.pop("engine") == single
             assert got == want
         return
     if not kw.get("profiling"):
