@@ -71,7 +71,7 @@ Phases, each printed as one JSON line:
      entry points with the default engine: `detection_study()` (dense,
      1,000 nodes), a `DenseEngine` at DENSE_MAX = 8,192 nodes for 10
      periods, `fp_sweep()` (rumor, 100,000 nodes),
-     `suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=30)` and
+     `suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=20)` and
      `lifeguard_ablation(n=1_000_000, periods=20)` (Lifeguard with
      buddy); for each, run twice, periods/sec and wall ms from the bare
      run, device busy ms from a second run under torch.profiler (which
@@ -215,8 +215,8 @@ Phases, each printed as one JSON line:
      8 x 125,001 nodes (S % 4 != 0), bitwise against their plain
      versions, with `ms_main` on shard 0's inputs; one sharded period
      under PyTorch's sync check set to raise; the 1M pull detection
-     study on `ringshard` streaming in chunks of 4 for 12 periods, again
-     checkpointing every 4, stopped in-process after 8 and resumed:
+     study on `ringshard` streaming in chunks of 3 for 9 periods, again
+     checkpointing every 3, stopped in-process after 6 and resumed:
      summaries equal, track, series and state bitwise, the summary the
      `ring` engine's; the wall and busy ms a period, idle share and
      kernels a period of the sharded wave-scope period beside the
@@ -237,6 +237,22 @@ Phases, each printed as one JSON line:
      each with only its own state on the card: wall, busy, idle share,
      kernels a period, peak memory.  The port's kernels launch 0 times
      in the phase (`launches_shard`).
+
+ 18. audit_oracles: `swim-tpu-torch audit --check --json` (cli.main) in
+     a subprocess on the card at its defaults (wire 512, retrace 256
+     nodes, 8 shard slots): exit 0, every row `pass` but the
+     `not_applicable` rows analysis/audit.py names (donation_coverage,
+     barrier_survival/sharded_gspmd_64m), no unattributed byte, no
+     extra build; each contract's status, the census's chunks and peak,
+     the wall time; `render_audit` of the report, one sample line per
+     gauge.  Then the port's engines on the card with the kernels
+     against the port's scalar oracles, every period compared as the
+     reference's tests compare: the ring crash lifecycle (32 nodes, 26
+     periods) in wave and in period scope and under pull, the dense
+     stock demo with crashes, the rumor crash-and-loss lifecycle.  The
+     kernels' launches of each part are zeroed before and read after
+     (`launches_audit`: in the audit's process; `launches_oracle`: each
+     ring path's launches a period times its periods).
 
 Then the `kernels` summary line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
@@ -265,7 +281,9 @@ from swim_tpu_torch.bridge import protocol as bp
 from swim_tpu_torch.core import codec
 from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
                                     card_line, coldsel_profile, gpu_ms)
-from swim_tpu_torch.models import dense, ring, rumor
+from swim_tpu_torch import convert
+from swim_tpu_torch.models import (dense, oracle, ring, ring_oracle, rumor,
+                                   rumor_oracle)
 from swim_tpu_torch.obs import analyze, ici, memwall, prof
 from swim_tpu_torch.serve import hub as serve_hub
 from swim_tpu_torch.serve import load as serve_load
@@ -1111,9 +1129,9 @@ def engines_phase(card: str) -> dict:
     emit(**row)
 
     ss, row = timed_study(
-        "suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=30)", 60,
+        "suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=20)", 40,
         lambda: experiments.suspicion_sweep(n=N, mults=(2.0, 5.0),
-                                            periods=30), card)
+                                            periods=20), card)
     if ss["engine"] != "rumor" or any(pt["crashed"] == 0
                                       for pt in ss["points"]):
         raise AssertionError(f"suspicion_sweep: {ss}")
@@ -2538,8 +2556,8 @@ SHARD_CONFIGS = {
     "period_packed": dict(ring_sel_scope="period", ring_scalar_wire="packed"),
 }
 SHARD_ODD_N = SHARDS * 125_001          # S % 4 == 1
-SHARD_STUDY_PERIODS = 12
-SHARD_STUDY_CHUNK = 4
+SHARD_STUDY_PERIODS = 9
+SHARD_STUDY_CHUNK = 3
 SHARD_TIMED_PERIODS = 5
 SHARD_CKPT_DIR = Path(__file__).resolve().parent / "_shard_ckpt"
 
@@ -3160,6 +3178,169 @@ def shard_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ phase 18: audit_oracles
+
+AUDIT_CODE = (
+    "import json, sys\n"
+    "from swim_tpu_torch import cli\n"
+    "from swim_tpu_torch.ops import coldsel, selb, wavemerge\n"
+    "rc = cli.main(['audit', '--check', '--json'])\n"
+    "print(json.dumps({'selb': selb.launches, 'coldsel': coldsel.launches,\n"
+    "                  'wavemerge': wavemerge.launches}), file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def audit_run(card: str) -> dict:
+    """`swim-tpu-torch audit --check --json` (cli.main) in a subprocess
+    on the card: exit 0, every row pass or one of audit.NOT_APPLICABLE's,
+    nothing unattributed, no extra build; its exposition has one sample
+    line per gauge.  Returns the kernels' launches in the subprocess."""
+    from swim_tpu_torch.analysis import audit
+    from swim_tpu_torch.obs import expo
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", AUDIT_CODE], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"audit: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    err = proc.stderr.strip().splitlines()
+    launches = json.loads(err[-1])
+    audit_s = [ln for ln in err if ln.startswith("# audit: ")]
+    statuses, na = {}, set()
+    for contract, block in report["contracts"].items():
+        statuses[contract] = block["status"]
+        for row in block["checks"]:
+            if row["status"] == "not_applicable":
+                na.add((contract, row["arm"]))
+            elif row["status"] != "pass":
+                raise AssertionError(f"audit: {contract}/{row['arm']} "
+                                     f"{row['status']}: {row['detail']}")
+    totals = report["totals"]
+    if report["platform"] != "cuda" or na != set(audit.NOT_APPLICABLE) \
+            or totals["unattributed_collective_bytes"] != 0 \
+            or totals["retraces_extra"] != 0 or totals["failures"] != 0 \
+            or totals["barrier_chains_missing"] != 0:
+        raise AssertionError(f"audit: platform {report['platform']}, "
+                             f"not_applicable {sorted(na)}, totals {totals}")
+    text = expo.render_audit(report)
+    samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    names = [ln.split("{")[0] for ln in samples]
+    if sorted(names) != sorted(audit.AUDIT_GAUGES):
+        raise AssertionError(f"audit exposition: sample lines {names}")
+    rows = {f"{c}/{r['arm']}": r["detail"]
+            for c, b in report["contracts"].items() for r in b["checks"]
+            if c in ("barrier_survival", "retrace_budget")}
+    emit(phase="audit_oracles", part="audit", wire_n=report["wire_n"],
+         retrace_n=report["retrace_n"], shards=report["devices"],
+         statuses=statuses, totals=totals, details=rows,
+         launches=launches, audit_line=audit_s[-1] if audit_s else None,
+         seconds=wall, card=card)
+    emit(phase="audit_oracles", part="exposition", text=text,
+         sample_lines=len(samples))
+    return launches
+
+
+def oracle_run(name: str, engine, cfg, plan, periods: int, seed: int,
+               oracle_cls, draw, to_oracle, compare) -> None:
+    """`periods` periods of the port's engine on the card against its
+    scalar oracle fed the same draws; `compare(oracle, state as numpy)`
+    names the fields that differ."""
+    orc = oracle_cls(cfg, plan)
+    est = engine.init_state(cfg, "cuda")
+    key = threefry.key(seed)
+    for t in range(periods):
+        rnd = draw(key, t, cfg, "cuda")
+        orc.step(to_oracle(rnd))
+        est = engine.step(cfg, est, plan, rnd)
+        bad = compare(orc, convert.state_to_numpy(est))
+        if bad:
+            raise AssertionError(f"oracle {name}: {bad} differ at period "
+                                 f"{t}")
+
+
+def _equal_fields(fields):
+    def compare(orc, got):
+        return [f for f in fields
+                if not np.array_equal(np.asarray(getattr(orc.state, f)),
+                                      got[f])]
+    return compare
+
+
+ORACLE_CASES = {
+    # name: (engine, cfg keywords, crashes, crash periods, loss, periods,
+    #        seed); the reference's tests/test_ring.py,
+    #        test_dense_vs_oracle.py and test_rumor_vs_scalar.py cases
+    "ring_wave": ("ring", dict(n_nodes=32), [5], [2], 0.0, 26, 7),
+    "ring_period": ("ring", dict(n_nodes=32, ring_sel_scope="period"), [5],
+                    [2], 0.0, 26, 7),
+    "ring_pull": ("ring", dict(n_nodes=32, ring_probe="pull"), [5], [2],
+                  0.0, 26, 1),
+    "dense_stock_demo": ("dense", dict(n_nodes=32, suspicion_mult=2.0),
+                         [3, 17], [0, 4], 0.0, 20, 1),
+    "rumor_crash_loss": ("rumor", dict(n_nodes=32, rumor_capacity=64), [5],
+                         [1], 0.15, 22, 7),
+}
+
+
+def oracles_on_card(card: str) -> dict:
+    """The port's engines on the card with the kernels against the port's
+    scalar oracles, every period; returns the kernels' launches, which
+    must be each rotor path's per period times its periods (pull: one
+    selb a period; dense and rumor none)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    want = {"selb": 0, "coldsel": 0, "wavemerge": 0}
+    for name, (eng, kw, crashes, at, loss, periods, seed) in \
+            ORACLE_CASES.items():
+        cfg = SwimConfig(**kw)
+        plan = faults.with_crashes(faults.none(cfg.n_nodes, "cuda"),
+                                   crashes, at)
+        if loss:
+            plan = faults.with_loss(plan, loss)
+        if eng == "ring":
+            oracle_run(name, ring, cfg, plan, periods, seed,
+                       ring_oracle.RingOracle, ring.draw_period_ring,
+                       ring_oracle.to_numpy, ring_oracle.mismatches)
+            per = ({"selb": 1, "coldsel": 0, "wavemerge": 0}
+                   if cfg.ring_probe == "pull" else expected_launches(cfg))
+            for kn, c in per.items():
+                want[kn] += c * periods
+        elif eng == "dense":
+            oracle_run(name, dense, cfg, plan, periods, seed, oracle.Oracle,
+                       prng.draw_period, lambda r: r, _equal_fields(
+                           ("key", "retransmit", "deadline", "lha")))
+        else:
+            oracle_run(name, rumor, cfg, plan, periods, seed,
+                       rumor_oracle.RumorOracle, rumor.draw_period_rumor,
+                       lambda r: r, _equal_fields(
+                           ("knows", "inc_self", "lha", "gone_key",
+                            "subject", "rkey", "birth", "sent_node",
+                            "sent_time", "confirmed", "overflow", "step")))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != want:
+        raise AssertionError(f"oracles: launches {launches}, expected "
+                             f"{want}")
+    emit(phase="audit_oracles", part="oracles", cases=list(ORACLE_CASES),
+         periods_equal=sum(c[5] for c in ORACLE_CASES.values()),
+         launches=launches, seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
+def audit_oracles_phase(card: str) -> dict:
+    """Phase 18: the contract audit and the scalar oracles on the card;
+    returns the kernels' launches of each."""
+    t0 = time.perf_counter()
+    launches = {"audit": audit_run(card), "oracle": oracles_on_card(card)}
+    emit(phase="audit_oracles", part="done", launches=launches,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -3195,6 +3376,7 @@ def main() -> None:
     launches["instruments"] = instruments_phase(card)
     launches["ringshard"] = ringshard_phase(rows, card)
     launches["shard"] = shard_phase(card)
+    launches.update(audit_oracles_phase(card))
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -3225,6 +3407,8 @@ def main() -> None:
             launches_instruments=launches["instruments"][name],
             launches_ringshard=launches["ringshard"][name],
             launches_shard=launches["shard"][name],
+            launches_audit=launches["audit"][name],
+            launches_oracle=launches["oracle"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

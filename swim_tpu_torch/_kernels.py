@@ -44,6 +44,9 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# libraries loaded into `_loaded` so far, by kernel name: the build
+# seam analysis/audit.py counts (a load follows a build or finds one)
+loads: dict[str, int] = {}
 
 
 def nvcc_path() -> str:
@@ -103,6 +106,7 @@ def lib(name: str) -> ctypes.CDLL:
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
         _loaded[name] = dll
+        loads[name] = loads.get(name, 0) + 1
     return _loaded[name]
 
 

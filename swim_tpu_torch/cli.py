@@ -16,15 +16,17 @@ Subcommands, with the reference's flags and JSON keys:
   scenario  run, show, list or search the fault scenarios
   serve     the serving hub's load harness ('bench') and its tail
             attribution ('trace')
+  audit     the contract audit (analysis/audit.py): build budget, wire
+            payloads, tally completeness, working sets and hygiene,
+            checked on what the port runs
 
 The tensor commands run on the CUDA card unless `--device cpu` names
 the CPU (swim_tpu_torch/device.py); with no card they exit 2 and say
 so.  `--engine ringshard` runs the sharded ring engine
 (parallel/ring_shard.py) and `--engine shard` the exchange-sharded
 rumor engine (parallel/shard_engine.py), each on 8 shards of the one
-device.  `audit` exits 2: the reference audits its jaxprs and compiled
-HLO, and the port's contract families are queued (ROADMAP.md Queue 1,
-item 2).
+device.  `audit` writes no report unless `--out` names a path (the
+reference's default path holds the reference's own report).
 """
 
 from __future__ import annotations
@@ -547,11 +549,39 @@ def _cmd_scenario(args: argparse.Namespace) -> int:
 
 
 def _cmd_audit(args: argparse.Namespace) -> int:
-    print("error: the reference's audit verifies its contracts against "
-          "the jaxprs and the compiled HLO of its JAX programs; the "
-          "port's contract families are not ported yet (ROADMAP.md "
-          "Queue 1, item 2)", file=sys.stderr)
-    return 2
+    import time
+
+    from swim_tpu_torch.analysis import audit
+
+    dev = _device(args)
+    t0 = time.perf_counter()
+    report = audit.run_audit(wire_n=args.wire_n, retrace_n=args.retrace_n,
+                             device=dev)
+    # the wall time goes to stderr: the report holds none (byte-stable)
+    print(f"# audit: {time.perf_counter() - t0:.2f} s on {dev}",
+          file=sys.stderr)
+    if args.out:
+        audit.write_report(report, args.out)
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        for contract in sorted(report["contracts"]):
+            blob = report["contracts"][contract]
+            print(f"[{blob['status']:>6}] {contract}")
+            for row in blob["checks"]:
+                mark = {"pass": ".", "waived": "w",
+                        "not_applicable": "-"}.get(row["status"], "F")
+                print(f"   {mark} {row['arm']}: {row['detail']}")
+        totals = report["totals"]
+        print(f"{totals['checks_total']} checks, "
+              f"{totals['failures']} failed, {totals['waived']} waived, "
+              f"{totals['not_applicable']} not applicable")
+    ok, failures = audit.check_report(report)
+    if args.check and not ok:
+        for line in failures:
+            print(f"AUDIT FAIL {line}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
@@ -830,7 +860,20 @@ def build_parser() -> argparse.ArgumentParser:
     br.set_defaults(fn=_cmd_bridge)
 
     au = sub.add_parser(
-        "audit", help="static contract audit (not ported yet: exits 2)")
+        "audit", help="contract audit: build budget, wire payloads, tally "
+                      "completeness, working sets and hygiene, checked on "
+                      "the port's eager programs (analysis/audit.py)")
+    au.add_argument("--out", default="",
+                    help="report path (default '': write nothing)")
+    au.add_argument("--wire-n", type=int, default=512,
+                    help="node count for the 2x2 sharded wire arms")
+    au.add_argument("--retrace-n", type=int, default=256,
+                    help="node count for the build, hygiene and working-set "
+                         "arms")
+    au.add_argument("--json", action="store_true",
+                    help="print the full report JSON")
+    au.add_argument("--check", action="store_true",
+                    help="exit 1 on any unwaived contract failure")
     au.set_defaults(fn=_cmd_audit)
 
     sv = sub.add_parser(

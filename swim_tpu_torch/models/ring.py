@@ -350,7 +350,9 @@ def live_knower_counts(cfg: SwimConfig, state: RingState, up: torch.Tensor,
     bit: the study runner's census.  Chunks of word rows (and of the
     node axis, where one row exceeds the budget) keep the expanded bits
     to `pair_budget` word-node pairs at a time (32 bytes each: 256 MiB at
-    the default); integer sums, equal in any chunk order."""
+    the default, plus the int32 copy of them `sum(dtype=int32)` makes,
+    128 bytes a pair: analysis/audit.py's census_chunked row holds the
+    peak to 168 bytes a pair); integer sums, equal in any chunk order."""
     g = geometry(cfg)
     n = cfg.n_nodes
     cw = max(1, pair_budget // max(n, 1))

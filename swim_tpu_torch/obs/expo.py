@@ -17,8 +17,10 @@ the series never churn) plus an overall `swim_health_status` gauge
 server.  Label values are escaped per the text-format spec (backslash,
 double-quote, newline).
 
-The reference's `render_audit` waits for the port of the contract audit
-(ROADMAP.md Queue 1).
+`render_audit` renders an analysis/audit.py report as swim_audit_*
+gauges; a total the audit could not measure (null in the report, such
+as `undonated_bytes`: eager PyTorch has no alias table) renders as the
+text format's `NaN`, never as 0.
 """
 
 from __future__ import annotations
@@ -315,3 +317,28 @@ def render_serve_trace(summary: dict,
     assert set(values) == set(SERVE_TRACE_GAUGES)
     return "\n".join(lines) + "\n"
 
+
+
+def render_audit(report: dict,
+                 labels: dict[str, str] | None = None) -> str:
+    """One analysis/audit.py contract report as swim_audit_* gauges
+    (names pinned in audit.AUDIT_GAUGES).  Point-in-time like the
+    memwall gauges; series carry the audited shapes and the platform as
+    labels so audits at different arms never alias.  A null total (not
+    measured) renders `NaN`."""
+    from swim_tpu_torch.analysis.audit import AUDIT_GAUGES, gauge_values
+
+    base = {**(labels or {}),
+            "wire_nodes": str(report.get("wire_n", "?")),
+            "retrace_nodes": str(report.get("retrace_n", "?")),
+            "platform": str(report.get("platform", "?"))}
+    lines: list[str] = []
+    values = gauge_values(report)
+    for full, help_text in AUDIT_GAUGES.items():
+        lines.append(f"# HELP {full} {_escape_help(help_text)}")
+        lines.append(f"# TYPE {full} gauge")
+        v = values[full]
+        lines.append(f"{full}{_fmt_labels(base)} "
+                     f"{'NaN' if v is None else _fmt_float(v)}")
+    assert set(values) == set(AUDIT_GAUGES)
+    return "\n".join(lines) + "\n"

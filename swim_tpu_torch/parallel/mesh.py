@@ -296,10 +296,14 @@ class Collectives:
                              lambda slots: torch.stack(slots).amax(0))
 
 
-def run_spmd(mesh: Mesh, fn: Callable) -> list:
+def run_spmd(mesh: Mesh, fn: Callable, around: Callable | None = None
+             ) -> list:
     """[fn(rank, collectives) for every shard], the D calls running at
-    once, one thread each, on the mesh's devices.  If a shard raises,
-    the others are released from their barrier and the first error is
+    once, one thread each, on the mesh's devices.  `around(rank)`, when
+    given, is a context manager each shard's thread enters around its
+    call (thread-local state such as a TorchDispatchMode does not cross
+    into the shard threads from the caller's).  If a shard raises, the
+    others are released from their barrier and the first error is
     raised here (a barrier broken by it is not the error)."""
     d = mesh.size
     coll = Collectives(d)
@@ -318,6 +322,8 @@ def run_spmd(mesh: Mesh, fn: Callable) -> list:
                 ctx.enter_context(torch.cuda.stream(
                     stream if dev == dev0 else
                     torch.cuda.current_stream(dev)))
+            if around is not None:
+                ctx.enter_context(around(rank))
             try:
                 coll.wait_turn(rank)
                 results[rank] = fn(rank, coll)

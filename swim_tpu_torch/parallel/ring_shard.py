@@ -39,10 +39,17 @@ spec tables (`_state_specs`, `_plan_specs`, `_rnd_specs`),
 `mapped_step` gives the sharded step(state, plan, rnd) on placed
 trees, `build_run` a run of periods, and `mesh.assemble` the whole
 state back; `start` places a fresh state and a plan on the default
-mesh of one device and builds its step.  A `ShardedStep`'s `record`, when set to a list, receives
-every exchange of shard 0 with its label, dtype, shape and the bytes
-the reference's sharded layout moves for it per device (the
-convention of obs/ici.py's bill).
+mesh of one device and builds its step.  A `ShardedStep`'s `record`,
+when set to a list, receives every exchange of shard 0: its op, the
+dtype and shape of every tensor it posts (`payloads`, with the
+reference's `wire_dtype`: uint32 for the u32 values of `U32_LANES` in
+their int32 carriers; `dtype` and `shape` name the main one), the number of such blocks the reference's
+layout moves into one device for it (`blocks`: two for a roll by a
+device-side distance, D for an all-gather, one otherwise), and the
+bytes the bill charges for it under its labels (`terms`, the
+convention of obs/ici.py).  Its `around`, when set, is a per-shard
+context manager factory (mesh.run_spmd).  `ShardedStep.built` counts
+the steps constructed in the process (analysis/audit.py's build seam).
 """
 from __future__ import annotations
 
@@ -58,6 +65,11 @@ from swim_tpu_torch.utils import threefry
 
 I32 = torch.int32
 I64 = torch.int64
+
+# exchange labels whose int32 payloads carry the reference's u32 values
+# (ops/u32.py): a record names their wire dtype uint32
+U32_LANES = frozenset({"roll_sel_waves", "roll_buddy_vals",
+                       "roll_view_verdict"})
 
 
 class ShardOps:
@@ -86,12 +98,23 @@ class ShardOps:
         self._ids = self.lo + torch.arange(self.s, dtype=I32, device=device)
         self._rows = torch.arange(self.s, dtype=I64, device=device)
 
-    def _log(self, op: str, payload: torch.Tensor, terms: dict) -> None:
-        if self.record is not None:
-            self.record.append({
-                "op": op, "dtype": str(payload.dtype).removeprefix("torch."),
-                "shape": tuple(payload.shape),
-                "bytes": sum(terms.values()), "terms": dict(terms)})
+    def _log(self, op: str, payload, terms: dict, blocks: int = 1) -> None:
+        """Record one exchange: `payload` is the tensor posted (or a
+        tuple of them, the first the main one)."""
+        if self.record is None:
+            return
+        parts = payload if isinstance(payload, tuple) else (payload,)
+        carrier = bool(terms) and all(k in U32_LANES for k in terms)
+        desc = []
+        for p in parts:
+            dtype = str(p.dtype).removeprefix("torch.")
+            desc.append({"dtype": dtype, "shape": tuple(p.shape),
+                         "wire_dtype": "uint32" if carrier
+                         and p.dtype == I32 else dtype})
+        self.record.append({
+            "op": op, "dtype": desc[0]["dtype"], "shape": desc[0]["shape"],
+            "payloads": desc, "blocks": blocks,
+            "bytes": sum(terms.values()), "terms": dict(terms)})
 
     # -- node identity ----------------------------------------------------
     def ids(self) -> torch.Tensor:
@@ -145,7 +168,7 @@ class ShardOps:
         k, r = self._shift(d)
         stacked = self.coll.stack(self.rank, x)
         self._log("ppermute", x, {label or "roll": 2 * x.numel()
-                                  * x.element_size()})
+                                  * x.element_size()}, blocks=2)
         a, b = self._pair(stacked, k)
         return self._stitch(a, b, r)
 
@@ -158,7 +181,7 @@ class ShardOps:
             key = lb or "roll"
             terms[key] = (terms.get(key, 0)
                           + 2 * wavepack.bundle_nbytes(x, sz))
-        self._log("ppermute", payload, terms)
+        self._log("ppermute", payload, terms, blocks=2)
         pa, pb = (wavepack.unpack_bundle(p, parts, itemsizes)
                   for p in self._pair(stacked, k))
         return tuple(self._stitch(xa, xb, r) for xa, xb in zip(pa, pb))
@@ -202,13 +225,15 @@ class ShardOps:
     def gather(self, arr, idx):
         """arr[idx] for a node-axis arr and replicated ids: the owner's
         value, summed over the shards."""
-        self._log("psum", idx, {"gather_psum": 4 * max(idx.numel(), 1)})
         li, owned = self._local(idx)
         v = arr[li.clamp(0, self.s - 1).to(I64)]
         if v.dtype == torch.bool:
-            return self.coll.psum(self.rank,
-                                  torch.where(owned, v, False).to(I32)) > 0
-        return self.coll.psum(self.rank, torch.where(owned, v, 0).to(v.dtype))
+            part = torch.where(owned, v, False).to(I32)
+        else:
+            part = torch.where(owned, v, 0).to(v.dtype)
+        self._log("psum", part, {"gather_psum": 4 * max(idx.numel(), 1)})
+        out = self.coll.psum(self.rank, part)
+        return out > 0 if v.dtype == torch.bool else out
 
     # -- the pull branch's ring-pass exchanges ----------------------------
     def _shift1(self, xs: tuple) -> tuple:
@@ -216,7 +241,7 @@ class ShardOps:
         if self.d == 1:
             return xs
         stacked = self.coll.stack_many(self.rank, xs)
-        self._log("ppermute", xs[-1], {
+        self._log("ppermute", tuple(xs), {
             "ring_pass": sum(x.numel() * x.element_size() for x in xs)})
         src = (self.rank - 1) % self.d
         return tuple(s[src] for s in stacked)
@@ -263,15 +288,15 @@ class ShardOps:
     def knows_words(self, win, cold, slot_pos, rows, slot):
         """Heard-bit of replicated global ids `rows` for ring slots
         `slot`: the owner's bit, summed over the shards."""
-        self._log("psum", slot, {"knows_psum": 4 * max(slot.numel(), 1)})
         ok, wcol, word_r, bit = slot_pos(slot)
         lr, owned = self._local(rows)
         lrc = lr.clamp(0, self.s - 1).to(I64)
         word = torch.where(ok, win[lrc, wcol.to(I64)],
                            cold[word_r.to(I64), lrc])
         kn = (slot >= 0) & u32.bit_of(word, bit)
-        return self.coll.psum(self.rank,
-                              torch.where(owned, kn, False).to(I32)) > 0
+        part = torch.where(owned, kn, False).to(I32)
+        self._log("psum", part, {"knows_psum": 4 * max(slot.numel(), 1)})
+        return self.coll.psum(self.rank, part) > 0
 
     def knows_sentinels(self, win, cold, slot_pos, rows, slot):
         """The sentinel probes: the full-batch branch, as on one
@@ -286,7 +311,7 @@ class ShardOps:
         gidx = torch.where(lidx < self.s, lidx + self.lo, self.n)
         gk = torch.where(gidx < self.n, self.n - gidx, 0).to(I32)
         self._log("all_gather", gk, {"candidates_all_gather":
-                                     4 * self.d * kl})
+                                     4 * self.d * kl}, blocks=self.d)
         merged = self.coll.stack(self.rank, gk).reshape(-1)
         kk2 = torch.topk(merged, min(k, self.d * kl)).values
         idx = torch.where(kk2 > 0, self.n - kk2, self.n).to(I32)
@@ -428,7 +453,10 @@ class ShardedStep:
     cfg.profiling the int32 phase-marker vector (obs/prof.py) appended,
     `(state, frame?, markers?)`.  Both extras are reductions over the
     shards, equal on every shard.  `plain=True` runs the kernels' plain
-    versions; `record`, a list, collects shard 0's exchanges."""
+    versions; `record`, a list, collects shard 0's exchanges; `around`
+    (rank -> context manager) wraps each shard's body in its thread."""
+
+    built = 0
 
     def __init__(self, cfg: SwimConfig, mesh: pmesh.Mesh,
                  plain: bool = False):
@@ -437,6 +465,8 @@ class ShardedStep:
         self.plain = plain
         self.d = _check(cfg, mesh)
         self.record: list | None = None
+        self.around = None
+        ShardedStep.built += 1
 
     def __call__(self, state, plan, rnd):
         cfg, d = self.cfg, self.d
@@ -463,7 +493,7 @@ class ShardedStep:
                 extras.append(pr.marker_vector())
             return st, extras
 
-        out = pmesh.run_spmd(self.mesh, body)
+        out = pmesh.run_spmd(self.mesh, body, around=self.around)
         st = pmesh.gather_blocks([o[0] for o in out], _state_specs(cfg))
         extras = out[0][1]
         return (st, *extras) if extras else st

@@ -230,30 +230,39 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     (gone_key), so it can lag true dissemination by up to the window
     length (deviation R2); the other two are exact."""
     stepper = make_stepper(cfg, plan, ring.step, step_fn)
-    n = cfg.n_nodes
     dev = state.win.device
     base = pmesh.assemble(faults.base_of(plan))
-    track = _new_track(n, dev)
+    track = _new_track(cfg.n_nodes, dev)
     rows, frames = [], []
     for rnd in ring.period_randomness(cfg, root_key, _step_of(state),
                                       periods, dev):
-        state, frame = stepper(state, rnd)
+        state, track, row, frame = ring_study_period(cfg, state, track,
+                                                     base, rnd, stepper)
+        rows.append(row)
         frames.append(frame)
-        whole = _census_state(state)
-        t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, whole,
-                                                               base)
-        not_alive, dead_seen, dead_all, counts = _subject_flags(
-            n, whole.subject, whole.rkey, knowers, up, gone_na, gone_dead)
-        track = StudyTrack(
-            first_suspect=_first(track.first_suspect, not_alive, crashed, t),
-            first_dead_view=_first(track.first_dead_view, dead_seen,
-                                   crashed, t),
-            disseminated=_first(track.disseminated, dead_all, crashed, t))
-        rows.append((counts[0], counts[1],
-                     _false_dead_views(whole.subject, whole.rkey, knowers,
-                                       up, gone_dead),
-                     _max_incarnation(whole)))
     return RingStudyResult(state, track, _stack(rows), _frames(frames))
+
+
+def ring_study_period(cfg: SwimConfig, state, track: StudyTrack,
+                      base: FaultPlan, rnd, stepper):
+    """One period of the full-track ring study, all on the device:
+    (state, track, the period's series row, its EngineFrame or None);
+    `base` is the plan's whole FaultPlan."""
+    state, frame = stepper(state, rnd)
+    whole = _census_state(state)
+    t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, whole, base)
+    not_alive, dead_seen, dead_all, counts = _subject_flags(
+        cfg.n_nodes, whole.subject, whole.rkey, knowers, up, gone_na,
+        gone_dead)
+    track = StudyTrack(
+        first_suspect=_first(track.first_suspect, not_alive, crashed, t),
+        first_dead_view=_first(track.first_dead_view, dead_seen, crashed,
+                               t),
+        disseminated=_first(track.disseminated, dead_all, crashed, t))
+    return state, track, (counts[0], counts[1],
+                          _false_dead_views(whole.subject, whole.rkey,
+                                            knowers, up, gone_dead),
+                          _max_incarnation(whole)), frame
 
 
 def _step_of(state) -> int:

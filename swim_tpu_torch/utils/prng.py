@@ -6,11 +6,14 @@ Every random choice of protocol period `t` comes from
 the reference's `draw_period(jax.random.key(seed), t, cfg)` bit for bit
 for `key = threefry.key(seed)`.  The key arithmetic (`fold_in`,
 `split`) is done on the host; the uniforms are drawn on `device`.
+`to_numpy` copies a period's draws to the host for the scalar oracles
+(models/oracle.py, models/rumor_oracle.py).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from swim_tpu_torch.config import SwimConfig
@@ -41,3 +44,16 @@ def draw_period(key: tuple[int, int], step: int, cfg: SwimConfig,
               (n,))
     return PeriodRandomness(*(threefry.uniform(kk, shape, device)
                               for kk, shape in zip(ks, shapes)))
+
+
+def host(x) -> np.ndarray:
+    """A tensor on any device (or an array) as a numpy array of its
+    dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_numpy(r: PeriodRandomness) -> PeriodRandomness:
+    """Host copies for the scalar oracle (every draw is float32)."""
+    return PeriodRandomness(*(host(x) for x in r))

@@ -126,15 +126,25 @@ def test_profile_prints_a_well_formed_report(capsys, tmp_path):
     ["simulate", "--engine", "ringshard"], ["simulate", "--engine", "shard"],
     ["study", "detection", "--engine", "ringshard"], ["audit"]],
     ids=["sim-ringshard", "sim-shard", "study-ringshard", "audit"])
-def test_unported_commands_exit_2(capsys, argv):
-    """`audit` exits 2 naming its ROADMAP item; `ringshard` and `shard`,
-    ported since, run: their simulate and study print the ring (rumor)
-    engine's JSON but for the engine's name (and simulate's timing
-    fields)."""
+def test_unported_commands_exit_2(capsys, argv, tmp_path, monkeypatch):
+    """The commands once refused run now.  `audit --check --json` on the
+    CPU exits 0 with a report whose checked rows all pass, and writes
+    nothing without `--out`; `ringshard` and `shard` run: their simulate
+    and study print the ring (rumor) engine's JSON but for the engine's
+    name (and simulate's timing fields)."""
     if argv == ["audit"]:
-        assert cli.main(["--device", "cpu", *argv]) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP.md Queue 1" in err and "item 2" in err
+        monkeypatch.chdir(tmp_path)
+        assert cli.main(["--device", "cpu", *argv, "--check", "--json",
+                         "--wire-n", "128", "--retrace-n", "64"]) == 0
+        report = json.loads(capsys.readouterr().out)
+        assert report["platform"] == "cpu" and report["wire_n"] == 128
+        rows = [r for c in report["contracts"].values()
+                for r in c["checks"]]
+        assert all(r["status"] in ("pass", "not_applicable") for r in rows)
+        assert sum(r["status"] == "pass" for r in rows) \
+            == report["totals"]["checks_total"] > 0
+        assert report["totals"]["failures"] == 0
+        assert list(tmp_path.iterdir()) == []
         return
     sharded = argv[-1]
     small = ["--nodes", "64", "--periods", "6"]
@@ -161,7 +171,8 @@ def test_without_a_card_the_tensor_commands_exit_nonzero(capsys):
                  ["profile", "--nodes", "256"],
                  ["study", "detection", "--nodes", "64"],
                  ["study", "detection", "--nodes", "64", "--engine", "ring",
-                  "--mem-report"]):
+                  "--mem-report"],
+                 ["audit", "--wire-n", "128", "--retrace-n", "64"]):
         assert cli.main(argv) == 2
         assert "no CUDA card" in capsys.readouterr().err
 

@@ -14,7 +14,9 @@
     injected claim, two periods of an engine bridge server with one
     raw-socket session, 2 s of a 3-node SimCluster of real nodes, two
     profiled periods, the exposition of the cluster's registries, a
-    memory report and the CLI's `info` and `simulate`;
+    memory report, two periods of each scalar oracle, one ring step
+    under the audit's dispatch mode, an audit exposition and the CLI's
+    `info` and `simulate`;
   * chip_smoke.py defines no top-level function, class or constant
     twice (Python keeps the later definition, so an earlier copy would
     be dead code);
@@ -79,7 +81,8 @@ def test_port_files_found():
             "registry.py", "protocol.py", "server.py", "client.py",
             "engine_server.py", "prof.py", "expo.py", "memwall.py",
             "trend.py", "profiling.py", "roofline.py", "cli.py",
-            "shard_engine.py"} <= names
+            "shard_engine.py", "audit.py", "oracle.py", "rumor_oracle.py",
+            "ring_oracle.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
@@ -89,7 +92,12 @@ def test_port_files_found():
             "swim_tpu_torch/serve/load.py",
             "swim_tpu_torch/native/codec.py",
             "swim_tpu_torch/bridge/engine_server.py",
-            "swim_tpu_torch/core/node.py"} <= rel
+            "swim_tpu_torch/core/node.py",
+            "swim_tpu_torch/analysis/__init__.py",
+            "swim_tpu_torch/analysis/audit.py",
+            "swim_tpu_torch/models/oracle.py",
+            "swim_tpu_torch/models/rumor_oracle.py",
+            "swim_tpu_torch/models/ring_oracle.py"} <= rel
 
 
 def test_chip_smoke_defines_each_name_once():
@@ -237,6 +245,26 @@ def test_steps_with_jax_unimportable():
         "assert tuple(r.markers.shape) == (2, 6)\n"
         "assert not memwall.study_memory_analysis(64, device='cpu')[\n"
         "    'measured']\n"
+        "from swim_tpu_torch.analysis import audit\n"
+        "from swim_tpu_torch.models import (oracle, ring_oracle,\n"
+        "                                   rumor_oracle)\n"
+        "from swim_tpu_torch.utils import prng\n"
+        "cfg = SwimConfig(n_nodes=16)\n"
+        "plan = faults.with_crashes(faults.none(16, 'cpu'), [2], [0])\n"
+        "assert oracle.Oracle(cfg, plan).run(threefry.key(0), 2).step == 2\n"
+        "assert rumor_oracle.RumorOracle(cfg, plan).run(\n"
+        "    threefry.key(0), 2).step == 2\n"
+        "orc = ring_oracle.RingOracle(cfg, plan)\n"
+        "orc.step(ring_oracle.to_numpy(\n"
+        "    ring.draw_period_ring(threefry.key(0), 0, cfg, 'cpu')))\n"
+        "assert orc.packed_state()[0].shape == (16, ring.geometry(cfg).ww)\n"
+        "assert audit.hygiene_violations(lambda: ring.step(\n"
+        "    cfg, ring.init_state(cfg, 'cpu'), plan,\n"
+        "    ring.draw_period_ring(threefry.key(0), 0, cfg, 'cpu'))) == []\n"
+        "assert 'swim_audit_checks_total' in expo.render_audit(\n"
+        "    audit.assemble_report({}, dict(retraces_extra=0,\n"
+        "        unattributed_collective_bytes=0, undonated_bytes=None,\n"
+        "        barrier_chains_missing=0)))\n"
         "from swim_tpu_torch import cli\n"
         "assert cli.main(['--device', 'cpu', 'info']) == 0\n"
         "assert cli.main(['--device', 'cpu', 'simulate', '--nodes', '64',\n"
