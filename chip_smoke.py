@@ -72,7 +72,7 @@ Phases, each printed as one JSON line:
      1,000 nodes), a `DenseEngine` at DENSE_MAX = 8,192 nodes for 10
      periods, `fp_sweep()` (rumor, 100,000 nodes),
      `suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=20)` and
-     `lifeguard_ablation(n=1_000_000, periods=20)` (Lifeguard with
+     `lifeguard_ablation(n=1_000_000, periods=10)` (Lifeguard with
      buddy); for each, run twice, periods/sec and wall ms from the bare
      run, device busy ms from a second run under torch.profiler (which
      must give the same result), and peak memory, and on the runs
@@ -132,7 +132,8 @@ Phases, each printed as one JSON line:
      wires.  `search.search()` at its defaults (4 generations x 16
      lanes, then `refine_boundary`) once: the report's sha256 equal to
      golden.GOLDEN_DIGEST_SEARCH (both packages' report on the CPU),
-     wall, wall per generation, the boundary.
+     wall, wall per generation, the boundary; it runs in a child process
+     beside phases 17-19, so its wall is contended (see below).
  13. serve: the serving hub (serve/hub.py) and its load harness
      (serve/load.py) on the card.  (a) golden.GOLDEN_DIGEST_SERVE on the
      card; (b) golden.drive_serve (8 sessions, gossip with SUSPECT, DEAD
@@ -210,7 +211,9 @@ Phases, each printed as one JSON line:
      kernels and sharded with the plain versions: all 14 fields equal,
      launches (zeroed before, read after) 8 times the single-device
      selb and coldsel and no wavemerge; golden.GOLDEN_DIGESTS by the
-     sharded engine; selb and coldsel on every per-shard input of one
+     sharded engine (in a child process beside phases 17-19, see
+     below); selb and
+     coldsel on every per-shard input of one
      more wave-scope period (112 and 8 calls) and of a period at
      8 x 125,001 nodes (S % 4 != 0), bitwise against their plain
      versions, with `ms_main` on shard 0's inputs; one sharded period
@@ -223,7 +226,12 @@ Phases, each printed as one JSON line:
      single-device one in the same call.
  17. shard: the exchange-sharded rumor engine (parallel/shard_engine.py)
      with D = 8 shards on the one card, 1,000,000 nodes (R = 4,096), 0.1%
-     crashing, loss 0.1.  3 periods against `rumor.step` on one device,
+     crashing, loss 0.1.  First, before the children start: the peak
+     memory of a 1M study period whose census sums the shards' counts
+     against one that assembles the state; 5 periods at 1M after
+     warm-up, sharded and on one device, each with only its own state
+     on the card: wall, busy, idle share, kernels a period, peak
+     memory.  Then 3 periods against `rumor.step` on one device,
      all 12 fields equal every period, and one more sharded period under
      PyTorch's sync check set to raise; `exchange_slack=1` without loss:
      period 0's overflow exceeds the lossless engine's by exactly the
@@ -231,12 +239,8 @@ Phases, each printed as one JSON line:
      its range; golden.ENGINE_DIGESTS["rumor"] and ["rumor_lifeguard"]
      by the sharded engine; `fp_sweep(n=100_000, periods=20)` on
      `shard` equal to `rumor` but for the engine's name, with wall ms a
-     study period of each; the peak memory of a 1M study period whose
-     census sums the shards' counts against one that assembles the
-     state; 5 periods at 1M after warm-up, sharded and on one device,
-     each with only its own state on the card: wall, busy, idle share,
-     kernels a period, peak memory.  The port's kernels launch 0 times
-     in the phase (`launches_shard`).
+     study period of each.  The port's kernels launch 0 times in the
+     phase (`launches_shard`).
 
  18. audit_oracles: `swim-tpu-torch audit --check --json` (cli.main) in
      a subprocess on the card at its defaults (wire 512, retrace 256
@@ -254,8 +258,39 @@ Phases, each printed as one JSON line:
      (`launches_audit`: in the audit's process; `launches_oracle`: each
      ring path's launches a period times its periods).
 
-Then the `kernels` summary line, the card's name and power limit, and
-last `{"ok": true, "device": {...}}`.  Any failure raises: the exit code
+ 19. multidevice: both sharded engines with each shard's blocks on its
+     own device.  On the mesh card, CPU, card, CPU (D = 4, every
+     exchange a copy between the devices; the CPU shards run the
+     kernels' plain versions): ringshard at 1,000,000 nodes in period
+     and in wave scope, 2 periods each, every field equal to ring.run
+     on the card, selb and coldsel launched on the two card shards
+     (twice one card's) and no wavemerge, the card shards' kernel calls
+     of one more period against their plain versions; `shard` at
+     100,000 nodes (R = 4,096, loss 0.1, 3 periods) equal to rumor.run;
+     the 1M pull study (4 periods in chunks of 2) checkpointed on the
+     card's 8 slots, stopped after its first chunk and resumed on the
+     mixed mesh, its summary, track and series equal to the one-card
+     study's; the audit's sharded wire arms
+     (analysis/audit.sharded_wire_arms, 512 nodes) on the mix, every
+     row passing.  For each: launches, the bytes copied between the
+     devices a period (equal to ring_shard.mesh_copy_bytes of the
+     recorded exchanges) beside obs/ici.py's bill for D = 4 and the
+     fetch factor, the seconds.  Where PyTorch sees two or more cards,
+     after the children are joined: the same parity on `make_mesh()`
+     at 1M, the wall a period beside one card, each card's peak
+     (memwall), the audit's wire arms with the sync check and one
+     period under the sync check; on one card the line `"part":
+     "all_cards", "run": false`.  `launches_multidevice` sums the
+     launches of the mixed mesh's runs.
+
+Phase 12's search and phase 16's sharded golden digests are host-paced
+checks, so each runs in a child process (`Background`) from just after
+phase 17's timing, the last measurement of time on one card, to the end
+of phase 19's one-card part.  Every line printed while a child runs,
+and each child's own lines (printed when it is joined), carry
+`"contended": true`: their walls shared the host and the card.  Then
+the `kernels` summary line, the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.  Any failure raises: the exit code
 is then nonzero and the last line is not printed.
 """
 from __future__ import annotations
@@ -270,6 +305,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -313,7 +349,14 @@ STUDY_CHUNK = 20
 CKPT_DIR = Path(__file__).resolve().parent / "_study_ckpt"
 
 
+# the `Background` children running now: every line printed while one
+# runs is marked `"contended": true` (its walls shared the host and card)
+CHILDREN: list = []
+
+
 def emit(**kw):
+    if CHILDREN:
+        kw["contended"] = True
     print(json.dumps(kw), flush=True)
 
 
@@ -1140,8 +1183,8 @@ def engines_phase(card: str) -> dict:
     emit(**row)
 
     lg, row = timed_study(
-        "lifeguard_ablation(n=1_000_000, periods=20)", 40,
-        lambda: experiments.lifeguard_ablation(n=N, periods=20), card)
+        "lifeguard_ablation(n=1_000_000, periods=10)", 20,
+        lambda: experiments.lifeguard_ablation(n=N, periods=10), card)
     if lg["engine"] != "rumor" or any(a["crashed"] == 0
                                       for a in lg["arms"].values()):
         raise AssertionError(f"lifeguard_ablation: {lg}")
@@ -1631,13 +1674,13 @@ def search_phase(card: str) -> None:
 
 
 def scenario_phase(card: str) -> dict:
-    """Phase 12; returns the kernels' launches in the library's ring
-    specs and in the 1M packed run."""
+    """Phase 12 but its search (`search_phase`, a `Background` job);
+    returns the kernels' launches in the library's ring specs and in the
+    1M packed run."""
     t0 = time.perf_counter()
     SCENARIO_DIR.mkdir(exist_ok=True)
     launches = {"scenario": library_phase(card),
                 "packed": packed_phase(card)}
-    search_phase(card)
     emit(phase="scenario", part="done", seconds=time.perf_counter() - t0,
          card=card)
     return launches
@@ -2628,9 +2671,10 @@ def shard_golden() -> None:
          seconds=time.perf_counter() - t0)
 
 
-def capture_shard_period(cfg, placed, plan, t: int) -> dict:
-    """One sharded period from `placed` (period t) with selb's and
-    coldsel's wrappers keeping clones of the arguments of every call."""
+def capture_shard_period(cfg, placed, plan, t: int, mesh=None) -> dict:
+    """One sharded period from `placed` (period t, on `mesh`, by default
+    the 8 slots of the card) with selb's and coldsel's wrappers keeping
+    clones of the arguments of every call."""
     got = {"selb": [], "coldsel": []}
     real = (selb.select_first_b, coldsel.cold_update_select)
     lock = threading.Lock()
@@ -2648,7 +2692,7 @@ def capture_shard_period(cfg, placed, plan, t: int) -> dict:
     coldsel.cold_update_select = keep("coldsel", real[1])
     try:
         rnd = ring.draw_period_ring(threefry.key(0), t, cfg, "cuda")
-        ring_shard.mapped_step(cfg, shard_mesh())(placed, plan, rnd)
+        ring_shard.mapped_step(cfg, mesh or shard_mesh())(placed, plan, rnd)
     finally:
         selb.select_first_b, coldsel.cold_update_select = real
     torch.cuda.synchronize()
@@ -2891,8 +2935,9 @@ def shard_timing(card: str) -> None:
 
 
 def ringshard_phase(rows: dict, card: str) -> dict:
-    """Phase 16; returns the kernels' launches in the wave-scope sharded
-    parity run."""
+    """Phase 16 but its golden digests (`shard_golden`, a `Background`
+    job); returns the kernels' launches in the wave-scope sharded parity
+    run."""
     t0 = time.perf_counter()
     launches = {}
     placed = None
@@ -2900,7 +2945,6 @@ def ringshard_phase(rows: dict, card: str) -> dict:
         launches[name], st = shard_parity(name)
         if name == "wave":
             placed = st
-    shard_golden()
     shard_kernels(placed, rows)
     del placed
     shard_no_sync_period()
@@ -3153,27 +3197,419 @@ def top_device_ops(pr, periods: int, k: int = 8) -> list:
     return [(nm, ms[nm] / periods, calls[nm] / periods) for nm in top]
 
 
-def shard_phase(card: str) -> dict:
+def shard_phase(card: str, start_children: Callable[[], None]) -> dict:
     """Phase 17: the exchange-sharded rumor engine at N on D shards;
-    returns the port's kernel launches over the phase (none)."""
+    returns the port's kernel launches over the phase (none).  Its
+    timing runs first: it is the script's last measurement of the
+    card's and the host's time, so `start_children()` (the `Background`
+    checks) is called just after it."""
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    peaks = shard_census_peaks()
+    timing = shard_rumor_timing(card)
+    launched = {k: v for arm in timing.values()
+                for k, v in arm["launches"].items() if v}
+    if launched:
+        raise AssertionError(f"shard timing: the port's kernels launched "
+                             f"{launched}")
+    emit(phase="shard", part="timing", n_nodes=N, shards=SHARDS,
+         periods=SHARD_TIMED_PERIODS, loss=SHARD_LOSS, **timing,
+         census_peak_bytes=peaks, card=card)
+    start_children()
     torch.cuda.synchronize()
     reset_launches()
     shard_rumor_parity()
     shard_overflow()
     shard_rumor_golden()
     shard_fp_study(card)
-    peaks = shard_census_peaks()
-    timing = shard_rumor_timing(card)
-    emit(phase="shard", part="timing", n_nodes=N, shards=SHARDS,
-         periods=SHARD_TIMED_PERIODS, loss=SHARD_LOSS, **timing,
-         census_peak_bytes=peaks, card=card)
     torch.cuda.synchronize()
     launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"shard: the port's kernels launched "
                              f"{launches}")
     emit(phase="shard", part="done", launches=launches,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
+# ------------------------------------------- checks run in child processes
+
+BACKGROUND_TIMEOUT_S = 900
+
+
+class Background:
+    """One check of this script (`call`, a call of a function here) run
+    in a child process while the script goes on: two host-paced checks
+    (the search's report digest, the sharded golden digests) overlap
+    phases 17-19 this way, after the last timing.  The child's JSON
+    lines are printed when it is joined, each marked `"contended":
+    true` (it ran beside this process), and a child that fails fails
+    the script.  It counts no launch of this process."""
+
+    def __init__(self, name: str, call: str):
+        import tempfile
+
+        self.name = name
+        self.out = tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; c.{call}"],
+            cwd=REPO, stdout=self.out, stderr=subprocess.STDOUT)
+        CHILDREN.append(self)
+
+    def join(self) -> None:
+        rc = self.proc.wait(timeout=BACKGROUND_TIMEOUT_S)
+        self.out.seek(0)
+        text = self.out.read().decode(errors="replace")
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        for ln in lines:
+            print(json.dumps(dict(json.loads(ln), contended=True)),
+                  flush=True)
+        if rc != 0 or not lines:
+            raise AssertionError(f"{self.name}: child exit {rc}\n"
+                                 f"{text[-4000:]}")
+        emit(phase="background", part=self.name,
+             seconds=time.perf_counter() - self.t0)
+        CHILDREN.remove(self)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        if self in CHILDREN:
+            CHILDREN.remove(self)
+
+
+# -------------------------------------------------- phase 19: multidevice
+
+# D = 4 shards alternating between the card and the CPU: every exchange
+# crosses a device boundary
+MIXED_DEVICES = ["cuda", "cpu", "cuda", "cpu"]
+MULTI_PERIODS = 2
+MULTI_WAVE_N = N
+MULTI_RUMOR_N = 100_000
+MULTI_RUMOR_R = 4096
+MULTI_RUMOR_PERIODS = 3
+MULTI_STUDY_N = N
+MULTI_STUDY_PERIODS = 4
+MULTI_STUDY_CHUNK = 2
+MULTI_TIMED_PERIODS = 5
+MULTI_AUDIT_N = 512     # the audit's wire_n
+MULTI_CKPT_DIR = Path(__file__).resolve().parent / "_multi_ckpt"
+
+
+def card_shards(mesh) -> int:
+    return sum(d.type == "cuda" for d in mesh.devices)
+
+
+def mesh_ring_run(cfg, plan, mesh, periods: int, seed: int = 0):
+    """`periods` sharded periods on `mesh` from init, drawn as ring.run
+    draws them: (placed state, shard 0's exchange record, the bytes the
+    mesh copied between devices, the kernels' launches), launches and
+    bytes zeroed just before the run and read just after."""
+    st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cuda"), plan)
+    step = ring_shard.mapped_step(cfg, mesh)
+    step.record = []
+    torch.cuda.synchronize()
+    reset_launches()
+    mesh.copied_bytes = 0
+    for rnd in ring.period_randomness(cfg, threefry.key(seed), 0, periods,
+                                      "cuda"):
+        st = step(st, pl, rnd)
+    torch.cuda.synchronize()
+    return st, pl, step.record, mesh.copied_bytes, read_launches()
+
+
+def copy_row(cfg, mesh, record: list, copied: int, periods: int) -> dict:
+    """The bytes copied between devices a period against the mesh's
+    model of the recorded exchanges (they must be equal), the bill of
+    obs/ici.py for D shards, and the fetch factor (copied over the bytes
+    the reference's layout moves into the D shards)."""
+    from swim_tpu_torch.analysis import audit
+
+    model = ring_shard.mesh_copy_bytes(record, mesh)
+    if copied != model:
+        raise AssertionError(f"multidevice: copied {copied} bytes, the "
+                             f"mesh's model of the exchanges {model}")
+    ref = mesh.size * sum(audit.family_bytes(record).values())
+    fam = audit.family_bytes([e for e in record if e["op"] == "ppermute"])
+    rolls = [e for e in record if e["op"] == "ppermute"]
+    roll_copied = ring_shard.mesh_copy_bytes(rolls, mesh)
+    bill = ici.trace_ici_bytes(cfg, mesh.size)["per_chip_bytes_per_period"]
+    return dict(copied_bytes_per_period=copied / periods,
+                model_bytes_per_period=model / periods,
+                reference_bytes_per_period=ref / periods,
+                bill_per_chip_per_period=bill,
+                bill_all_shards_per_period=bill * mesh.size,
+                fetch_factor=copied / ref,
+                fetch_factor_rolls=roll_copied / (mesh.size
+                                                  * fam["ppermute"]))
+
+
+def multi_ring_part(name: str, kw: dict, n: int) -> dict:
+    """ringshard on the mixed mesh at `n` nodes for MULTI_PERIODS
+    periods against ring.run on the card, every field bitwise; selb and
+    coldsel launched on the card shards only; the captured inputs of
+    their card calls in one more period against the plain versions."""
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    cfg = SwimConfig(n_nodes=n, **kw)
+    plan = crash_plan(cfg, MULTI_PERIODS)
+    torch.cuda.synchronize()
+    reset_launches()
+    single = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                      MULTI_PERIODS)
+    torch.cuda.synchronize()
+    one = read_launches()
+    placed, pl, record, copied, launches = mesh_ring_run(
+        cfg, plan, mesh, MULTI_PERIODS)
+    run_s = time.perf_counter() - t0
+    fields = require_same(f"multidevice {name}: mixed mesh against one "
+                          "card", pmesh.assemble(placed), single)
+    c = card_shards(mesh)
+    want = {"selb": c * one["selb"], "coldsel": c * one["coldsel"],
+            "wavemerge": 0}
+    if launches != want or one["selb"] == 0:
+        raise AssertionError(f"multidevice {name}: launches {launches}, "
+                             f"one card {one}, expected {want}")
+    got = capture_shard_period(cfg, placed, pl, MULTI_PERIODS, mesh)
+    got = {k: [a for a in v if a[0].is_cuda] for k, v in got.items()}
+    err = check_captured(f"multidevice {name}", got)
+    row = dict(phase="multidevice", part="ringshard", config=name,
+               n_nodes=n, shards=mesh.size, devices=MIXED_DEVICES,
+               periods=MULTI_PERIODS, fields_equal=fields,
+               launches=launches, launches_one_card=one,
+               kernels_checked={k: len(v) for k, v in got.items()},
+               max_abs_err=err,
+               **copy_row(cfg, mesh, record, copied, MULTI_PERIODS),
+               run_seconds=run_s, seconds=time.perf_counter() - t0)
+    emit(**row)
+    return launches
+
+
+def multi_rumor_part() -> None:
+    """The exchange-sharded rumor engine on the mixed mesh against
+    rumor.run on the card: every field bitwise; no kernel of the port."""
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    cfg = SwimConfig(n_nodes=MULTI_RUMOR_N, rumor_capacity=MULTI_RUMOR_R)
+    plan = faults.with_loss(crash_plan(cfg, MULTI_RUMOR_PERIODS), SHARD_LOSS)
+    single = rumor.run(cfg, rumor.init_state(cfg, "cuda"), plan, 0,
+                       MULTI_RUMOR_PERIODS)
+    st, pl = shard_engine.place(cfg, mesh, rumor.init_state(cfg, "cuda"),
+                                plan)
+    torch.cuda.synchronize()
+    reset_launches()
+    mesh.copied_bytes = 0
+    placed = shard_engine.build_run(cfg, mesh, MULTI_RUMOR_PERIODS)(
+        st, pl, 0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    copied = mesh.copied_bytes
+    fields = require_same("multidevice shard: mixed mesh against one card",
+                          pmesh.assemble(placed), single)
+    if any(launches.values()):
+        raise AssertionError(f"multidevice shard: launches {launches}")
+    emit(phase="multidevice", part="shard", n_nodes=MULTI_RUMOR_N,
+         rumor_slots=cfg.rumor_slots, loss=SHARD_LOSS, shards=mesh.size,
+         devices=MIXED_DEVICES, periods=MULTI_RUMOR_PERIODS,
+         fields_equal=fields, launches=launches,
+         copied_bytes_per_period=copied / MULTI_RUMOR_PERIODS,
+         rumors=int((single.subject >= 0).sum()),
+         seconds=time.perf_counter() - t0)
+
+
+class _StopAfterSnapshot(runner.StudyCheckpointer):
+    """Stops the study right after its first snapshot lands."""
+
+    def save(self, *a, **kw):
+        super().save(*a, **kw)
+        raise Interrupted
+
+
+def multi_study_part() -> dict:
+    """The streaming pull study (the study default) of ringshard:
+    checkpointed on the 8 slots of the card and stopped after its first
+    chunk, resumed on the mixed mesh; summary, track and series equal
+    the one-card ring study's."""
+    t0 = time.perf_counter()
+    n, periods = MULTI_STUDY_N, MULTI_STUDY_PERIODS
+    cfg = SwimConfig(n_nodes=n, ring_probe="pull")
+    plan = experiments._crash_plan(n, 0, CRASH_FRACTION, periods, "cuda")
+    key = threefry.key(0)
+    one = runner.run_study_ring_stream(cfg, ring.init_state(cfg, "cuda"),
+                                       plan, key, periods,
+                                       chunk=MULTI_STUDY_CHUNK)
+    shutil.rmtree(MULTI_CKPT_DIR, ignore_errors=True)
+    try:
+        card8 = shard_mesh()
+        st, pl = ring_shard.place(cfg, card8, ring.init_state(cfg, "cuda"),
+                                  plan)
+        try:
+            runner.run_study_ring_stream(
+                cfg, st, pl, key, periods, ring_shard.mapped_step(cfg, card8),
+                ckpt=_StopAfterSnapshot(str(MULTI_CKPT_DIR),
+                                        every=MULTI_STUDY_CHUNK))
+            raise AssertionError("multidevice: the checkpointed study was "
+                                 "not stopped")
+        except Interrupted:
+            pass
+        snaps = sorted(p.name for p in MULTI_CKPT_DIR.iterdir())
+        mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+        st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cuda"),
+                                  plan)
+        torch.cuda.synchronize()
+        reset_launches()
+        mesh.copied_bytes = 0
+        res = runner.run_study_ring_stream(
+            cfg, st, pl, key, periods, ring_shard.mapped_step(cfg, mesh),
+            ckpt=runner.StudyCheckpointer(str(MULTI_CKPT_DIR),
+                                          every=MULTI_STUDY_CHUNK))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        copied = mesh.copied_bytes
+    finally:
+        shutil.rmtree(MULTI_CKPT_DIR, ignore_errors=True)
+    a = runner.detection_summary(one, plan, periods)
+    b = runner.detection_summary(res, plan, periods)
+    if a != b:
+        raise AssertionError(f"multidevice study: resumed {b} != one card "
+                             f"{a}")
+    for part in ("track", "series"):
+        x, y = getattr(one, part), getattr(res, part)
+        for f in x._fields:
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                raise AssertionError(f"multidevice study: {part}.{f} "
+                                     "differs")
+    resumed = periods - MULTI_STUDY_CHUNK
+    want = {"selb": card_shards(mesh) * resumed, "coldsel": 0,
+            "wavemerge": 0}
+    if launches != want:
+        raise AssertionError(f"multidevice study: launches {launches}, "
+                             f"expected {want}")
+    emit(phase="multidevice", part="study", n_nodes=n, periods=periods,
+         chunk=MULTI_STUDY_CHUNK, ring_probe="pull", snapshots=snaps,
+         saved_on="8 slots of the card", resumed_on=MIXED_DEVICES,
+         summaries_equal=True, track_series_bitwise=True,
+         launches=launches, copied_bytes_per_period=copied / resumed,
+         crashed=b.get("crashed"), seconds=time.perf_counter() - t0)
+    return launches
+
+
+def audit_wire_rows(mesh) -> dict:
+    """`analysis/audit.sharded_wire_arms` at MULTI_AUDIT_N nodes on
+    `mesh`: every row must pass and every arm copy its model's bytes
+    (more than none where the mesh has two devices); returns the bytes
+    copied, their model and the fetch factor of each arm."""
+    from swim_tpu_torch.analysis import audit
+
+    rows = []
+    out = audit.sharded_wire_arms(mesh, MULTI_AUDIT_N,
+                                  lambda *row: rows.append(row))
+    bad = [row for row in rows if not row[2]]
+    if bad or out["unattributed"]:
+        raise AssertionError(f"multidevice audit on {mesh}: failing rows "
+                             f"{bad}, unattributed {out['unattributed']}")
+    for arm, c in out["copies"].items():
+        if c["copied"] != c["model"] or (len(mesh.distinct) > 1
+                                         and not c["copied"]):
+            raise AssertionError(f"multidevice audit {arm}: {c}")
+    return out["copies"]
+
+
+def multi_audit_part() -> dict:
+    """The audit's sharded wire arms on the mixed mesh (`audit_wire_rows`;
+    the sync check covers all-card meshes only); returns the kernels'
+    launches on its card shards."""
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    torch.cuda.synchronize()
+    reset_launches()
+    copies = audit_wire_rows(mesh)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not (launches["selb"] and launches["coldsel"]):
+        raise AssertionError(f"multidevice audit: card-shard launches "
+                             f"{launches}")
+    emit(phase="multidevice", part="audit", n_nodes=MULTI_AUDIT_N,
+         shards=mesh.size, copies=copies, launches=launches,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def all_cards_part(card: str) -> None:
+    """make_mesh() over every card, where there are two or more: wave
+    scope at N against one card, bitwise; wall a period beside one card;
+    each card's peak in the sharded study (memwall); one sharded period
+    under PyTorch's sync check."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit(phase="multidevice", part="all_cards", run=False, cards=cards)
+        return
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh()
+    cfg = SwimConfig(n_nodes=N)
+    plan = crash_plan(cfg, MULTI_PERIODS)
+    single = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                      MULTI_PERIODS)
+    placed, pl, record, copied, launches = mesh_ring_run(
+        cfg, plan, mesh, MULTI_PERIODS)
+    fields = require_same("multidevice all cards: against one card",
+                          pmesh.assemble(placed), single)
+    copies = copy_row(cfg, mesh, record, copied, MULTI_PERIODS)
+    run = ring_shard.build_run(cfg, mesh, MULTI_TIMED_PERIODS)
+    walls = {}
+    for name, fn in (
+            ("one_card", lambda: ring.run(cfg, single, plan, 0,
+                                          MULTI_TIMED_PERIODS)),
+            ("all_cards", lambda: run(placed, pl, threefry.key(0)))):
+        fn()
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        t1 = time.perf_counter()
+        fn()
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        walls[name] = (time.perf_counter() - t1) * 1e3 / MULTI_TIMED_PERIODS
+    audit_copies = audit_wire_rows(mesh)
+    rep = memwall.study_memory_analysis(N, engine="ringshard")
+    rnd = ring.draw_period_ring(threefry.key(0), MULTI_PERIODS, cfg, "cuda")
+    step = ring_shard.mapped_step(cfg, mesh)
+    for d in mesh.distinct:
+        torch.cuda.synchronize(d)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(placed, pl, rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emit(phase="multidevice", part="all_cards", run=True, cards=cards,
+         n_nodes=N, shards=mesh.size, fields_equal=fields,
+         launches=launches, **copies, wall_ms_per_period=walls,
+         device_peaks=rep["device_peaks"],
+         fullest_device=rep["fullest_device"], host_syncs_in_a_period=0,
+         audit=audit_copies,
+         seconds=time.perf_counter() - t0, card=card)
+
+
+def multidevice_phase(card: str) -> dict:
+    """Phase 19 but its all-card part (`all_cards_part`, run once the
+    children have been joined); returns the kernels' launches on the
+    card shards of the mixed mesh's runs (ringshard in both scopes, the
+    resumed study, the audit's wire arms)."""
+    t0 = time.perf_counter()
+    launches = {"selb": 0, "coldsel": 0, "wavemerge": 0}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    add(multi_ring_part("period", dict(ring_sel_scope="period"), N))
+    add(multi_ring_part("wave", {}, MULTI_WAVE_N))
+    multi_rumor_part()
+    add(multi_study_part())
+    add(multi_audit_part())
+    emit(phase="multidevice", part="done", launches=launches,
          seconds=time.perf_counter() - t0, card=card)
     return launches
 
@@ -3375,8 +3811,19 @@ def main() -> None:
     launches.update(bridge_phase(card))
     launches["instruments"] = instruments_phase(card)
     launches["ringshard"] = ringshard_phase(rows, card)
-    launches["shard"] = shard_phase(card)
-    launches.update(audit_oracles_phase(card))
+    background = []
+    try:
+        launches["shard"] = shard_phase(card, lambda: background.extend([
+            Background("search", "search_phase(c.card_line())"),
+            Background("ringshard_golden", "shard_golden()")]))
+        launches.update(audit_oracles_phase(card))
+        launches["multidevice"] = multidevice_phase(card)
+        for job in background:
+            job.join()
+    finally:
+        for job in background:
+            job.stop()
+    all_cards_part(card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -3409,6 +3856,7 @@ def main() -> None:
             launches_shard=launches["shard"][name],
             launches_audit=launches["audit"][name],
             launches_oracle=launches["oracle"][name],
+            launches_multidevice=launches["multidevice"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -14,7 +14,9 @@ may have no nvcc.
 
 Every C entry point launches on the stream it is given, allocates
 nothing and returns cudaGetLastError(); `check()` raises on a nonzero
-code.
+code.  `launch()` calls one on its tensor's card: the `<<<>>>` launch
+and `cudaFuncSetAttribute` act on the thread's current device, which a
+caller on another card (a shard of a multi-card mesh) need not have set.
 """
 from __future__ import annotations
 
@@ -117,3 +119,12 @@ def check(name: str, code: int) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Kernel `name`'s entry point on `args` and the current stream of
+    `t`'s card, run with that card as the current device; raises on a
+    nonzero code."""
+    with torch.cuda.device(t.device):
+        check(name, getattr(lib(name), f"{name}_launch")(*args,
+                                                          stream_of(t)))

@@ -23,8 +23,15 @@ fires each by name):
   device-side distance, D for an all-gather, whose output is counted;
   input bytes otherwise), never from the labels the bill gives them;
   `tally_unattributed` holds them against `obs/ici.trace_ici_bytes(cfg,
-  d)`, with zero unattributed.  `serve_ext_mirror` prices the serving
-  hub's row mirror as the reference does.
+  d)`, with zero unattributed.  Each arm also holds the bytes the mesh
+  copied between devices in the period (`Mesh.copied_bytes`) against
+  the same records (`ring_shard.mesh_copy_bytes`: the posted bytes of
+  each stack and psum times the blocks the mesh copies for one), and
+  prints the fetch factor: the copied bytes over the bytes the
+  reference's layout moves into the D shards (0 on a one-device mesh;
+  (D-1)/2 for a roll over D cards, where the reference moves two
+  blocks).  `serve_ext_mirror` prices the serving hub's row mirror as
+  the reference does.
 * **hot_path_hygiene** — every `ringshard/<arm>` period and the
   `study/dense|rumor|ring` period bodies (the draws included) run under
   a TorchDispatchMode (`HygieneWatch`) that names each float64 value
@@ -62,8 +69,9 @@ fires each by name):
       when each is issued, no earlier one is still alive, so at most one
       gather result is live at a time (weak references at the seam).
   The reference's `sharded_gspmd_64m` reads its GSPMD lowering's AOT
-  row; the port has no such lowering (its shards run the single-device
-  census on the assembled state), so that row is `not_applicable`.
+  row; the port has no such lowering (each shard runs the
+  single-device census on its own rows), so that row is
+  `not_applicable`.
 * **donation_coverage** has no eager counterpart: there is no compiled
   alias table, and a callee cannot free its caller's references to the
   state it was given.  Its arms are `not_applicable`.
@@ -162,8 +170,8 @@ NOT_APPLICABLE = {
        for arm in ("dense", "rumor", "ring", "ring_stream_chunk", "batch")},
     ("barrier_survival", "sharded_gspmd_64m"):
         "the reference reads its GSPMD lowering's 64M AOT row; the port "
-        "has no GSPMD lowering: its shards run the single-device census "
-        "on the assembled state (census_chunked covers it)",
+        "has no GSPMD lowering: each shard runs the single-device census "
+        "on its own rows (census_chunked covers it)",
 }
 
 # ---------------------------------------------------------------------------
@@ -578,12 +586,89 @@ def _program_sweep(n: int, device, capacity: int = 4):
     return (base, gray, lossy)
 
 
+def sharded_wire_arms(mesh, wire_n: int, add) -> dict:
+    """The 2x2 sharded wire matrix (WIRE_ARMS) at `wire_n` nodes on
+    `mesh`, any mix of devices: one period of each arm, its rows passed
+    to `add(contract, arm, ok, detail)` (wire_contracts,
+    ici_tally_completeness with the bytes the mesh copied between
+    devices against `ring_shard.mesh_copy_bytes` and the fetch factor,
+    hot_path_hygiene).  The sync check covers an all-card mesh; one with
+    CPU shards copies to the host by design.  Returns {"families": {arm:
+    the bytes of each collective family}, "unattributed": bytes,
+    "copies": {arm: {"copied", "model", "fetch_factor"}}}."""
+    from swim_tpu_torch import SwimConfig
+    from swim_tpu_torch.models import ring
+    from swim_tpu_torch.obs import ici
+    from swim_tpu_torch.parallel import ring_shard
+    from swim_tpu_torch.sim import faults
+    from swim_tpu_torch.utils import threefry
+
+    d = mesh.size
+    dev = mesh.devices[0]
+    shard_sync = (dev if all(x.type == "cuda" for x in mesh.devices)
+                  else torch.device("cpu"))
+    key = threefry.key(0)
+    shard_rows = wire_n // d
+    out = {"families": {}, "unattributed": 0, "copies": {}}
+    for arm_name, overrides in WIRE_ARMS:
+        cfg_w = SwimConfig(n_nodes=wire_n, **SMALL_GEOM, **overrides)
+        plan_w = faults.with_crashes(faults.none(wire_n, dev), [5], [2])
+        st_w, pl_w = ring_shard.place(cfg_w, mesh,
+                                      ring.init_state(cfg_w, dev), plan_w)
+        rnd_w = ring.draw_period_ring(key, 0, cfg_w, dev)
+        step = ring_shard.mapped_step(cfg_w, mesh)
+        step.record = []
+        watch = ShardWatch()
+        step.around = watch
+        mesh.copied_bytes = 0
+        with sync_check(shard_sync):
+            step(st_w, pl_w, rnd_w)
+        copied = mesh.copied_bytes
+        records = exchange_records(step.record)
+
+        problems = wire_problems(records, cfg_w.ring_scalar_wire == "packed",
+                                 shard_rows)
+        n_cperm = sum(r["op"] == "collective-permute" for r in records)
+        add("wire_contracts", arm_name, not problems,
+            "; ".join(problems) if problems
+            else f"{n_cperm} cperm exchange(s), all-gather max "
+                 f"{max_payload_elems(records, 'all-gather')} elems")
+
+        fam = family_bytes(step.record)
+        out["families"][arm_name] = fam
+        tally = ici.trace_ici_bytes(cfg_w, d)
+        loose = {k: v for k, v in tally_unattributed(
+            fam, tally["breakdown"]).items() if v}
+        out["unattributed"] += sum(loose.values())
+        model = ring_shard.mesh_copy_bytes(step.record, mesh)
+        factor = copied / (d * sum(fam.values()))
+        out["copies"][arm_name] = {"copied": copied, "model": model,
+                                   "fetch_factor": factor}
+        copies = (f"copied={copied} of model {model}, fetch factor "
+                  f"{factor:.4f}")
+        add("ici_tally_completeness", arm_name,
+            not loose and copied == model,
+            (f"unattributed={loose}" if loose
+             else f"traced={ {k: int(v) for k, v in sorted(fam.items())} } "
+                  "fully attributed") + "; " + copies)
+
+        violations = sorted(watch.found)
+        seen = sorted(watch.ops) == list(range(d)) and all(
+            watch.ops.values())
+        if not seen:
+            violations.append(f"unwatched shards: {sorted(watch.ops)}")
+        add("hot_path_hygiene", f"ringshard/{arm_name}", not violations,
+            "; ".join(violations) if violations else "clean")
+    return out
+
+
 def run_audit(wire_n: int = 512, retrace_n: int = 256, d: int = 8,
               periods: int = 4, device=None) -> dict:
     """Run every contract arm and return the (byte-stable) report dict.
     On the card unless `device` names another (device.py); the sharded
     arms run on `d` shard slots of that one device
-    (`parallel/mesh.make_mesh`)."""
+    (`parallel/mesh.make_mesh`; `sharded_wire_arms` runs them on any
+    mesh)."""
     from swim_tpu_torch import SwimConfig
     from swim_tpu_torch import device as devmod
     from swim_tpu_torch.models import dense, ring, rumor
@@ -662,50 +747,11 @@ def run_audit(wire_n: int = 512, retrace_n: int = 256, d: int = 8,
             NOT_APPLICABLE[("donation_coverage", arm)])
 
     # -- wire, tally, hygiene over the 2x2 sharded wire matrix --
-    shard_rows = wire_n // d
-    ppermute_bytes_by_arm: dict[str, int] = {}
-    family_bytes_by_arm: dict[str, dict] = {}
-    for arm_name, overrides in WIRE_ARMS:
-        cfg_w = SwimConfig(n_nodes=wire_n, **SMALL_GEOM, **overrides)
-        plan_w = faults.with_crashes(faults.none(wire_n, dev), [5], [2])
-        st_w, pl_w = ring_shard.place(cfg_w, mesh,
-                                      ring.init_state(cfg_w, dev), plan_w)
-        rnd_w = ring.draw_period_ring(key, 0, cfg_w, dev)
-        step = ring_shard.mapped_step(cfg_w, mesh)
-        step.record = []
-        watch = ShardWatch()
-        step.around = watch
-        with sync_check(dev):
-            step(st_w, pl_w, rnd_w)
-        records = exchange_records(step.record)
-
-        problems = wire_problems(records, cfg_w.ring_scalar_wire == "packed",
-                                 shard_rows)
-        n_cperm = sum(r["op"] == "collective-permute" for r in records)
-        add("wire_contracts", arm_name, not problems,
-            "; ".join(problems) if problems
-            else f"{n_cperm} cperm exchange(s), all-gather max "
-                 f"{max_payload_elems(records, 'all-gather')} elems")
-
-        fam = family_bytes(step.record)
-        family_bytes_by_arm[arm_name] = fam
-        ppermute_bytes_by_arm[arm_name] = int(fam.get("ppermute", 0))
-        tally = ici.trace_ici_bytes(cfg_w, d)
-        loose = {k: v for k, v in tally_unattributed(
-            fam, tally["breakdown"]).items() if v}
-        totals["unattributed_collective_bytes"] += sum(loose.values())
-        add("ici_tally_completeness", arm_name, not loose,
-            f"unattributed={loose}" if loose
-            else f"traced={ {k: int(v) for k, v in sorted(fam.items())} } "
-                 "fully attributed")
-
-        violations = sorted(watch.found)
-        seen = sorted(watch.ops) == list(range(d)) and all(
-            watch.ops.values())
-        if not seen:
-            violations.append(f"unwatched shards: {sorted(watch.ops)}")
-        add("hot_path_hygiene", f"ringshard/{arm_name}", not violations,
-            "; ".join(violations) if violations else "clean")
+    wire = sharded_wire_arms(mesh, wire_n, add)
+    family_bytes_by_arm = wire["families"]
+    totals["unattributed_collective_bytes"] += wire["unattributed"]
+    ppermute_bytes_by_arm = {arm: int(fam.get("ppermute", 0))
+                             for arm, fam in family_bytes_by_arm.items()}
 
     # the serving hub's mirror bytes: inside the vocabulary, 16 bytes a
     # reserved slot, and the window+wide arm's bytes all attributed

@@ -24,9 +24,11 @@ The tensor commands run on the CUDA card unless `--device cpu` names
 the CPU (swim_tpu_torch/device.py); with no card they exit 2 and say
 so.  `--engine ringshard` runs the sharded ring engine
 (parallel/ring_shard.py) and `--engine shard` the exchange-sharded
-rumor engine (parallel/shard_engine.py), each on 8 shards of the one
-device.  `audit` writes no report unless `--out` names a path (the
-reference's default path holds the reference's own report).
+rumor engine (parallel/shard_engine.py): without `--device` over
+`mesh.make_mesh()` (one shard per card, or 8 slots of one card), with
+it on 8 slots of the named device.  `audit` writes no report unless
+`--out` names a path (the reference's default path holds the
+reference's own report).
 """
 
 from __future__ import annotations
@@ -53,6 +55,13 @@ def _device(args: argparse.Namespace):
             "error: no CUDA card: PyTorch sees none, and the tensor "
             "commands run on the card unless --device cpu names the CPU"
         ) from e
+
+
+def _named_device(args: argparse.Namespace):
+    """`--device` as given (None: the card, and for the sharded engines
+    their default mesh), once `_device` has found it."""
+    _device(args)
+    return args.device
 
 
 def _cmd_info(args: argparse.Namespace) -> int:
@@ -165,7 +174,8 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
             from swim_tpu_torch.parallel import shard_engine as par_mod
         else:
             from swim_tpu_torch.parallel import ring_shard as par_mod
-        mesh, state, placed_plan, _ = par_mod.start(cfg, plan, dev)
+        mesh, state, placed_plan, _ = par_mod.start(cfg, plan, args.device)
+        devices = len(mesh.distinct)
         run_fn = par_mod.build_run(cfg, mesh, args.periods)
 
         def do_run(st):
@@ -174,6 +184,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
     else:
         mod = {"dense": dense, "ring": ring, "rumor": rumor}[engine]
         state = mod.init_state(cfg, dev)
+        devices = 1
 
         def do_run(st):
             return mod.run(cfg, st, plan, args.seed, args.periods)
@@ -202,7 +213,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         "seconds": round(dt, 3),
         "periods_per_sec": round(args.periods / dt, 2),
         "crashed": int(crashed.sum()),
-        "devices": 1,
+        "devices": devices,
         # a period-scope (deviation R5) run must never be quotable as an
         # exact wave-scope one
         **({"ring_sel_scope": cfg.ring_sel_scope}
@@ -249,7 +260,7 @@ def _cmd_study(args: argparse.Namespace) -> int:
                 crash_fraction=args.crash_fraction,
                 variant="stacked" if args.stream == "off" else "stream",
                 engine=("ringshard" if resolved == "ringshard"
-                        else "ring"), device=_device(args),
+                        else "ring"), device=_named_device(args),
                 probe=args.probe or "pull", **cfg_kw)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
@@ -306,7 +317,7 @@ def _cmd_study(args: argparse.Namespace) -> int:
         kw["crash_fraction"] = args.crash_fraction
         kw["loss"] = args.loss
         kw["budget_arms"] = args.budget_arms
-    out = experiments.STUDIES[args.study](**kw, device=_device(args))
+    out = experiments.STUDIES[args.study](**kw, device=_named_device(args))
     if kw.get("ring_sel_scope"):
         # a period-scope (deviation R5) study must never be quotable as
         # an exact wave-scope one

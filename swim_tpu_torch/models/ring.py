@@ -352,9 +352,11 @@ def live_knower_counts(cfg: SwimConfig, state: RingState, up: torch.Tensor,
     to `pair_budget` word-node pairs at a time (32 bytes each: 256 MiB at
     the default, plus the int32 copy of them `sum(dtype=int32)` makes,
     128 bytes a pair: analysis/audit.py's census_chunked row holds the
-    peak to 168 bytes a pair); integer sums, equal in any chunk order."""
+    peak to 168 bytes a pair); integer sums, equal in any chunk order.
+    `state` may be one shard's block of rows (its `win`, `cold` and `up`
+    rows): the counts are then that shard's part of the sum."""
     g = geometry(cfg)
-    n = cfg.n_nodes
+    n = state.win.shape[0]
     cw = max(1, pair_budget // max(n, 1))
 
     def matrix_counts(words, nrows):            # [nrows, N] word-major

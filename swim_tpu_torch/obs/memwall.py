@@ -15,11 +15,14 @@ arguments, counted on the meta device, so nothing is allocated at size
 N), with `measured: false`.
 
 `engine="ringshard"` accounts the sharded engine's streaming study
-(parallel/ring_shard.py, `pmesh.DEFAULT_SHARDS` shards on the device):
-the report adds the shard count and one shard's state bytes
+(parallel/ring_shard.py on `pmesh.start_mesh(device)`: every card when
+no device is named, else 8 slots of the named one): the report adds
+the shard and device counts and one shard's state bytes
 (`shard_state_bytes`: its node-axis blocks plus its own copy of the
-replicated tables), and on the card the measured peak of the whole
-program, all shards together on the one card.  The reference's
+replicated tables), and on the card each card's measured peak
+(`device_peaks`) and the fullest card (`fullest_device`), whose peak is
+the report's total: an all-gather-form roll puts D blocks on every
+card.  The reference's
 deviceless compile for a TPU mesh has no counterpart here.  Exposed as
 `swim-tpu-torch study detection --mem-report [--device cpu]`; obs/expo.py
 `render_memwall` renders a report as swim_mem_* gauges.
@@ -63,15 +66,19 @@ def _tree_bytes(tree) -> int:
 
 
 def _study_inputs(cfg, n: int, periods: int, crash_fraction: float,
-                  variant: str, dev, engine: str = "ring"):
+                  variant: str, device, engine: str = "ring"):
     """(state, plan, track or None, crashes, step_fn or None) of the
-    study at `n` on `dev`: crashes drawn as detection_study draws them,
-    the streaming runner's CompactTrack over them; for "ringshard" the
-    state and plan placed by `ring_shard.start` and its sharded step."""
+    study at `n` on `device` (device.py; META counts bytes only):
+    crashes drawn as detection_study draws them, the streaming runner's
+    CompactTrack over them; for "ringshard" the state and plan placed by
+    `ring_shard.start(cfg, plan, device)` (no device: every card) and
+    its sharded step."""
+    from swim_tpu_torch import device as devmod
     from swim_tpu_torch.models import ring
     from swim_tpu_torch.sim import faults, runner
     from swim_tpu_torch.utils import threefry
 
+    dev = devmod.resolve(device)
     if dev.type == "meta":
         plan = faults.none(n, dev)
         crashes = max(1, round(n * crash_fraction))
@@ -91,7 +98,7 @@ def _study_inputs(cfg, n: int, periods: int, crash_fraction: float,
     if engine == "ringshard":
         from swim_tpu_torch.parallel import ring_shard
 
-        _, state, plan, step_fn = ring_shard.start(cfg, plan, dev)
+        _, state, plan, step_fn = ring_shard.start(cfg, plan, device)
         return state, plan, track, crashes, step_fn
     return ring.init_state(cfg, dev), plan, track, crashes, None
 
@@ -124,16 +131,22 @@ def study_memory_analysis(n: int, periods: int = 12,
     if engine == "ringshard" and variant != "stream":
         raise ValueError("ringshard memory analysis covers the streaming "
                          "study (variant='stream')")
+    from swim_tpu_torch.parallel import mesh as pmesh
+
     dev = devmod.resolve(device)
     cfg_kw.setdefault("ring_probe", probe)
     cfg = SwimConfig(n_nodes=n, **cfg_kw)
     on_card = dev.type == "cuda"
     if on_card:
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
+        base = {}
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+            base[torch.device("cuda", i)] = torch.cuda.memory_allocated(i)
     state, plan, track, crashes, step_fn = _study_inputs(
-        cfg, n, periods, crash_fraction, variant, dev if on_card else META,
-        engine)
+        cfg, n, periods, crash_fraction, variant,
+        device if on_card else META, engine)
+    cards = ([c for c in step_fn.mesh.distinct if c.type == "cuda"]
+             if step_fn is not None else [dev])
     carry = (state, track) if variant == "stream" else state
     args = (state, track, plan) if variant == "stream" else (state, plan)
     if budget_bytes is None:
@@ -154,24 +167,31 @@ def study_memory_analysis(n: int, periods: int = 12,
         "measured": on_card,
     }
     if engine == "ringshard":
-        from swim_tpu_torch.parallel import mesh as pmesh
-
         report["shards"] = step_fn.mesh.size
+        report["devices"] = len(step_fn.mesh.distinct)
         report["shard_state_bytes"] = _tree_bytes(pmesh.block(state, 0))
     if not on_card:
         return report
 
     key = threefry.key(0)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
     if variant == "stream":
         stepper = runner.make_stepper(cfg, plan, ring.step, step_fn)
         out = runner._run_study_ring_chunk(cfg, state, track, plan, key,
                                            periods, stepper)
     else:
         out = runner.run_study_ring(cfg, state, plan, key, periods)
-    torch.cuda.synchronize(dev)
-    total = int(torch.cuda.max_memory_allocated(dev)) - base
+    peaks = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        peaks[str(c)] = int(torch.cuda.max_memory_allocated(c)) - base[c]
+    fullest = max(peaks, key=peaks.get)
+    total = peaks[fullest]
+    if engine == "ringshard":
+        report["device_peaks"] = peaks
+        report["fullest_device"] = fullest
     arg = report["argument_bytes"]
     report.update({
         "output_bytes": _tree_bytes(tuple(out)),

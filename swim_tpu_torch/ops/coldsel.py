@@ -86,10 +86,8 @@ def cold_update_select(cold, flush_rows, flush_vals, q_rows):
     rw, n = cold.shape
     sel = torch.empty((q_rows.shape[0], n), dtype=torch.int32,
                       device=cold.device)
-    fn = _kernels.lib("coldsel").coldsel_launch
-    code = fn(cold.data_ptr(), flush_rows.data_ptr(), flush_vals.data_ptr(),
-              q_rows.data_ptr(), sel.data_ptr(), n, rw, flush_rows.shape[0],
-              q_rows.shape[0], _kernels.stream_of(cold))
-    _kernels.check("coldsel", code)
+    _kernels.launch("coldsel", cold, cold.data_ptr(), flush_rows.data_ptr(),
+                    flush_vals.data_ptr(), q_rows.data_ptr(), sel.data_ptr(),
+                    n, rw, flush_rows.shape[0], q_rows.shape[0])
     _count_launch()
     return cold, sel

@@ -72,9 +72,7 @@ def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
         raise ValueError("select_first_b: window must be contiguous")
     n, ww = win_masked.shape
     out = torch.empty_like(win_masked)
-    fn = _kernels.lib("selb").selb_launch
-    code = fn(win_masked.data_ptr(), out.data_ptr(), n, ww,
-              min(b, ww * WORD), _kernels.stream_of(win_masked))
-    _kernels.check("selb", code)
+    _kernels.launch("selb", win_masked, win_masked.data_ptr(),
+                    out.data_ptr(), n, ww, min(b, ww * WORD))
     _count_launch()
     return out

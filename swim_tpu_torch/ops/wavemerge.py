@@ -86,10 +86,8 @@ def merge_waves(win, sel, oks, offs, bcol, bval):
         if not t.is_contiguous():
             raise ValueError("merge_waves: inputs must be contiguous")
     n, ww = win.shape
-    fn = _kernels.lib("wavemerge").wavemerge_launch
-    code = fn(win.data_ptr(), sel.data_ptr(), oks.data_ptr(),
-              offs.data_ptr(), bcol.data_ptr(), bval.data_ptr(), n, ww,
-              oks.shape[0], bcol.shape[0], _kernels.stream_of(win))
-    _kernels.check("wavemerge", code)
+    _kernels.launch("wavemerge", win, win.data_ptr(), sel.data_ptr(),
+                    oks.data_ptr(), offs.data_ptr(), bcol.data_ptr(),
+                    bval.data_ptr(), n, ww, oks.shape[0], bcol.shape[0])
     _count_launch()
     return win

@@ -3,40 +3,51 @@ of `swim_tpu/parallel/mesh.py`, with the collectives its JAX mesh gets
 from XLA).
 
 The reference shards the node axis over a 1-D mesh of JAX devices, one
-shard each.  One card is one device, so the port's `Mesh` is a list of
-D shard slots, each with a torch.device; `make_mesh()` gives the
-reference's tier-1 mesh, 8 shards, all on the port's device (the card
-unless the caller names another).
+shard each.  The port's `Mesh` is a list of D shard slots, each with a
+torch.device.  `make_mesh()` takes every card PyTorch sees, one shard
+each, as the reference's takes `jax.devices()`; on one card it gives
+the reference's tier-1 mesh, DEFAULT_SHARDS slots on that card.  A
+caller may name the devices, the CPU included (a mixed mesh such as
+["cuda", "cpu", "cuda", "cpu"] makes every exchange cross a device
+boundary); the default mesh never takes the CPU.
 
 A placed tensor is a `Sharded`: its D blocks, one per shard, in shard
-order, each in storage of its own, and the axis they split (None for a
-replicated tensor, whose D blocks hold equal values).  `shard_state` and
-`state_shardings` place a NamedTuple of tensors by the reference's rule
-(the node axis is the leading one, or the one the state type's
-SHARD_AXES names; a tensor whose node axis is not N long replicates),
-and `assemble` stitches a placed tree back into whole tensors.
+order, each in storage of its own on its shard's device, and the axis
+they split (None for a replicated tensor, whose D blocks hold equal
+values).  `shard_state` and `state_shardings` place a NamedTuple of
+tensors by the reference's rule (the node axis is the leading one, or
+the one the state type's SHARD_AXES names; a tensor whose node axis is
+not N long replicates), and `assemble` stitches a placed tree back into
+whole tensors on shard 0's device.
 
 `Collectives` is what a sharded step runs against: D threads, one per
 shard, in lockstep, because the reference's step body is SPMD code that
 calls collectives mid-step.  Each collective is a rendezvous: every
-shard posts its block and waits, the last one combines the posted
-blocks (a stack, an integer sum or max), and every shard reads what it
-needs.  The shards take turns between rendezvous (one runs at a time),
-which keeps D threads from contending for the interpreter.  All
-reductions are integer, so a sum is the same in any order.  A shard
-that raises aborts the rendezvous, so every other shard raises too; a
-wait longer than BARRIER_TIMEOUT_S seconds breaks it the same way.  `run_spmd`
-runs one function on every shard and returns their results in shard
-order.
+shard posts its block and waits, then every shard reads what it needs
+in its own thread, on its own device: a stack is built once per device
+from the posted blocks (a block from another device copied in), an
+integer sum or max is computed once, on the device of the first shard
+that reads it, and copied to the others.  The shards take turns between
+rendezvous (one runs at a time), which keeps D threads from contending
+for the interpreter.  All reductions are integer, so a sum is the same
+in any order.  A shard that raises aborts the rendezvous, so every other
+shard raises too; a wait longer than BARRIER_TIMEOUT_S seconds breaks
+it the same way.  `run_spmd` runs one function on every shard and
+returns their results in shard order.
 
-On the card every shard thread launches on the caller's current stream,
-so the exchanged tensors are ordered by the stream and need no event.
+Ordering on the card: each shard runs on the caller's current stream of
+its device, and records an event on it when it posts.  A block read on
+another device is copied after the copying stream waits on that event
+(PyTorch's cross-device copy runs on the source device's current stream
+of the reading thread, which need not be the poster's), so no copy
+relies on two threads sharing a stream.  `Mesh.copied_bytes` counts the
+bytes the collectives copy between distinct devices.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -48,29 +59,73 @@ BARRIER_TIMEOUT_S = 600.0
 
 
 class Mesh:
-    """D shard slots over the node axis, each with its torch.device."""
+    """D shard slots over the node axis, each with its torch.device.
+    `copied_bytes` counts the bytes the collectives have copied between
+    distinct devices (a caller zeroes it before the work it reads)."""
 
     def __init__(self, devices):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one shard")
         self.size = len(self.devices)
+        self.distinct = tuple(dict.fromkeys(self.devices))
+        self.copied_bytes = 0
         self._lock = threading.Lock()
 
     def __repr__(self) -> str:
-        return f"Mesh({self.size} shards on {sorted(set(map(str, self.devices)))})"
+        return f"Mesh({self.size} shards on {[str(d) for d in self.distinct]})"
+
+    def stack_copies(self) -> int:
+        """Blocks one stack copies between devices: every device takes
+        the blocks of the shards on the others."""
+        return sum(self.size - self.devices.count(dv) for dv in self.distinct)
+
+    def reduce_copies(self) -> int:
+        """Blocks one psum or pmax copies between devices: the blocks of
+        the other devices into shard 0's, then the result out to each
+        other device."""
+        return (self.size - self.devices.count(self.devices[0])
+                + len(self.distinct) - 1)
+
+
+def _named(device) -> torch.device:
+    """A named shard device (device.py's form), or a ValueError when
+    it is a card PyTorch does not see."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if (dev.index or 0) >= cards:
+            raise ValueError(f"mesh device {dev} is not available "
+                             f"(PyTorch sees {cards} CUDA devices)")
+    return devmod.resolve(dev)
 
 
 def make_mesh(n_devices: int | None = None,
               devices: list | None = None) -> Mesh:
-    """1-D mesh over the node axis: `devices` (one shard each), cut to
-    `n_devices`; by default DEFAULT_SHARDS shards on the port's default
-    device (the card; swim_tpu_torch/device.py)."""
+    """1-D mesh over the node axis.  `devices` names one device a
+    shard (the CPU only where named; a device PyTorch does not see
+    raises), cut to `n_devices`.  By default, one shard per card when
+    PyTorch sees two or more, cut to `n_devices`; on one card
+    `n_devices` (DEFAULT_SHARDS) slots on it (swim_tpu_torch/device.py:
+    no card raises)."""
     if devices is None:
-        devices = [devmod.resolve(None)] * (n_devices or DEFAULT_SHARDS)
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards >= 2:
+            devices = [torch.device("cuda", i)
+                       for i in range(cards)][:n_devices]
+        else:
+            devices = [devmod.resolve(None)] * (n_devices or DEFAULT_SHARDS)
     elif n_devices is not None:
         devices = list(devices)[:n_devices]
-    return Mesh([devmod.resolve(d) for d in devices])
+    return Mesh([_named(d) for d in devices])
+
+
+def start_mesh(device=None) -> Mesh:
+    """The mesh a sharded engine's `start` builds: `make_mesh()` when no
+    device is named, else DEFAULT_SHARDS slots on the named one."""
+    if device is None:
+        return make_mesh()
+    return make_mesh(devices=[device] * DEFAULT_SHARDS)
 
 
 class Sharded:
@@ -97,9 +152,13 @@ class Sharded:
         return tuple(shape)
 
     def whole(self) -> torch.Tensor:
+        """The whole tensor on shard 0's device: the blocks stitched in
+        shard order (each copied there from its own device), or a
+        replicated one's block 0."""
         if self.axis is None:
             return self.blocks[0]
-        return torch.cat(self.blocks, dim=self.axis)
+        dev = self.device
+        return torch.cat([b.to(dev) for b in self.blocks], dim=self.axis)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={self.shape}, dtype={self.blocks[0].dtype}, "
@@ -205,9 +264,9 @@ def gather_blocks(per_shard: list, specs):
 
 
 def assemble(tree):
-    """Whole tensors from a placed tree (each Sharded leaf stitched in
-    shard order, a replicated one read from shard 0); anything else
-    passes unchanged.  The census, checkpoints and tests read these."""
+    """Whole tensors from a placed tree, each on its shard 0's device
+    (`Sharded.whole`); anything else passes unchanged.  The census,
+    checkpoints and tests read these."""
     if isinstance(tree, Sharded):
         return tree.whole()
     if isinstance(tree, tuple):
@@ -220,23 +279,38 @@ def assemble(tree):
 # ---------------------------------------------------------------------------
 
 
+class _Post(NamedTuple):
+    """What one shard posted: its value (a tensor or a tuple of them),
+    and on the card the event recorded after it on `stream`."""
+
+    value: Any
+    ready: Any
+    stream: Any
+
+
 class Collectives:
-    """Rendezvous collectives among D shard threads (see the module
-    note).  Every method is called by all D shards in the same order
-    with `rank` = the caller's shard; the results of reductions and
-    gathers are shared by the shards and must not be written to.
+    """Rendezvous collectives among the D shard threads of `mesh` (see
+    the module note).  Every method is called by all D shards in the
+    same order with `rank` = the caller's shard, and returns the result
+    on the caller's device; results are shared by the shards of one
+    device and must not be written to.
 
     The shards take turns: shard r runs until its next collective,
     posts its block there and hands the turn to shard r+1; the last
-    shard combines the posted blocks and hands the turn back to shard
-    0.  One shard runs at a time, so the threads never contend for the
-    interpreter, and every shard runs its step in the same order."""
+    shard's post completes the rendezvous and hands the turn back to
+    shard 0.  Each shard then reads its result in its turn, before it
+    posts again, so the posted blocks stay readable until the last
+    shard posts the next rendezvous.  One shard runs at a time, so the
+    threads never contend for the interpreter, every shard runs its step
+    in the same order, and the per-device results need no lock."""
 
-    def __init__(self, d: int):
-        self.d = d
-        self._turn = [threading.Event() for _ in range(d)]
-        self._slots: list = [None] * d
-        self._out: Any = None
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.d = mesh.size
+        self._turn = [threading.Event() for _ in range(self.d)]
+        self._slots: list = [None] * self.d
+        self._posted: list = []
+        self._results: dict = {}       # device -> _Post of its result
         self._broken = False
 
     def _check(self) -> None:
@@ -255,73 +329,124 @@ class Collectives:
     def pass_turn(self, rank: int) -> None:
         self._turn[(rank + 1) % self.d].set()
 
-    def exchange(self, rank: int, x, combine: Callable):
-        """Post x, let every shard post, and return combine(posted
-        list), computed once by the last shard."""
-        self._check()
-        self._slots[rank] = x
-        if rank == self.d - 1:
-            self._out = None        # free the last result first
-            self._out = combine(self._slots)
-            self._slots = [None] * self.d
-        self.pass_turn(rank)
-        self.wait_turn(rank)
-        return self._out
-
     def abort(self) -> None:
         """Release every shard: each waiting or later exchange raises."""
         self._broken = True
         for ev in self._turn:
             ev.set()
 
+    def _post(self, rank: int, x) -> list[_Post]:
+        """Post x, let every shard post, and return every shard's post."""
+        self._check()
+        ready, stream = self._event(self.mesh.devices[rank])
+        self._slots[rank] = _Post(x, ready, stream)
+        if rank == self.d - 1:
+            self._posted, self._slots = self._slots, [None] * self.d
+            self._results = {}
+        self.pass_turn(rank)
+        self.wait_turn(rank)
+        return self._posted
+
+    def _event(self, dev: torch.device) -> tuple:
+        """(event, stream): an event recorded on `dev`'s current stream,
+        where a block posted there may be read on another device."""
+        if dev.type != "cuda" or len(self.mesh.distinct) == 1:
+            return None, None
+        stream = torch.cuda.current_stream(dev)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+        return ready, stream
+
+    def _fetch(self, post: _Post, dev: torch.device) -> torch.Tensor:
+        """A posted tensor on `dev`: one of another device is copied
+        once its event has fired on the copying stream (the bytes
+        counted in mesh.copied_bytes)."""
+        x = post.value
+        if x.device == dev:
+            return x
+        if post.ready is not None:
+            cs = torch.cuda.current_stream(x.device)
+            cs.wait_event(post.ready)
+            if cs != post.stream:
+                x.record_stream(cs)
+        self.mesh.copied_bytes += x.numel() * x.element_size()
+        return x.to(dev)
+
+    def _once_per_device(self, rank: int, make: Callable):
+        """make(dev) computed once per device per rendezvous and shared
+        by the shards of that device."""
+        dev = self.mesh.devices[rank]
+        if dev not in self._results:
+            self._results[dev] = _Post(make(dev), None, None)
+        return self._results[dev].value
+
+    def _gathered(self, posts: list[_Post], dev: torch.device) -> list:
+        return [self._fetch(p, dev) for p in posts]
+
     # -- the collectives of the reference's shard_map ---------------------
     def stack(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """[D, *x.shape]: every shard's x in shard order (all_gather;
         a ppermute reads the block it needs from it)."""
-        return self.exchange(rank, x, torch.stack)
+        posts = self._post(rank, x)
+        return self._once_per_device(
+            rank, lambda dev: torch.stack(self._gathered(posts, dev)))
 
     def stack_many(self, rank: int, xs: tuple) -> tuple:
         """`stack` of several tensors in one rendezvous."""
-        return self.exchange(
-            rank, xs, lambda slots: tuple(torch.stack(col)
-                                          for col in zip(*slots)))
+        posts = self._post(rank, tuple(xs))
+
+        def make(dev):
+            cols = zip(*(self._gathered([p._replace(value=v) for v in
+                                         p.value], dev) for p in posts))
+            return tuple(torch.stack(col) for col in cols)
+        return self._once_per_device(rank, make)
+
+    def _reduce(self, rank: int, x: torch.Tensor, op: Callable):
+        """op of the posted blocks, computed on the device of the first
+        shard to read it and copied to each other device."""
+        posts = self._post(rank, x)
+        dev = self.mesh.devices[rank]
+        if dev not in self._results:
+            if self._results:
+                out = self._fetch(next(iter(self._results.values())), dev)
+            else:
+                out = op(torch.stack(self._gathered(posts, dev)))
+            self._results[dev] = _Post(out, *self._event(dev))
+        return self._results[dev].value
 
     def psum(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's x, in x's integer dtype."""
-        return self.exchange(
-            rank, x, lambda slots: torch.stack(slots).sum(0, dtype=x.dtype))
+        return self._reduce(rank, x, lambda s: s.sum(0, dtype=x.dtype))
 
     def pmax(self, rank: int, x: torch.Tensor) -> torch.Tensor:
-        return self.exchange(rank, x,
-                             lambda slots: torch.stack(slots).amax(0))
+        return self._reduce(rank, x, lambda s: s.amax(0))
 
 
 def run_spmd(mesh: Mesh, fn: Callable, around: Callable | None = None
              ) -> list:
     """[fn(rank, collectives) for every shard], the D calls running at
-    once, one thread each, on the mesh's devices.  `around(rank)`, when
-    given, is a context manager each shard's thread enters around its
-    call (thread-local state such as a TorchDispatchMode does not cross
-    into the shard threads from the caller's).  If a shard raises, the
-    others are released from their barrier and the first error is
-    raised here (a barrier broken by it is not the error)."""
+    once, one thread each, on the mesh's devices: a card shard's thread
+    runs on that card and on the caller's current stream of it, so what
+    the caller does on a card after the call is ordered after the
+    shards' work there.  `around(rank)`, when given, is a context
+    manager each shard's thread enters around its call (thread-local
+    state such as a TorchDispatchMode does not cross into the shard
+    threads from the caller's).  If a shard raises, the others are
+    released from their barrier and the first error is raised here (a
+    barrier broken by it is not the error)."""
     d = mesh.size
-    coll = Collectives(d)
+    coll = Collectives(mesh)
     results: list = [None] * d
     errors: list = [None] * d
-    stream = None
-    dev0 = mesh.devices[0]
-    if dev0.type == "cuda":
-        stream = torch.cuda.current_stream(dev0)
+    streams = {dev: torch.cuda.current_stream(dev)
+               for dev in mesh.distinct if dev.type == "cuda"}
 
     def body(rank: int) -> None:
         dev = mesh.devices[rank]
         with contextlib.ExitStack() as ctx:
             if dev.type == "cuda":
                 ctx.enter_context(torch.cuda.device(dev))
-                ctx.enter_context(torch.cuda.stream(
-                    stream if dev == dev0 else
-                    torch.cuda.current_stream(dev)))
+                ctx.enter_context(torch.cuda.stream(streams[dev]))
             if around is not None:
                 ctx.enter_context(around(rank))
             try:

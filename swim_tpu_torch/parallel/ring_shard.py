@@ -34,21 +34,30 @@ placed state is bitwise the single-device engine's:
 shard's own blocks (u32[S, WW] rows, cold u32[RW, S]); the plain
 versions with `plain=True`, and on CPU tensors.
 
+Each shard computes on its own device: the exchanged blocks reach it
+through the collectives, and each period's randomness is cut to its rows
+and copied to its device before the shards start.  A roll's shift is a
+device value, so a roll still gathers all D posted blocks where the
+reference's layout moves two (`mesh_copy_bytes` counts what a mesh
+copies for a period's exchanges).
+
 `place` splits a whole state and plan onto the mesh by the reference's
 spec tables (`_state_specs`, `_plan_specs`, `_rnd_specs`),
 `mapped_step` gives the sharded step(state, plan, rnd) on placed
 trees, `build_run` a run of periods, and `mesh.assemble` the whole
 state back; `start` places a fresh state and a plan on the default
-mesh of one device and builds its step.  A `ShardedStep`'s `record`,
-when set to a list, receives every exchange of shard 0: its op, the
-dtype and shape of every tensor it posts (`payloads`, with the
-reference's `wire_dtype`: uint32 for the u32 values of `U32_LANES` in
-their int32 carriers; `dtype` and `shape` name the main one), the number of such blocks the reference's
-layout moves into one device for it (`blocks`: two for a roll by a
-device-side distance, D for an all-gather, one otherwise), and the
-bytes the bill charges for it under its labels (`terms`, the
-convention of obs/ici.py).  Its `around`, when set, is a per-shard
-context manager factory (mesh.run_spmd).  `ShardedStep.built` counts
+mesh (`mesh.make_mesh()`: one shard per card, or 8 slots of one card)
+or on 8 slots of a named device, and builds its step.  A
+`ShardedStep`'s `record`, when set to a list, receives every exchange
+of shard 0: its op, the dtype and shape of every tensor it posts
+(`payloads`, with the reference's `wire_dtype`: uint32 for the u32
+values of `U32_LANES` in their int32 carriers; `dtype` and `shape` name
+the main one), the number of such blocks the reference's layout moves
+into one device for it (`blocks`: two for a roll by a device-side
+distance, D for an all-gather, one otherwise), and the bytes the bill
+charges for it under its labels (`terms`, the convention of
+obs/ici.py).  Its `around`, when set, is a per-shard context manager
+factory (mesh.run_spmd).  `ShardedStep.built` counts
 the steps constructed in the process (analysis/audit.py's build seam).
 """
 from __future__ import annotations
@@ -437,13 +446,30 @@ def place(cfg: SwimConfig, mesh: pmesh.Mesh, state: ring.RingState, plan):
     return st, pl
 
 
-def _slice_rnd(rnd, specs, lo: int, s: int):
+def _slice_rnd(rnd, specs, lo: int, s: int, device):
+    """Shard rows [lo, lo + s) of a period's randomness on `device`
+    (replicated leaves whole)."""
     if rnd is None:
         return None
     if isinstance(rnd, tuple):
-        return type(rnd)(*(_slice_rnd(x, sp, lo, s)
+        return type(rnd)(*(_slice_rnd(x, sp, lo, s, device)
                            for x, sp in zip(rnd, specs)))
-    return rnd if specs is None else rnd.narrow(specs, lo, s)
+    return (rnd if specs is None else rnd.narrow(specs, lo, s)).to(device)
+
+
+def mesh_copy_bytes(record: list, mesh: pmesh.Mesh) -> int:
+    """Bytes `mesh`'s collectives copy between devices for the exchanges
+    of `record` (shard 0's, as `ShardedStep.record` keeps them; every
+    shard posts the same shapes): each psum's posted bytes times
+    `mesh.reduce_copies()`, each stack's (a roll, a ring pass, an
+    all-gather) times `mesh.stack_copies()`."""
+    total = 0
+    for e in record:
+        posted = sum(getattr(torch, p["dtype"]).itemsize
+                     * torch.Size(p["shape"]).numel() for p in e["payloads"])
+        total += posted * (mesh.reduce_copies() if e["op"] == "psum"
+                           else mesh.stack_copies())
+    return total
 
 
 class ShardedStep:
@@ -474,6 +500,9 @@ class ShardedStep:
         rspecs = _rnd_specs(cfg)
         record = self.record
 
+        rnds = [_slice_rnd(rnd, rspecs, r * s, s, dev)
+                for r, dev in enumerate(self.mesh.devices)]
+
         def body(rank, coll):
             from swim_tpu_torch.obs.prof import PhaseProbe
 
@@ -483,8 +512,7 @@ class ShardedStep:
             tap = {} if cfg.telemetry else None
             pr = PhaseProbe() if cfg.profiling else None
             st = ring.step(cfg, pmesh.block(state, rank),
-                           pmesh.block(plan, rank),
-                           _slice_rnd(rnd, rspecs, rank * s, s), ops=ops,
+                           pmesh.block(plan, rank), rnds[rank], ops=ops,
                            tap=tap, prof=pr)
             extras = []
             if cfg.telemetry:
@@ -512,12 +540,13 @@ def build_step(cfg: SwimConfig, mesh: pmesh.Mesh,
     return mapped_step(cfg, mesh, plain)
 
 
-def start(cfg: SwimConfig, plan, device):
+def start(cfg: SwimConfig, plan, device=None):
     """(mesh, placed initial state, placed plan, sharded step): the
-    engine's set-up on pmesh.DEFAULT_SHARDS shards of `device`, as the
-    studies, memwall and the CLI run it."""
-    mesh = pmesh.make_mesh(devices=[device] * pmesh.DEFAULT_SHARDS)
-    state, plan = place(cfg, mesh, ring.init_state(cfg, device), plan)
+    engine's set-up, as the studies, memwall and the CLI run it, on
+    `pmesh.start_mesh(device)`."""
+    mesh = pmesh.start_mesh(device)
+    state, plan = place(cfg, mesh, ring.init_state(cfg, mesh.devices[0]),
+                        plan)
     return mesh, state, plan, mapped_step(cfg, mesh)
 
 

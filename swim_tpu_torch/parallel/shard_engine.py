@@ -41,8 +41,12 @@ compacted tuple and fills.
 The engine models neither FaultProgram lanes nor join churn, as in the
 reference: `place` and a run's start refuse such plans (one host read
 of `join_step`, never one a period).  It has no telemetry tap or phase
-probe.  `start(cfg, plan, device)` places a fresh state and a plan on
-the default mesh of one device and builds its step.
+probe.  `start(cfg, plan, device=None)` places a fresh state and a plan
+on the default mesh (every card, or 8 slots of one) or on 8 slots of a
+named device, and builds its step.  Each shard computes on its own
+device: the gathered messages reach it through the collectives, and
+each period's randomness is cut to its rows and copied to its device
+before the shards start.
 """
 from __future__ import annotations
 
@@ -392,12 +396,13 @@ class ShardedRumorStep:
             raise NotImplementedError(_PROGRAM_MSG)
         cfg, g = self.cfg, self.geometry
 
+        rnds = [tree_map(lambda x: x.narrow(0, r * g.n_loc, g.n_loc)
+                         .to(dev), rnd)
+                for r, dev in enumerate(self.mesh.devices)]
+
         def body(rank, coll):
-            lo = rank * g.n_loc
             return _shard_step(cfg, g, rank, coll, pmesh.block(state, rank),
-                               pmesh.block(plan, rank),
-                               tree_map(lambda x: x.narrow(0, lo, g.n_loc),
-                                        rnd))
+                               pmesh.block(plan, rank), rnds[rank])
 
         return pmesh.gather_blocks(pmesh.run_spmd(self.mesh, body),
                                    STATE_SPECS)
@@ -471,10 +476,11 @@ def place(cfg: SwimConfig, mesh: pmesh.Mesh, state: RumorState, plan):
             pmesh.place_tree(plan, PLAN_SPECS, mesh))
 
 
-def start(cfg: SwimConfig, plan, device):
+def start(cfg: SwimConfig, plan, device=None):
     """(mesh, placed initial state, placed plan, sharded step): the
-    engine's set-up on pmesh.DEFAULT_SHARDS shards of `device`, as the
-    studies and the CLI run it."""
-    mesh = pmesh.make_mesh(devices=[device] * pmesh.DEFAULT_SHARDS)
-    state, plan = place(cfg, mesh, rumor.init_state(cfg, device), plan)
+    engine's set-up, as the studies and the CLI run it, on
+    `pmesh.start_mesh(device)` (every card, or 8 slots of one device)."""
+    mesh = pmesh.start_mesh(device)
+    state, plan = place(cfg, mesh, rumor.init_state(cfg, mesh.devices[0]),
+                        plan)
     return mesh, state, plan, build_step(cfg, mesh)

@@ -15,13 +15,15 @@ arguments:
 Engine selection as in the reference: "auto" picks the exact dense
 engine up to `DENSE_MAX` nodes and the O(R*N) rumor engine above;
 "ring" is the ring engine, "ringshard" the same engine sharded over
-the node axis (parallel/ring_shard.py: `pmesh.DEFAULT_SHARDS` shards on
-the study's device, stepped through its mapped step; the census reads
-the state assembled from the shards); "shard" the exchange-sharded
-rumor engine (parallel/shard_engine.py, on as many shards, lossless:
-the rumor engine's result; the census sums each shard's knower
-counts).  The result's state is assembled from the shards.  Every
-study runs on the CUDA card unless `device` names another device.
+the node axis (parallel/ring_shard.py, stepped through its mapped
+step; the census counts each shard's rows on its device and sums the
+counts); "shard" the exchange-sharded rumor engine
+(parallel/shard_engine.py, lossless: the rumor engine's result; the
+census sums each shard's knower counts).  Both shard over
+`mesh.make_mesh()` (one shard per card, or `pmesh.DEFAULT_SHARDS` slots
+of one card) unless `device` names a device, whose 8 slots they then
+take.  The result's state is assembled from the shards.  Every study
+runs on the CUDA card unless `device` names another device.
 `SwimConfig(telemetry=True)` with "shard" raises ValueError: the
 engine has no tap (the reference fails there unpacking the frame).
 
@@ -70,8 +72,10 @@ def _require_ported(engine: str) -> None:
 
 
 def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
-               engine: str, dev, stream: bool = False, ckpt=None,
+               engine: str, device=None, stream: bool = False, ckpt=None,
                chunk: int = 0):
+    """One study of `engine` on `device` (None: the card, or for the
+    sharded engines the default mesh)."""
     if stream and engine not in RING_ENGINES:
         raise ValueError(
             f"streaming studies cover the ring engines only, not "
@@ -83,14 +87,14 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
             raise ValueError("the exchange-sharded rumor engine ('shard') "
                              "has no telemetry tap; use 'rumor' or "
                              "'ringshard' for telemetry studies")
-        _, state, plan, step_fn = shard_engine.start(cfg, plan, dev)
+        _, state, plan, step_fn = shard_engine.start(cfg, plan, device)
         res = runner.run_study_rumor(cfg, state, plan, key, periods,
                                      step_fn)
         return res._replace(state=pmesh.assemble(res.state))
     if engine == "ringshard":
         from swim_tpu_torch.parallel import ring_shard
 
-        _, state, plan, step_fn = ring_shard.start(cfg, plan, dev)
+        _, state, plan, step_fn = ring_shard.start(cfg, plan, device)
         if stream:
             res = runner.run_study_ring_stream(cfg, state, plan, key,
                                                periods, step_fn,
@@ -99,6 +103,7 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
             res = runner.run_study_ring(cfg, state, plan, key, periods,
                                         step_fn)
         return res._replace(state=pmesh.assemble(res.state))
+    dev = devmod.resolve(device)
     if engine == "dense":
         return runner.run_study(cfg, dense.init_state(cfg, dev), plan, key,
                                 periods)
@@ -129,7 +134,6 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
                          "has no fault-program path; use rumor, ring, "
                          "or ringshard")
     _require_ported(engine)
-    dev = devmod.resolve(device)
     progs = list(progs)
     keys = list(keys)
     if len(keys) != len(progs):
@@ -142,7 +146,7 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
     batch = faults.stack_programs(progs, cap)
     return runner.batch_states(
         [_run_study(cfg, faults.lane_program(batch, p), key, periods,
-                    engine, dev) for p, key in enumerate(keys)])
+                    engine, device) for p, key in enumerate(keys)])
 
 
 def _crash_plan(n: int, seed: int, crash_fraction: float, periods: int,
@@ -198,7 +202,7 @@ def detection_study(n: int = 1000, crash_fraction: float = 0.01,
         ckpt = runner.StudyCheckpointer(checkpoint_dir,
                                         every=checkpoint_every)
     plan = _crash_plan(n, seed, crash_fraction, periods, dev)
-    res = _run_study(cfg, plan, threefry.key(seed), periods, engine, dev,
+    res = _run_study(cfg, plan, threefry.key(seed), periods, engine, device,
                      stream=do_stream, ckpt=ckpt, chunk=chunk)
     out = {"study": "detection", "n": n, "periods": periods,
            "engine": engine, "crash_fraction": crash_fraction,
@@ -259,7 +263,7 @@ def fp_sweep(n: int = 100_000, losses: tuple = (0.0, 0.1, 0.2, 0.3),
             plan = faults.with_partition(plan, faults.halves(n),
                                          periods // 3, 2 * periods // 3)
         res = _run_study(cfg, plan, threefry.key(seed), periods, engine,
-                         dev)
+                         device)
         series = runner.host_series(res.series)
         pt = {
             "loss": loss,
@@ -295,7 +299,7 @@ def suspicion_sweep(n: int = 1_000_000,
             plan = faults.with_loss(
                 _crash_plan(n, seed, crash_fraction, periods, dev), lv)
             res = _run_study(cfg, plan, threefry.key(seed), periods,
-                             engine, dev)
+                             engine, device)
             pt = {"suspicion_mult": mult, "loss": lv,
                   "suspicion_periods": cfg.suspicion_periods}
             pt.update(runner.detection_summary(res, plan, periods))
@@ -329,7 +333,7 @@ def lifeguard_ablation(n: int = 1_000_000, crash_fraction: float = 0.001,
         plan = faults.with_loss(
             _crash_plan(n, seed, crash_fraction, periods, dev), loss)
         res = _run_study(cfg, plan, threefry.key(seed), periods, engine,
-                         dev)
+                         device)
         arm = runner.detection_summary(res, plan, periods)
         arm["false_dead_views_peak"] = int(
             runner.host_series(res.series).false_dead_views.max())

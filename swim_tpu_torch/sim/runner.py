@@ -16,17 +16,20 @@ directly), `run_study_rumor` (rumor: per-rumor counts of live knowers,
 The streaming ring runner keeps the compact track, runs in chunks of
 periods and can checkpoint between chunks (`StudyCheckpointer`) and
 resume bitwise.  The ring runners also step a placed state (the sharded
-engine, parallel/ring_shard.py) through its `mapped_step` as `step_fn`:
-the census then reads the state assembled from its shards
-(`_census_state`, the one copy a period, inside the period's time), and
-the result holds the placed state.  `run_study_rumor` steps the
-exchange-sharded rumor engine (parallel/shard_engine.py) the same way;
-its census counts each shard's block of `knows` and sums the counts in
-int32 (`_live_knowers`), never assembling the [N, R] matrix, and reads
-the other fields assembled.  The per-period values stay on the device and are
-stacked at the end (a chunk's end for the stream): no host sync inside
-a period.  Counts are int32 with int32 wrap, as the reference's (the
-sums are taken in int64 and cut to 32 bits).
+engine, parallel/ring_shard.py) through its `mapped_step` as `step_fn`,
+and the result holds the placed state.  The census then counts each
+shard's blocks of `win` and `cold` against its rows of `up` on the
+shard's device, and sums the partial counts in int64 on shard 0's
+device, cut to int32, as the reference's partitioned census does
+(`_placed_knowers`); only the per-node and replicated fields are
+assembled there, never the window or the cold ring.  `run_study_rumor`
+steps the exchange-sharded rumor engine (parallel/shard_engine.py) the
+same way; its census counts each shard's block of `knows` and sums the
+counts in int32 (`_live_knowers`), never assembling the [N, R] matrix,
+and reads the other fields assembled.  The per-period values stay on
+the device and are stacked at the end (a chunk's end for the stream):
+no host sync inside a period.  Counts are int32 with int32 wrap, as
+the reference's (the sums are taken in int64 and cut to 32 bits).
 
 With `cfg.telemetry` every runner steps the engine with its tap and
 returns the period-stacked `EngineFrame` (obs/engine.py) as the
@@ -169,22 +172,35 @@ def _max_incarnation(st) -> torch.Tensor:
     return u32.flip(u32.flip(inc).max())
 
 
-def _census_state(state) -> ring.RingState:
-    """The whole state the census reads: a placed state assembled from
-    its shards (one copy of it), any other state as it is."""
-    return pmesh.assemble(state)
+def _placed_knowers(cfg: SwimConfig, state, up: torch.Tensor
+                    ) -> torch.Tensor:
+    """ring.live_knower_counts of a placed state: each shard's count of
+    its own rows on its device, the partial counts summed in int64 on
+    `up`'s device and cut to int32."""
+    s = cfg.n_nodes // len(state.win.blocks)
+    parts = []
+    for i, blk in enumerate(state.win.blocks):
+        mine = up[i * s:(i + 1) * s].to(blk.device)
+        parts.append(ring.live_knower_counts(cfg, pmesh.block(state, i),
+                                             mine).to(up.device, I64))
+    return _wrap32(torch.stack(parts).sum(0))
 
 
-def _census(cfg: SwimConfig, st: ring.RingState, base: FaultPlan):
-    """What every study body reads after a step: (t, crashed, up,
-    knowers, gone_not_alive, gone_dead) of the period just run.  `st`
-    and `base` are whole (_census_state)."""
+def _census(cfg: SwimConfig, state, base: FaultPlan):
+    """What every study body reads after a step: (the state's per-node
+    and replicated fields, whole; t, crashed, up, knowers,
+    gone_not_alive, gone_dead) of the period just run.  `state` is
+    whole or placed (the census then counts per shard), `base` whole."""
+    placed = isinstance(state.win, pmesh.Sharded)
+    st = (pmesh.assemble(state._replace(win=None, cold=None)) if placed
+          else state)
     t, crashed, up = _observers(st, base)
-    knowers = ring.live_knower_counts(cfg, st, up)
+    knowers = (_placed_knowers(cfg, state, up) if placed
+               else ring.live_knower_counts(cfg, st, up))
     gone = st.gone_key
     gone_dead = lattice.is_dead(gone)
-    return (t, crashed, up, knowers, lattice.is_suspect(gone) | gone_dead,
-            gone_dead)
+    return (st, t, crashed, up, knowers,
+            lattice.is_suspect(gone) | gone_dead, gone_dead)
 
 
 def _first(cur, cond, crashed, t):
@@ -249,8 +265,8 @@ def ring_study_period(cfg: SwimConfig, state, track: StudyTrack,
     (state, track, the period's series row, its EngineFrame or None);
     `base` is the plan's whole FaultPlan."""
     state, frame = stepper(state, rnd)
-    whole = _census_state(state)
-    t, crashed, up, knowers, gone_na, gone_dead = _census(cfg, whole, base)
+    whole, t, crashed, up, knowers, gone_na, gone_dead = _census(
+        cfg, state, base)
     not_alive, dead_seen, dead_all, counts = _subject_flags(
         cfg.n_nodes, whole.subject, whole.rkey, knowers, up, gone_na,
         gone_dead)
@@ -332,14 +348,16 @@ def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
 
 def _live_knowers(knows, up: torch.Tensor) -> torch.Tensor:
     """rumor.live_knowers of a whole or a placed heard-bit matrix: a
-    placed one counts each shard's block against its rows of `up` and
-    sums the counts in int32 (the whole matrix's bits)."""
+    placed one counts each shard's block against its rows of `up` on
+    the shard's device and sums the counts in int32 on `up`'s device
+    (the whole matrix's bits)."""
     if not isinstance(knows, pmesh.Sharded):
         return rumor.live_knowers(knows, up)
     s = knows.blocks[0].shape[0]
-    return torch.stack([rumor.live_knowers(b, up[i * s:(i + 1) * s])
-                        for i, b in enumerate(knows.blocks)]).sum(
-                            0, dtype=I32)
+    return torch.stack([
+        rumor.live_knowers(b, up[i * s:(i + 1) * s].to(b.device))
+        .to(up.device) for i, b in enumerate(knows.blocks)]).sum(
+            0, dtype=I32)
 
 
 def rumor_study_period(cfg: SwimConfig, state: rumor.RumorState,
@@ -434,8 +452,8 @@ def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
     read): (state, track, the period's series row, its EngineFrame or
     None).  `base` is the plan's whole FaultPlan."""
     state, frame = stepper(state, rnd)
-    whole = _census_state(state)
-    t, _, up, knowers, gone_na, gone_dead = _census(cfg, whole, base)
+    whole, t, _, up, knowers, gone_na, gone_dead = _census(cfg, state,
+                                                           base)
     not_alive, dead_seen, dead_all = _compact_subject_flags(
         track.subjects, whole.subject, whole.rkey, knowers, up,
         gone_na, gone_dead)

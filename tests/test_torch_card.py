@@ -45,7 +45,11 @@ conftest, which imports JAX,
     memwall measures the sharded streaming study's peak on the card;
   * the exchange-sharded rumor engine (8 shards on the card) gives the
     rumor golden digests and the single-device rumor study, launches no
-    kernel, and a sharded study period makes no host sync.
+    kernel, and a sharded study period makes no host sync;
+  * on the mesh card, CPU, card, CPU: ringshard in both scopes and
+    `shard` equal one card, a study checkpointed on the card's 8 slots
+    resumes there bitwise, and the audit's sharded wire arms pass with
+    the bytes copied between the devices equal to their model.
 """
 from __future__ import annotations
 
@@ -596,3 +600,129 @@ def test_shard_engine_equals_one_device_on_the_card(cuda):
                                   faults.base_of(plan), rnd, stepper)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _mixed_mesh(cuda):
+    """chip_smoke.py phase 19's mesh: card, CPU, card, CPU."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.make_mesh(devices=[cuda, "cpu", cuda, "cpu"])
+
+
+@pytest.mark.parametrize("kw", [dict(ring_sel_scope="period"), {}],
+                         ids=["period", "wave"])
+def test_ringshard_on_a_card_and_cpu_mesh_equals_one_card(cuda, kw):
+    """ringshard at 4,096 nodes on the mixed mesh for 2 periods: every
+    field equals ring.run on the card; selb and coldsel launch on the
+    two card shards only (twice one card's), wavemerge never; the bytes
+    copied between the devices equal the mesh's model of the recorded
+    exchanges."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import ring_shard
+
+    n, periods = 4096, 2
+    mesh = _mixed_mesh(cuda)
+    cfg = SwimConfig(n_nodes=n, **kw)
+    plan = faults.with_random_crashes(faults.none(n, cuda),
+                                      threefry.key(1), 0.01, 0, periods)
+
+    def launches():
+        return [selb.launches, coldsel.launches, wavemerge.launches]
+
+    before = launches()
+    want = ring.run(cfg, ring.init_state(cfg, cuda), plan, 3, periods)
+    mid = launches()
+    st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, cuda), plan)
+    step = ring_shard.mapped_step(cfg, mesh)
+    step.record = []
+    mesh.copied_bytes = 0
+    for rnd in ring.period_randomness(cfg, threefry.key(3), 0, periods,
+                                      cuda):
+        st = step(st, pl, rnd)
+    after = launches()
+    one = [b - a for a, b in zip(before, mid)]
+    assert [b - a for a, b in zip(mid, after)] == [2 * one[0], 2 * one[1], 0]
+    assert [b.device.type for b in st.win.blocks] == \
+        ["cuda", "cpu", "cuda", "cpu"]
+    got = pmesh.assemble(st)
+    for f in ring.RingState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert mesh.copied_bytes == \
+        ring_shard.mesh_copy_bytes(step.record, mesh) > 0
+
+
+def test_shard_engine_on_a_card_and_cpu_mesh_equals_one_card(cuda):
+    """The exchange-sharded rumor engine at 4,096 nodes (loss 0.1, 3
+    periods) on the mixed mesh equals rumor.run on the card."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import shard_engine
+
+    n, periods = 4096, 3
+    mesh = _mixed_mesh(cuda)
+    cfg = SwimConfig(n_nodes=n)
+    plan = faults.with_loss(faults.with_random_crashes(
+        faults.none(n, cuda), threefry.key(1), 0.01, 0, periods), 0.1)
+    want = rumor.run(cfg, rumor.init_state(cfg, cuda), plan, 3, periods)
+    st, pl = shard_engine.place(cfg, mesh, rumor.init_state(cfg, cuda),
+                                plan)
+    got = pmesh.assemble(shard_engine.build_run(cfg, mesh, periods)(
+        st, pl, 3))
+    for f in rumor.RumorState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert mesh.copied_bytes > 0
+
+
+def test_audit_wire_arms_on_a_card_and_cpu_mesh(cuda):
+    """The audit's sharded wire arms (audit.sharded_wire_arms, 512
+    nodes) on the mixed mesh: every row passes, and each arm copies
+    between the devices exactly its model's bytes, more than none."""
+    from swim_tpu_torch.analysis import audit
+
+    rows = []
+    out = audit.sharded_wire_arms(_mixed_mesh(cuda), 512,
+                                  lambda *row: rows.append(row))
+    assert len(rows) == 3 * len(audit.WIRE_ARMS)
+    assert all(ok for _, _, ok, _ in rows), rows
+    assert out["unattributed"] == 0
+    for arm, c in out["copies"].items():
+        assert c["copied"] == c["model"] > 0, arm
+
+
+def test_study_checkpointed_on_the_card_resumes_on_a_mixed_mesh(
+        cuda, tmp_path):
+    """A streaming ringshard pull study at 4,096 nodes checkpointed on 8
+    slots of the card after 2 of its 4 periods and resumed on the mixed
+    mesh: track and series equal the one-card ring study's."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import ring_shard
+
+    class Stop(RuntimeError):
+        pass
+
+    class StopAfterSnapshot(runner.StudyCheckpointer):
+        def save(self, *a, **kw):
+            super().save(*a, **kw)
+            raise Stop
+
+    n, periods, every = 4096, 4, 2
+    cfg = SwimConfig(n_nodes=n, ring_probe="pull")
+    plan = experiments._crash_plan(n, 0, 0.01, periods, cuda)
+    key = threefry.key(0)
+    want = runner.run_study_ring_stream(cfg, ring.init_state(cfg, cuda),
+                                        plan, key, periods, chunk=every)
+    for mesh, ckpt in (
+            (pmesh.make_mesh(devices=[cuda] * 8),
+             StopAfterSnapshot(str(tmp_path), every=every)),
+            (_mixed_mesh(cuda), runner.StudyCheckpointer(str(tmp_path),
+                                                         every=every))):
+        st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, cuda),
+                                  plan)
+        try:
+            got = runner.run_study_ring_stream(
+                cfg, st, pl, key, periods, ring_shard.mapped_step(cfg, mesh),
+                ckpt=ckpt)
+        except Stop:
+            continue
+    for part in ("track", "series"):
+        for a, b in zip(getattr(got, part), getattr(want, part)):
+            assert torch.equal(a, b), part
