@@ -165,8 +165,9 @@ Phases, each printed as one JSON line:
      2,048 nodes in the bridge geometry, k = 1: frames and state after
      every period) on the card, selb 6, wavemerge 6 and coldsel 1
      launches a period; (2) the same script at 65,536 nodes with the
-     default SwimConfig for 20 periods, card against CPU after every
-     period (frames, state, findings), launches 14 / 14 / 1 a period;
+     default SwimConfig for 10 periods (20 until phase 20 came), card
+     against CPU after every period (frames, state, findings), launches
+     14 / 14 / 1 a period;
      (3) the reference's conformance scenarios with the compiled C++
      core: one core joining 65,536 engine nodes (victim killed at 8 s,
      a forged suspicion refuted into tensor state, no false deaths) and
@@ -210,11 +211,11 @@ Phases, each printed as one JSON line:
      packed scalar wire, 3 periods on one device, sharded with the
      kernels and sharded with the plain versions: all 14 fields equal,
      launches (zeroed before, read after) 8 times the single-device
-     selb and coldsel and no wavemerge; golden.GOLDEN_DIGESTS by the
+     selb and coldsel and wavemerge once a wave on each shard (each
+     exchanged block ORed in at offset 0); golden.GOLDEN_DIGESTS by the
      sharded engine (in a child process beside phases 17-19, see
-     below); selb and
-     coldsel on every per-shard input of one
-     more wave-scope period (112 and 8 calls) and of a period at
+     below); selb, coldsel and wavemerge on every per-shard input of
+     one more wave-scope period (112, 8 and 112 calls) and of a period at
      8 x 125,001 nodes (S % 4 != 0), bitwise against their plain
      versions, with `ms_main` on shard 0's inputs; one sharded period
      under PyTorch's sync check set to raise; the 1M pull detection
@@ -264,8 +265,9 @@ Phases, each printed as one JSON line:
      kernels' plain versions): ringshard at 1,000,000 nodes in period
      and in wave scope, 2 periods each, every field equal to ring.run
      on the card, selb and coldsel launched on the two card shards
-     (twice one card's) and no wavemerge, the card shards' kernel calls
-     of one more period against their plain versions; `shard` at
+     (twice one card's) and wavemerge on them once a wave, the card
+     shards' kernel calls of one more period against their plain
+     versions; `shard` at
      100,000 nodes (R = 4,096, loss 0.1, 3 periods) equal to rumor.run;
      the 1M pull study (4 periods in chunks of 2) checkpointed on the
      card's 8 slots, stopped after its first chunk and resumed on the
@@ -283,10 +285,32 @@ Phases, each printed as one JSON line:
      "all_cards", "run": false`.  `launches_multidevice` sums the
      launches of the mixed mesh's runs.
 
+ 20. partition: the dense, ring and rumor engines partitioned over the
+     same mixed mesh (parallel/partition.py), each against one card,
+     every field bitwise: dense at DENSE_MAX = 8,192 nodes (1%
+     crashes, telemetry on, every period's EngineFrame equal) and rumor
+     at 100,000 nodes (R = 4,096, loss 0.1, telemetry on) under a join
+     schedule and a FaultProgram with two segments, 3 periods of the
+     one-card step and of the partitioned step; the ring through the
+     studies' router: `make_mesh()` giving the mixed mesh,
+     `_run_study_batch` of two FaultProgram lanes at 100,000 nodes
+     (rotor, wave scope, 3 periods), each lane equal to its one-card
+     serial study, selb and coldsel launched on the two card shards
+     (twice one card's) and wavemerge on them once a wave, the card
+     shards' kernel calls of one more period against their plain
+     versions.  For each: the seconds, the
+     bytes copied between the devices a period (`Mesh.copied_bytes`),
+     the rendezvous a period (`Mesh.rendezvous`) and the card shards'
+     launches (`launches_partition`: the ring's).  Where PyTorch sees
+     two or more cards: the 1M rumor detection study
+     (`experiments._run_study`) over `make_mesh()`, its state, track and
+     series bitwise the one-card study's, each card's peak; on
+     one card the line `"part": "all_cards", "run": false`.
+
 Phase 12's search and phase 16's sharded golden digests are host-paced
 checks, so each runs in a child process (`Background`) from just after
 phase 17's timing, the last measurement of time on one card, to the end
-of phase 19's one-card part.  Every line printed while a child runs,
+of phase 20's one-card parts.  Every line printed while a child runs,
 and each child's own lines (printed when it is joined), carry
 `"contended": true`: their walls shared the host and the card.  Then
 the `kernels` summary line, the card's name and power limit, and last
@@ -295,6 +319,7 @@ is then nonzero and the last line is not printed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -326,7 +351,7 @@ from swim_tpu_torch.serve import load as serve_load
 from swim_tpu_torch.obs import engine as obs_engine
 from swim_tpu_torch.ops import coldsel, lattice, selb, u32, wavemerge
 from swim_tpu_torch.parallel import mesh as pmesh
-from swim_tpu_torch.parallel import ring_shard, shard_engine
+from swim_tpu_torch.parallel import partition, ring_shard, shard_engine
 from swim_tpu_torch.sim import (experiments, faults, runner, scenario,
                                 search)
 from swim_tpu_torch.types import MsgKind, Status
@@ -504,7 +529,8 @@ def kernel_phase(cfg) -> dict:
     # edge cases: offsets 0 / N-1 / negative / beyond N, wraps inside a
     # tile (85 receivers at WW=12), VB rows, WW=3 (the 4-byte path), the
     # main path's shape of oks (two dense waves, twelve sparse), and the
-    # one-wave merges of the in-line delivery (V=1, VB=0 and 1)
+    # one-wave merges of the in-line delivery (V=1, VB=0 and 1), and the
+    # sharded ring's sender-side forced bit (V=0, VB=1)
     sparse = [0.99] * 2 + [0.002] * 12
     edge = []
     for n_e, ww_e, vb_e, offs, dens in (
@@ -513,7 +539,7 @@ def kernel_phase(cfg) -> dict:
             (1, 12, 1, [0, 5], 0.4), (1000, 3, 2, None, 0.4),
             (1001, 12, 1, [0, 1, -1, -85, 830, 2001, -2999, 84], 0.4),
             (50_000, 12, 0, None, sparse), (1000, 12, 0, [-7], 0.9),
-            (1000, 12, 1, [993], 0.9)):
+            (1000, 12, 1, [993], 0.9), (1000, 12, 1, [], 0.4)):
         nv = 14 if offs is None else len(offs)
         edge.append(check_wavemerge(gen, n_e, ww_e, nv, vb_e, offs,
                                     dens)[1])
@@ -554,6 +580,19 @@ def expected_launches(cfg) -> dict:
     fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
     return {"selb": 1 if cfg.ring_sel_scope == "period" else waves,
             "coldsel": 1, "wavemerge": 1 if fused else waves}
+
+
+def shard_merge_launches(cfg) -> int:
+    """wavemerge calls a period on each card shard of the sharded ring:
+    one a wave (the exchanged block ORed in at offset 0), and in wave
+    scope under Lifeguard's buddy one more for each wave whose sender
+    forces a bit (W1 and the k W4s); none under pull."""
+    if cfg.ring_probe == "pull":
+        return 0
+    waves = 2 + 4 * cfg.k_indirect
+    fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
+    buddy = cfg.lifeguard and cfg.buddy and not fused
+    return waves + (1 + cfg.k_indirect if buddy else 0)
 
 
 def golden_phase() -> None:
@@ -1932,7 +1971,7 @@ def serve_phase(rows: dict, card: str) -> dict:
 # ------------------------------------------------------ phase 14: bridge
 
 BRIDGE_PARITY_N = 65_536
-BRIDGE_PARITY_PERIODS = 20
+BRIDGE_PARITY_PERIODS = 10     # 20 until phase 20 came
 BRIDGE_TIMED_PERIODS = 20
 BRIDGE_SYNC_PERIODS = 2
 
@@ -2623,8 +2662,9 @@ def shard_run(cfg, plan, periods: int, plain: bool = False, seed: int = 0):
 def shard_parity(name: str) -> tuple[dict, object]:
     """SHARD_PERIODS periods at N on one device, sharded with the kernels
     and sharded with the plain versions: all 14 fields equal; the
-    sharded launches D times the single-device selb and coldsel and no
-    wavemerge.  Returns (launches, the kernels' placed state)."""
+    sharded launches D times the single-device selb and coldsel and
+    wavemerge once a wave on each shard.  Returns (launches, the
+    kernels' placed state)."""
     t0 = time.perf_counter()
     cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS[name])
     plan = crash_plan(cfg, SHARD_PERIODS)
@@ -2643,7 +2683,7 @@ def shard_parity(name: str) -> tuple[dict, object]:
     require_same(f"ringshard {name}: sharded against one device", k, single)
     require_same(f"ringshard {name}: kernels against plain versions", k, p)
     want = {"selb": SHARDS * one["selb"], "coldsel": SHARDS * one["coldsel"],
-            "wavemerge": 0}
+            "wavemerge": SHARDS * SHARD_PERIODS * shard_merge_launches(cfg)}
     if launches != want or one["wavemerge"] == 0:
         raise AssertionError(f"ringshard {name}: launches {launches}, one "
                              f"device {one}, expected {want}")
@@ -2673,10 +2713,11 @@ def shard_golden() -> None:
 
 def capture_shard_period(cfg, placed, plan, t: int, mesh=None) -> dict:
     """One sharded period from `placed` (period t, on `mesh`, by default
-    the 8 slots of the card) with selb's and coldsel's wrappers keeping
+    the 8 slots of the card) with the three kernels' wrappers keeping
     clones of the arguments of every call."""
-    got = {"selb": [], "coldsel": []}
-    real = (selb.select_first_b, coldsel.cold_update_select)
+    got = {"selb": [], "coldsel": [], "wavemerge": []}
+    real = (selb.select_first_b, coldsel.cold_update_select,
+            wavemerge.merge_waves)
     lock = threading.Lock()
 
     def keep(name, fn):
@@ -2690,11 +2731,13 @@ def capture_shard_period(cfg, placed, plan, t: int, mesh=None) -> dict:
 
     selb.select_first_b = keep("selb", real[0])
     coldsel.cold_update_select = keep("coldsel", real[1])
+    wavemerge.merge_waves = keep("wavemerge", real[2])
     try:
         rnd = ring.draw_period_ring(threefry.key(0), t, cfg, "cuda")
         ring_shard.mapped_step(cfg, mesh or shard_mesh())(placed, plan, rnd)
     finally:
-        selb.select_first_b, coldsel.cold_update_select = real
+        (selb.select_first_b, coldsel.cold_update_select,
+         wavemerge.merge_waves) = real
     torch.cuda.synchronize()
     return got
 
@@ -2711,22 +2754,33 @@ def check_captured(what: str, got: dict) -> int:
         c_p, s_p = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
         err = max(err, require_equal(f"{what} coldsel cold", c_k, c_p),
                   require_equal(f"{what} coldsel sel", s_k, s_p))
+    for (win, sel, oks, offs, bcol, bval) in got["wavemerge"]:
+        err = max(err, require_equal(
+            f"{what} wavemerge S={win.shape[0]} v={oks.shape[0]} "
+            f"vb={bcol.shape[0]}",
+            wavemerge.merge_waves(win.clone(), sel, oks, offs, bcol, bval),
+            wavemerge.merge_waves_plain(win.clone(), sel, oks, offs, bcol,
+                                        bval)))
     return err
 
 
 def shard_kernels(placed, rows: dict) -> None:
-    """selb and coldsel on the per-shard inputs of one more wave-scope
-    period at N (and of a period at SHARD_ODD_N, S % 4 != 0), bitwise
-    against their plain versions; the per-shard `ms_main_ringshard`."""
+    """selb, coldsel and wavemerge on the per-shard inputs of one more
+    wave-scope period at N (and of a period at SHARD_ODD_N, S % 4 != 0),
+    bitwise against their plain versions; the per-shard
+    `ms_main_ringshard`."""
     t0 = time.perf_counter()
     cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS["wave"])
     plan = shard_place(cfg, crash_plan(cfg, SHARD_PERIODS))[1]
     got = capture_shard_period(cfg, placed, plan, SHARD_PERIODS)
     waves = 2 + 4 * cfg.k_indirect
     if (len(got["selb"]) != SHARDS * waves
-            or len(got["coldsel"]) != SHARDS):
-        raise AssertionError(f"ringshard: captured {len(got['selb'])} selb "
-                             f"and {len(got['coldsel'])} coldsel calls")
+            or len(got["coldsel"]) != SHARDS
+            or len(got["wavemerge"]) != SHARDS * shard_merge_launches(cfg)):
+        raise AssertionError(
+            f"ringshard: captured {len(got['selb'])} selb, "
+            f"{len(got['coldsel'])} coldsel and {len(got['wavemerge'])} "
+            "wavemerge calls")
     err = check_captured("ringshard", got)
     odd_cfg = SwimConfig(n_nodes=SHARD_ODD_N, ring_sel_scope="period")
     odd_plan = crash_plan(odd_cfg, SHARD_PERIODS)
@@ -2739,6 +2793,7 @@ def shard_kernels(placed, rows: dict) -> None:
     err = max(err, check_captured("ringshard odd S", odd))
     win, b = got["selb"][0]
     cold, fr, fv, qr = got["coldsel"][0]
+    m_win, m_sel, oks, offs, bcol, bval = got["wavemerge"][0]
     s = win.shape[0]
     for name, t_k, t_p, nbytes, nops in (
             ("selb", gpu_ms(lambda: selb.select_first_b(win, b)),
@@ -2750,15 +2805,24 @@ def shard_kernels(placed, rows: dict) -> None:
              gpu_ms(lambda: coldsel.cold_update_select_plain(
                  cold, fr, fv, qr), samples=5, inner=2),
              (2 * fr.shape[0] + 3 * qr.shape[0]) * s * 4,
-             s * (fr.shape[0] + qr.shape[0] * (fr.shape[0] + 4)))):
+             s * (fr.shape[0] + qr.shape[0] * (fr.shape[0] + 4))),
+            ("wavemerge",
+             gpu_ms(lambda: wavemerge.merge_waves(m_win, m_sel, oks, offs,
+                                                  bcol, bval)),
+             gpu_ms(lambda: wavemerge.merge_waves_plain(
+                 m_win, m_sel, oks, offs, bcol, bval), samples=5, inner=2),
+             3 * m_win.numel() * 4 + oks.numel(),
+             m_win.numel() * 3 * oks.shape[0])):
         bms, by = bound(nbytes, nops)
         rows[name]["ringshard"] = dict(
             ms_main=t_k, plain_ms_main=t_p, bytes_main=nbytes,
             bound_ms_main=bms, bound_by=by, shard_rows=s)
     emit(phase="ringshard", part="kernels", max_abs_err=err,
          selb_calls=len(got["selb"]), coldsel_calls=len(got["coldsel"]),
+         wavemerge_calls=len(got["wavemerge"]),
          odd_shard_rows=odd["coldsel"][0][0].shape[1],
          selb=rows["selb"]["ringshard"], coldsel=rows["coldsel"]["ringshard"],
+         wavemerge=rows["wavemerge"]["ringshard"],
          seconds=time.perf_counter() - t0)
 
 
@@ -3349,8 +3413,8 @@ def copy_row(cfg, mesh, record: list, copied: int, periods: int) -> dict:
 
 def multi_ring_part(name: str, kw: dict, n: int) -> dict:
     """ringshard on the mixed mesh at `n` nodes for MULTI_PERIODS
-    periods against ring.run on the card, every field bitwise; selb and
-    coldsel launched on the card shards only; the captured inputs of
+    periods against ring.run on the card, every field bitwise; the three
+    kernels launched on the card shards only; the captured inputs of
     their card calls in one more period against the plain versions."""
     t0 = time.perf_counter()
     mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
@@ -3369,7 +3433,7 @@ def multi_ring_part(name: str, kw: dict, n: int) -> dict:
                           "card", pmesh.assemble(placed), single)
     c = card_shards(mesh)
     want = {"selb": c * one["selb"], "coldsel": c * one["coldsel"],
-            "wavemerge": 0}
+            "wavemerge": c * MULTI_PERIODS * shard_merge_launches(cfg)}
     if launches != want or one["selb"] == 0:
         raise AssertionError(f"multidevice {name}: launches {launches}, "
                              f"one card {one}, expected {want}")
@@ -3614,6 +3678,216 @@ def multidevice_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------- phase 20: partition
+
+# the dense, ring and rumor engines partitioned over the mixed mesh
+# (parallel/partition.py), each against one card
+PART_PERIODS = 3
+PART_DENSE_N = experiments.DENSE_MAX
+PART_DENSE_CRASHES = 0.01
+PART_RUMOR_N = 100_000
+PART_RUMOR_R = 4096
+PART_RING_N = 100_000
+PART_ALL_PERIODS = 4
+
+
+@contextlib.contextmanager
+def default_mesh(mesh):
+    """`pmesh.make_mesh()` gives `mesh` inside the block: the studies'
+    router sees its devices as the machine's."""
+    real = pmesh.make_mesh
+    pmesh.make_mesh = lambda *a, **kw: mesh
+    try:
+        yield mesh
+    finally:
+        pmesh.make_mesh = real
+
+
+def zero_counts(mesh) -> None:
+    torch.cuda.synchronize()
+    reset_launches()
+    mesh.copied_bytes = mesh.rendezvous = 0
+
+
+def mesh_counts(mesh, periods: int) -> dict:
+    return dict(copied_bytes_per_period=mesh.copied_bytes / periods,
+                rendezvous_per_period=mesh.rendezvous / periods)
+
+
+def part_rows_engine(name: str, cfg, plan) -> dict:
+    """`name` ("dense" or "rumor", cfg.telemetry on) for PART_PERIODS
+    periods on one card and partitioned on the mixed mesh, from init
+    with the same draws: every field and every period's EngineFrame
+    equal; no kernel of the port launched."""
+    t0 = time.perf_counter()
+    model, draw = {"dense": (dense, prng.draw_period),
+                   "rumor": (rumor, rumor.draw_period_rumor)}[name]
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    rnds = [draw(threefry.key(0), t, cfg, "cuda")
+            for t in range(PART_PERIODS)]
+    one, one_frames = model.init_state(cfg, "cuda"), []
+    for rnd in rnds:
+        tap = {}
+        one = model.step(cfg, one, plan, rnd, tap=tap)
+        one_frames.append(obs_engine.frame_from_tap(tap, "cuda"))
+    st, pl = partition.place(cfg, mesh, name, model.init_state(cfg, "cuda"),
+                             plan)
+    step = partition.build_step(cfg, mesh, name)
+    zero_counts(mesh)
+    t1 = time.perf_counter()
+    frames = []
+    for rnd in rnds:
+        st, frame = step(st, pl, rnd)
+        frames.append(frame)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_launches()
+    counts = mesh_counts(mesh, PART_PERIODS)
+    fields = require_same(f"partition {name}: mixed mesh against one card",
+                          pmesh.assemble(st), one)
+    for t, (a, b) in enumerate(zip(frames, one_frames)):
+        require_same(f"partition {name}: frame of period {t}", a, b)
+    if any(launches.values()):
+        raise AssertionError(f"partition {name}: launches {launches}")
+    return dict(phase="partition", part=name, n_nodes=cfg.n_nodes,
+                shards=mesh.size, devices=MIXED_DEVICES,
+                periods=PART_PERIODS, fields_equal=fields,
+                frames_equal=len(frames), launches=launches,
+                card_shard_launches={"selb": 0, "coldsel": 0,
+                                     "wavemerge": 0}, **counts,
+                run_seconds=run_s, seconds=time.perf_counter() - t0)
+
+
+def part_dense() -> None:
+    """Dense at DENSE_MAX (the study's default geometry), 1% crashes."""
+    cfg = SwimConfig(n_nodes=PART_DENSE_N, telemetry=True)
+    emit(**part_rows_engine("dense", cfg, crash_plan(
+        cfg, PART_PERIODS, PART_DENSE_CRASHES)),
+        crash_fraction=PART_DENSE_CRASHES)
+
+
+def part_rumor() -> None:
+    """Rumor at 100,000 nodes, R = 4,096, loss 0.1, with a join
+    schedule (200 nodes joining at periods 1 and 2) and a FaultProgram
+    with segments: neither of which the `shard` engine takes."""
+    n = PART_RUMOR_N
+    cfg = SwimConfig(n_nodes=n, rumor_capacity=PART_RUMOR_R, telemetry=True)
+    plan = faults.with_loss(crash_plan(cfg, PART_PERIODS), SHARD_LOSS)
+    late = np.arange(n - 200, n)
+    plan = faults.with_joins(plan, late, np.where(late % 2 == 0, 1, 2))
+    prog = faults.as_program(plan, np.arange(n) % 4, capacity=2)
+    prog = faults.with_segment(prog, 0, start=0, end=PART_PERIODS,
+                               kind="gray", level=0.3, domain=1)
+    prog = faults.with_segment(prog, 1, start=1, end=PART_PERIODS,
+                               kind="link_loss", level=0.2, domain=2)
+    emit(**part_rows_engine("rumor", cfg, prog), rumor_slots=cfg.rumor_slots,
+         loss=SHARD_LOSS, joins=int(late.size), segments=2)
+
+
+def part_ring() -> dict:
+    """The ring through the studies' router: `_run_study_batch` with two
+    FaultProgram lanes at 100,000 nodes (the rotor probe, wave scope),
+    `make_mesh()` giving the mixed mesh; each lane equal to its one-card
+    serial study; selb and coldsel on the two card shards, twice one
+    card's, and wavemerge on them once a wave; the card shards' kernel
+    calls of one more period against their plain versions.  Returns the
+    batch's launches."""
+    t0 = time.perf_counter()
+    n = PART_RING_N
+    cfg = SwimConfig(n_nodes=n)
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    lossy = faults.as_program(faults.with_loss(
+        crash_plan(cfg, PART_PERIODS), SHARD_LOSS), np.arange(n) % 4,
+        capacity=1)
+    progs = [program_plan(n), faults.with_segment(
+        lossy, 0, start=1, end=PART_PERIODS, kind="gray", level=0.3,
+        domain=3)]
+    keys = [threefry.key(0), threefry.key(1)]
+    torch.cuda.synchronize()
+    reset_launches()
+    one = [experiments._run_study(cfg, prog, key, PART_PERIODS, "ring",
+                                  device="cuda")
+           for prog, key in zip(progs, keys)]
+    torch.cuda.synchronize()
+    one_launches = read_launches()
+    zero_counts(mesh)
+    t1 = time.perf_counter()
+    with default_mesh(mesh):
+        batch = experiments._run_study_batch(cfg, progs, keys, PART_PERIODS,
+                                             "ring")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_launches()
+    periods = PART_PERIODS * len(progs)
+    counts = mesh_counts(mesh, periods)
+    fields = sum(require_same(f"partition ring: lane {p} against its "
+                              "one-card study", runner.lane_result(batch, p),
+                              one[p]) for p in range(len(progs)))
+    c = card_shards(mesh)
+    want = {"selb": c * one_launches["selb"],
+            "coldsel": c * one_launches["coldsel"],
+            "wavemerge": c * periods * shard_merge_launches(cfg)}
+    if launches != want or not one_launches["coldsel"]:
+        raise AssertionError(f"partition ring: launches {launches}, one "
+                             f"card {one_launches}, expected {want}")
+    placed, pl = ring_shard.place(cfg, mesh, one[1].state, progs[1])
+    got = capture_shard_period(cfg, placed, pl, PART_PERIODS, mesh)
+    got = {k: [a for a in v if a[0].is_cuda] for k, v in got.items()}
+    if not all(got.values()):
+        raise AssertionError(f"partition ring: captured card calls "
+                             f"{ {k: len(v) for k, v in got.items()} }")
+    err = check_captured("partition ring", got)
+    emit(phase="partition", part="ring", n_nodes=n, shards=mesh.size,
+         devices=MIXED_DEVICES, lanes=len(progs), periods=PART_PERIODS,
+         routed_by="experiments._run_study_batch", fields_equal=fields,
+         launches=launches, launches_one_card=one_launches,
+         card_shard_launches=launches,
+         kernels_checked={k: len(v) for k, v in got.items()},
+         max_abs_err=err,
+         **counts, run_seconds=run_s, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def partition_phase(card: str) -> dict:
+    """Phase 20 but its all-card part (`partition_all_cards`); returns
+    the kernels' launches on the card shards of its runs."""
+    t0 = time.perf_counter()
+    part_dense()
+    part_rumor()
+    launches = part_ring()
+    emit(phase="partition", part="done", launches=launches,
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
+def partition_all_cards(card: str) -> None:
+    """The 1M rumor detection study through make_mesh(), where PyTorch
+    sees two or more cards, against the one-card study: state, track
+    and series bitwise; each card's peak."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit(phase="partition", part="all_cards", run=False, cards=cards)
+        return
+    t0 = time.perf_counter()
+    cfg = SwimConfig(n_nodes=N)
+    # detection_study's plan at its default 1% crashes
+    plan = experiments._crash_plan(N, 0, 0.01, PART_ALL_PERIODS, "cuda:0")
+    key = threefry.key(0)
+    one = experiments._run_study(cfg, plan, key, PART_ALL_PERIODS, "rumor",
+                                 device="cuda:0")
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    got = experiments._run_study(cfg, plan, key, PART_ALL_PERIODS, "rumor")
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(cards)]
+    fields = sum(require_same(f"partition all cards: {part} against one "
+                              "card", getattr(got, part), getattr(one, part))
+                 for part in ("state", "track", "series"))
+    emit(phase="partition", part="all_cards", run=True, cards=cards,
+         n_nodes=N, periods=PART_ALL_PERIODS, fields_equal=fields,
+         device_peaks=peaks, seconds=time.perf_counter() - t0, card=card)
+
+
 # ------------------------------------------------ phase 18: audit_oracles
 
 AUDIT_CODE = (
@@ -3818,12 +4092,14 @@ def main() -> None:
             Background("ringshard_golden", "shard_golden()")]))
         launches.update(audit_oracles_phase(card))
         launches["multidevice"] = multidevice_phase(card)
+        launches["partition"] = partition_phase(card)
         for job in background:
             job.join()
     finally:
         for job in background:
             job.stop()
     all_cards_part(card)
+    partition_all_cards(card)
 
     replaces = {"selb": "swim_tpu/ops/selb.py:110",
                 "coldsel": "swim_tpu/ops/coldsel.py:114",
@@ -3857,6 +4133,7 @@ def main() -> None:
             launches_audit=launches["audit"][name],
             launches_oracle=launches["oracle"][name],
             launches_multidevice=launches["multidevice"][name],
+            launches_partition=launches["partition"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -26,7 +26,10 @@ so.  `--engine ringshard` runs the sharded ring engine
 (parallel/ring_shard.py) and `--engine shard` the exchange-sharded
 rumor engine (parallel/shard_engine.py): without `--device` over
 `mesh.make_mesh()` (one shard per card, or 8 slots of one card), with
-it on 8 slots of the named device.  `audit` writes no report unless
+it on 8 slots of the named device.  Without `--device`, `simulate`
+partitions dense, ring and rumor over `make_mesh()` where it holds two
+or more distinct devices (parallel/partition.py), and reports their
+count as `devices`.  `audit` writes no report unless
 `--out` names a path (the reference's default path holds the
 reference's own report).
 """
@@ -167,16 +170,27 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         plan = faults.with_random_crashes(
             plan, threefry.key(args.seed + 1), args.crash_fraction,
             0, max(1, args.periods // 2))
-    if engine in ("shard", "ringshard"):
-        from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import partition
 
+    mesh = None
+    if args.device is None and engine in experiments.PARTITIONED:
+        # partitioned over every device where there are two or more, as
+        # the reference's GSPMD partitions the step
+        mesh = pmesh.make_mesh()
+        mesh = mesh if partition.partitions(mesh) else None
+    if mesh is not None:
+        mesh, state, placed_plan, _ = partition.start(cfg, engine, plan, mesh)
+        run_fn = partition.build_run(cfg, mesh, engine, args.periods)
+    elif engine in ("shard", "ringshard"):
         if engine == "shard":
             from swim_tpu_torch.parallel import shard_engine as par_mod
         else:
             from swim_tpu_torch.parallel import ring_shard as par_mod
         mesh, state, placed_plan, _ = par_mod.start(cfg, plan, args.device)
-        devices = len(mesh.distinct)
         run_fn = par_mod.build_run(cfg, mesh, args.periods)
+    if mesh is not None:
+        devices = len(mesh.distinct)
 
         def do_run(st):
             return pmesh.assemble(run_fn(st, placed_plan,

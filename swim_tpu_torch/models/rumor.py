@@ -54,12 +54,13 @@ import torch
 
 from swim_tpu_torch import device as devmod
 from swim_tpu_torch.config import SwimConfig
-from swim_tpu_torch.models.common import Engine, repeat, run_periods
+from swim_tpu_torch.models.common import Engine, Rows, repeat, run_periods
 from swim_tpu_torch.ops import lattice, sampling, scatter, u32
 from swim_tpu_torch.sim import faults
 from swim_tpu_torch.sim.faults import FaultPlan
 from swim_tpu_torch.utils import threefry
 from swim_tpu_torch.utils.prng import PeriodRandomness, draw_period
+from swim_tpu_torch.utils.tree import tree_map
 
 RESAMPLE_ATTEMPTS = 4
 BIG = 2**30
@@ -473,8 +474,51 @@ def _originate(cfg: SwimConfig, state: RumorState, t, tb: Table,
                       overflow, newly, placed, slot_f, orig_c)
 
 
+def _choose(cfg: SwimConfig, st: RumorState, own: torch.Tensor,
+            up_own: torch.Tensor, joined: torch.Tensor, rnd: RumorRandomness,
+            t):
+    """Phase A (deviation 3) for the prober rows `own` (global ids)
+    whose heard-bits are `st.knows`, `rnd` cut to those rows: (target
+    i32[m], prober bool[m], proxies i32[m, k])."""
+    n = cfg.n_nodes
+    base = rnd.base
+    n_m1 = float(n - 1)     # exact in f32 for n < 2**24
+
+    def draw_tgt(u):
+        idx = (u * n_m1).to(I32).clamp(max=n - 2)
+        return idx + (idx >= own).to(I32)
+
+    if cfg.target_selection == "round_robin":
+        m = own.shape[0]
+        epoch = (t // (n - 1)).expand(m).contiguous()
+        pos = (t % (n - 1)).expand(m).contiguous()
+        target = sampling.round_robin_target(own, epoch, pos, n)
+        prober = up_own & joined[target.to(I64)]
+    else:
+        target = draw_tgt(base.target_u)
+        bad = _believes_dead(st, target) | ~joined[target.to(I64)]
+        for a in range(RESAMPLE_ATTEMPTS):
+            nxt = draw_tgt(rnd.resample_u[:, a])
+            target = torch.where(bad, nxt, target)
+            bad = bad & (_believes_dead(st, target)
+                         | ~joined[target.to(I64)])
+        prober = up_own & ~bad & (n >= 2)
+
+    # proxies: uniform over j not in {i, T(i)}
+    lo = torch.minimum(own, target)
+    hi = torch.maximum(own, target)
+    idx2 = (base.proxy_u * float(max(n - 2, 1))).to(I32).clamp(
+        max=max(n - 3, 0))
+    prox = idx2 + (idx2 >= lo[:, None]).to(I32)
+    prox = prox + (prox >= hi[:, None]).to(I32)                # i32[m, k]
+    # only n <= 2 reaches n here, where no proxy message is sent; the
+    # reference's gathers clamp the index the same way
+    return target, prober, prox.clamp(max=n - 1)
+
+
 def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
-         rnd: RumorRandomness, *, tap=None, prof=None) -> RumorState:
+         rnd: RumorRandomness, *, tap=None, prof=None,
+         rows: Rows | None = None) -> RumorState:
     """One protocol period for all N nodes (reference rumor.py:212-649).
     The incoming state is left untouched.  `tap`, a dict, receives the
     period's EngineFrame fields (obs/engine.py; no index_overflow) as
@@ -482,9 +526,22 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     first wave's selection, which reads the start-of-period heard-bits.
     `prof`, an obs/prof.py PhaseProbe, marks the ends of select, merge,
     commit and (beside a tap) telemetry_tap; in prefix mode the step
-    returns the captured live set of its phase."""
+    returns the captured live set of its phase.
+
+    `rows` (common.Rows; None: all N) is the block of rows whose
+    `knows`, `inc_self` and `lha` the state holds, the table, the
+    tombstones, `plan` and `rnd` whole: a partitioned step
+    (parallel/partition.py) runs this body on each shard's block.  The
+    knower counts are summed over the blocks; the probers choose on
+    their own rows and one gather shares the choices; each wave's
+    sender rows select, one gather shares the selections, and the
+    receiver rows hear the messages addressed to them; the sentinels'
+    verdicts are joined over the blocks and the originations of each
+    block gathered in node order, so every block runs the same
+    allocation."""
     n, k, r_cap = cfg.n_nodes, cfg.k_indirect, cfg.rumor_slots
-    s_cap = cfg.sentinels
+    rows = rows or Rows(n)
+    m = rows.m
     plan, prog = faults.split_program(plan)
     t = state.step
     base = rnd.base
@@ -494,48 +551,19 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     crashed = faults.crashed_mask(plan, t)
     joined = plan.join_step <= t
     up = ~crashed & joined
+    own, up_own = rows.take(ids), rows.take(up)
 
     # ---- Phase 0: retire stale rumors -------------------------------------
-    tb = _retire(cfg, state, t, live_knowers(state.knows, up),
+    tb = _retire(cfg, state, t, rows.psum(live_knowers(state.knows, up_own)),
                  up.sum(dtype=I32))
     subject, gone_key, used = tb.subject, tb.gone_key, tb.used
     rkey = state.rkey
     st = state._replace(subject=subject, gone_key=gone_key)
 
     # ---- Phase A: probe targets (deviation 3) -----------------------------
-    n_m1 = float(n - 1)     # exact in f32 for n < 2**24
-
-    def draw_tgt(u):
-        idx = (u * n_m1).to(I32).clamp(max=n - 2)
-        return idx + (idx >= ids).to(I32)
-
-    if cfg.target_selection == "round_robin":
-        epoch = (t // (n - 1)).expand(n).contiguous()
-        pos = (t % (n - 1)).expand(n).contiguous()
-        target = sampling.round_robin_target(ids, epoch, pos, n)
-        prober = up & joined[target.to(I64)]
-    else:
-        target = draw_tgt(base.target_u)
-        bad = _believes_dead(st, target) | ~joined[target.to(I64)]
-        for a in range(RESAMPLE_ATTEMPTS):
-            nxt = draw_tgt(rnd.resample_u[:, a])
-            target = torch.where(bad, nxt, target)
-            bad = bad & (_believes_dead(st, target)
-                         | ~joined[target.to(I64)])
-        prober = up & ~bad & (n >= 2)
-
-    # proxies: uniform over j not in {i, T(i)}
-    lo = torch.minimum(ids, target)
-    hi = torch.maximum(ids, target)
-    idx2 = (base.proxy_u * float(max(n - 2, 1))).to(I32).clamp(
-        max=max(n - 3, 0))
-    prox = idx2 + (idx2 >= lo[:, None]).to(I32)
-    prox = prox + (prox >= hi[:, None]).to(I32)                # i32[N, k]
+    target, prober, prox = rows.gather(_choose(
+        cfg, st, own, up_own, joined, tree_map(rows.take, rnd), t))
     has_proxy = n > 2
-    # only n <= 2 reaches n here, where no proxy message is sent; the
-    # reference's gathers clamp the index the same way
-    prox = prox.clamp(max=n - 1)
-
     delivered = faults.float_delivery(plan, prog, t, up)
 
     # ---- Phase B: global piggyback candidates (deviation 1) ---------------
@@ -548,14 +576,14 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
                             cand_idx=cand_idx, cand_valid=cand_valid,
                             subject=subject, gone_key=gone_key)
 
-    # the period's heard-bits, written in place; row n is the spare row
+    # the period's heard-bits, written in place; row m is the spare row
     # that takes the writes of False
-    kbuf = torch.empty((n + 1, r_cap), dtype=torch.bool, device=dev)
-    kbuf[:n] = state.knows
-    kbuf[n] = False
-    knows = kbuf[:n]
+    kbuf = torch.empty((m + 1, r_cap), dtype=torch.bool, device=dev)
+    kbuf[:m] = state.knows
+    kbuf[m] = False
+    knows = kbuf[:m]
     true = torch.ones((), dtype=torch.bool, device=dev)
-    first_val = []          # the first wave's val [N, B], for the tap
+    first_val = []          # the first wave's val [m, B], for the tap
 
     def wave(src, dst, sent, u_loss, forced, reply=False):
         """One message wave: per-sender first-B selection, then the
@@ -565,22 +593,27 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
         sel, val = _select_first_b(kn, cand_idx, b_pig)
         if tap is not None and not first_val:
             first_val.append(val)
+        sel, val = rows.gather((sel, val))
         ok = sent & delivered(src64, dst64, u_loss, reply)
-        upd = val[src64] & ok[:, None]                        # [M, B]
-        rows = torch.where(upd, dst64[:, None], n)
-        kbuf[rows, sel[src64].to(I64)] = true
-        fok = ok & (forced >= 0)
-        kbuf[torch.where(fok, dst64, n), forced.clamp(min=0).to(I64)] = true
+        d_row, upd = rows.local(dst64, val[src64] & ok[:, None])  # [M, B]
+        kbuf[torch.where(upd, d_row[:, None], m), sel[src64].to(I64)] = true
+        d_row, fok = rows.local(dst64, ok & (forced >= 0))
+        kbuf[torch.where(fok, d_row, m), forced.clamp(min=0).to(I64)] = true
         return ok
 
     buddy_on = cfg.lifeguard and cfg.buddy
 
     def buddy(src, dst):
-        """Rumor index of src's SUSPECT witness about dst, -1 if none."""
+        """Rumor index of src's SUSPECT witness about dst, -1 if none,
+        read on the sender's rows (a shard's 1 + index, 0 where it is
+        not the sender, sum to the values)."""
         if not buddy_on:
             return torch.full(src.shape, -1, dtype=I32, device=dev)
-        best, arg = _heard_max(knows, subject, rkey, dst, rows=src)
-        return torch.where(lattice.is_suspect(best), arg, -1)
+        mine = rows.mine(src)
+        best, arg = _heard_max(knows, subject, rkey, dst,
+                               rows=torch.where(mine, src - rows.off, 0))
+        forced = torch.where(lattice.is_suspect(best), arg, -1)
+        return rows.psum(torch.where(mine, forced + 1, 0)) - 1
 
     none_n = torch.full((n,), -1, dtype=I32, device=dev)
     none_nk = torch.full((n * k,), -1, dtype=I32, device=dev)
@@ -605,14 +638,17 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     if prof is not None and prof.cut("merge", knows):
         return prof.capture(knows=knows, acked=acked, relayed=relayed)
 
-    # ---- Phase C: end-of-period verdicts ----------------------------------
+    # ---- Phase C: end-of-period verdicts, on the rows held ----------------
     # 1. probe verdicts
-    failed = prober & ~(acked | relayed)
+    target = rows.take(target)
+    prober = rows.take(prober)
+    failed = prober & ~(rows.take(acked) | rows.take(relayed))
     lha = state.lha
     if cfg.lifeguard:
         bump = torch.where(failed, 1, -1).to(I32)
         lha = torch.where(prober, (lha + bump).clamp(0, cfg.lha_max), lha)
-        thin = base.lha_u < (1.0 / (1 + state.lha).to(torch.float32))
+        thin = rows.take(base.lha_u) < (1.0 / (1 + state.lha).to(
+            torch.float32))
         failed = failed & thin
     viewed_tk, _ = opinion_of(st, target)
     v_status = lattice.status_of(viewed_tk)
@@ -621,46 +657,56 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
     susp_key = lattice.suspect_key(lattice.incarnation_of(viewed_tk))
 
     # 2. refutation (own view of self is SUSPECT -> bump incarnation)
-    self_max, _ = _heard_max(knows, subject, rkey, ids)
+    self_max, _ = _heard_max(knows, subject, rkey, own)
     self_best = u32.umax(self_max, lattice.alive_key(state.inc_self))
-    refute = up & lattice.is_suspect(self_best)
+    refute = up_own & lattice.is_suspect(self_best)
     new_inc = torch.where(refute, lattice.incarnation_of(self_best) + 1,
                           state.inc_self)
     inc_self = new_inc
     if cfg.lifeguard:
         lha = torch.where(refute, (lha + 1).clamp(0, cfg.lha_max), lha)
 
-    # 3. suspicion expiry via sentinels (deviation 2)
+    # 3. suspicion expiry via sentinels (deviation 2), each sentinel's
+    # refutation read on its row
     deadline_hit, higher = _deadlines(cfg, state, plan, t, tb)
-    snode_cl = state.sent_node.clamp(min=0).to(I64)
-    refuted = torch.stack([(higher & knows[snode_cl[:, s]]).any(dim=-1)
-                           for s in range(s_cap)], dim=-1)         # [R, S]
+    s_row, s_mine = rows.local(state.sent_node.clamp(min=0).to(I64),
+                               torch.ones_like(deadline_hit))
+    refuted = rows.any(torch.stack(
+        [(higher & knows[s_row[:, s]]).any(dim=-1)
+         for s in range(cfg.sentinels)], dim=-1) & s_mine)        # [R, S]
     confirm, conf_node, dead_key_r = _confirm(state, tb, deadline_hit,
                                               refuted)
 
     # ---- Phase D: originations (deviation 4) ------------------------------
-    # candidate order is priority: confirms, then refutes, then suspects
+    # candidate order is priority: confirms, then refutes, then suspects,
+    # each in node order
+    cb = _budget(cfg)
+    (rv, rsubj, rkey_c, rorig), rdrop = rows.compact(
+        refute, (own, lattice.alive_key(new_inc), own), cb)
+    (sv, ssubj, skey_c, sorig), sdrop = rows.compact(
+        mk_suspect | re_suspect, (target, susp_key, own), cb)
+    mc = rv.shape[0]
     od = _originate(
-        cfg, state, t, tb, state.overflow,
-        c_subj=torch.cat([subject, ids, target]),
-        c_key=torch.cat([dead_key_r, lattice.alive_key(new_inc), susp_key]),
-        c_orig=torch.cat([conf_node.clamp(min=0), ids, ids]),
-        c_valid=torch.cat([confirm, refute, mk_suspect | re_suspect]),
-        c_src=torch.cat([rr, torch.full((2 * n,), -1, dtype=I32,
+        cfg, state, t, tb, state.overflow + rdrop + sdrop,
+        c_subj=torch.cat([subject, rsubj, ssubj]),
+        c_key=torch.cat([dead_key_r, rkey_c, skey_c]),
+        c_orig=torch.cat([conf_node.clamp(min=0), rorig, sorig]),
+        c_valid=torch.cat([confirm, rv, sv]),
+        c_src=torch.cat([rr, torch.full((2 * mc,), -1, dtype=I32,
                                         device=dev)]),
-        c_susp=torch.cat([torch.zeros((r_cap + n,), dtype=torch.bool,
+        c_susp=torch.cat([torch.zeros((r_cap + mc,), dtype=torch.bool,
                                       device=dev),
-                          torch.ones((n,), dtype=torch.bool, device=dev)]))
+                          torch.ones((mc,), dtype=torch.bool, device=dev)]))
     # clear the heard-bits of reused slots, then the originators hear
     # their rumors
     knows &= ~od.newly[None, :]
-    kbuf[torch.where(od.placed, od.orig, n).to(I64),
-         od.slot.clamp(min=0).to(I64)] = true
+    o_row, o_val = rows.local(od.orig.to(I64), od.placed)
+    kbuf[torch.where(o_val, o_row, m), od.slot.clamp(min=0).to(I64)] = true
 
     # inactive nodes are frozen (their heard-bits of reused slots are
     # still cleared above)
-    inc_self = torch.where(up, inc_self, state.inc_self)
-    lha = torch.where(up, lha, state.lha)
+    inc_self = torch.where(up_own, inc_self, state.inc_self)
+    lha = torch.where(up_own, lha, state.lha)
 
     if prof is not None and prof.cut("commit", od.rkey, u32=True):
         return prof.capture(
@@ -670,19 +716,22 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
             overflow=od.overflow)
 
     if tap is not None:
-        row_bits = first_val[0].sum(dim=-1, dtype=I32)           # [N]
-        tap["sel_slots_selected"] = row_bits.sum(dtype=I32)
-        tap["sel_rows_saturated"] = ((row_bits >= b_pig) & up).sum(
-            dtype=I32)
-        tap["sel_slots_max"] = row_bits.max()
+        row_bits = first_val[0].sum(dim=-1, dtype=I32)           # [m]
+        counts = rows.psum(torch.stack([
+            row_bits.sum(dtype=I32),
+            ((row_bits >= b_pig) & up_own).sum(dtype=I32),
+            failed.sum(dtype=I32)]))
+        tap["sel_slots_selected"] = counts[0]
+        tap["sel_rows_saturated"] = counts[1]
+        tap["sel_slots_max"] = rows.pmax(row_bits.max())
         # heard (node, eligible rumor) pairs at period start: per-rumor
         # heard counts (< 2**31), summed with the reference's int32 wrap
-        heard = live_knowers(state.knows, torch.ones_like(up))
+        heard = rows.psum(live_knowers(state.knows, torch.ones_like(up_own)))
         tap["win_occupancy"] = u32.from_u64(
             torch.where(eligible, heard, 0).sum(dtype=I64))
         tap["waves_delivered"] = torch.cat(
             [w1_ok, acked, w3_ok, w4_ok, w5_ok, w6_ok]).sum(dtype=I32)
-        tap["probes_failed"] = failed.sum(dtype=I32)
+        tap["probes_failed"] = counts[2]
         tap["overflow"] = od.overflow
         if prof is not None:
             prof.cut("telemetry_tap", tap["sel_slots_selected"])

@@ -61,7 +61,8 @@ BARRIER_TIMEOUT_S = 600.0
 class Mesh:
     """D shard slots over the node axis, each with its torch.device.
     `copied_bytes` counts the bytes the collectives have copied between
-    distinct devices (a caller zeroes it before the work it reads)."""
+    distinct devices and `rendezvous` the collectives completed (a
+    caller zeroes them before the work it reads)."""
 
     def __init__(self, devices):
         self.devices = tuple(torch.device(d) for d in devices)
@@ -70,6 +71,7 @@ class Mesh:
         self.size = len(self.devices)
         self.distinct = tuple(dict.fromkeys(self.devices))
         self.copied_bytes = 0
+        self.rendezvous = 0
         self._lock = threading.Lock()
 
     def __repr__(self) -> str:
@@ -343,6 +345,7 @@ class Collectives:
         if rank == self.d - 1:
             self._posted, self._slots = self._slots, [None] * self.d
             self._results = {}
+            self.mesh.rendezvous += 1
         self.pass_turn(rank)
         self.wait_turn(rank)
         return self._posted

@@ -19,8 +19,12 @@ placed state is bitwise the single-device engine's:
   * the wave merge: per wave, the rolled selection block ORed in under
     the wave's mask.  On the "compact" ICI wire the first-B selection
     is packed once into slot indices [S, B] and each wave moves one
-    packed block (plus one boundary block a period).  The fused
-    wavemerge kernel needs the whole node axis, so it is not run here;
+    packed block (plus one boundary block a period).  The wavemerge
+    kernel ORs each exchanged block into the shard's own window rows
+    (offset 0: the block is already rolled), one call a wave, the
+    receiver-aligned forced-bit rows with the last; a wave-scope
+    sender's forced bit goes into its selection block by a call with
+    no wave before the block is exchanged;
   * global sums and maxima: integer sums (max) of the shards' partials;
   * scatters and gathers by global node id: each shard applies the
     updates addressed to its rows; a gather sums the owner's value (one
@@ -30,9 +34,9 @@ placed state is bitwise the single-device engine's:
   * first-k compaction: local compaction, a gather of D small key
     blocks, a top-k.
 
-`select_first_b` and `cold_update_select` run the CUDA kernels on each
-shard's own blocks (u32[S, WW] rows, cold u32[RW, S]); the plain
-versions with `plain=True`, and on CPU tensors.
+`select_first_b`, `cold_update_select` and `merge_waves` run the CUDA
+kernels on each shard's own blocks (u32[S, WW] rows, cold u32[RW, S]);
+the plain versions with `plain=True`, and on CPU tensors.
 
 Each shard computes on its own device: the exchanged blocks reach it
 through the collectives, and each period's randomness is cut to its rows
@@ -67,7 +71,8 @@ import torch
 from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.models import ring
 from swim_tpu_torch.obs.engine import frame_from_tap
-from swim_tpu_torch.ops import coldsel, scatter, selb, u32, wavepack
+from swim_tpu_torch.ops import (coldsel, scatter, selb, u32,
+                                wavemerge, wavepack)
 from swim_tpu_torch.parallel import mesh as pmesh
 from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
 from swim_tpu_torch.utils import threefry
@@ -330,15 +335,28 @@ class ShardOps:
         return idx
 
     # -- the wave merge ---------------------------------------------------
-    def _forced(self, col, val) -> torch.Tensor:
-        """u32[S, WW]: bit `val` in column `col` of each row (0 = none)."""
-        wids = torch.arange(self.ww, dtype=I32, device=col.device)[None, :]
-        return torch.where(col[:, None] == wids, val[:, None], 0)
+    def _merge(self, win, sel, oks, bcols=(), bvals=()):
+        """`win` (updated in place) |= the already-rolled block `sel`
+        under each mask of `oks` (offset 0), then the forced-bit rows:
+        one wavemerge call on the shard's own rows."""
+        dev = win.device
+        bcol = (torch.stack(bcols) if bcols
+                else torch.zeros((0, self.s), dtype=I32, device=dev))
+        bval = (torch.stack(bvals) if bvals
+                else torch.zeros((0, self.s), dtype=I32, device=dev))
+        oks = (torch.stack(oks) if oks
+               else torch.zeros((0, self.s), dtype=torch.bool, device=dev))
+        offs = torch.zeros((oks.shape[0],), dtype=I32, device=dev)
+        fn = (wavemerge.merge_waves_plain if self.plain
+              else wavemerge.merge_waves)
+        return fn(win, sel.contiguous(), oks, offs, bcol.contiguous(),
+                  bval.contiguous())
 
     def merge_waves(self, win, sel, oks, offs, bcols=(), bvals=()):
         """The fused period-scope delivery, `win` updated in place: each
         wave's rolled selection ORed in under its mask, on the window or
         the compact ICI wire, then the receiver-aligned forced bits."""
+        last = len(oks) - 1
         if self.wire == "compact":
             idx = wavepack.pack_slots(sel, self.b_pig)
             sz = wavepack.slot_dtype(self.ww).itemsize
@@ -347,7 +365,8 @@ class ShardOps:
             self._log("ppermute", wire,
                       {"sel_wire_boundary": wire.numel()})
             both = torch.cat([wire, nxt])
-            for ok, d in zip(oks, offs):
+        for w, (ok, d) in enumerate(zip(oks, offs)):
+            if self.wire == "compact":
                 k, r = self._shift(d)
                 z = both.index_select(0, r + self._rows)
                 stacked = self.coll.stack(self.rank, z)
@@ -356,13 +375,12 @@ class ShardOps:
                 y = stacked.index_select(0, j.reshape(1))[0]
                 rolled = wavepack.unpack_slots(
                     wavepack.widen_bytes(y, idx.dtype), self.ww)
-                win |= torch.where(ok[:, None], rolled, 0)
-        else:
-            for ok, d in zip(oks, offs):
-                win |= torch.where(ok[:, None], self.roll_from(
-                    sel, d, label="roll_sel_waves"), 0)
-        for col, val in zip(bcols, bvals):
-            win |= self._forced(col, val)
+            else:
+                rolled = self.roll_from(sel, d, label="roll_sel_waves")
+            win = self._merge(win, rolled, [ok],
+                              *((bcols, bvals) if w == last else ()))
+        if last < 0 and bcols:
+            win = self._merge(win, sel, [], bcols, bvals)
         return win
 
     def merge_wave(self, win, sel, ok, d, cv=None):
@@ -370,10 +388,9 @@ class ShardOps:
         sender's forced bit ORed into its selection row, that block
         rolled, ORed in under ok."""
         if cv is not None:
-            sel = sel | self._forced(cv[0], cv[1])
-        win |= torch.where(ok[:, None],
-                           self.roll_from(sel, d, label="roll_sel_waves"), 0)
-        return win
+            sel = self._merge(sel.clone(), sel, [], [cv[0]], [cv[1]])
+        return self._merge(
+            win, self.roll_from(sel, d, label="roll_sel_waves"), [ok])
 
     # -- the kernel steps, per shard -------------------------------------
     def select_first_b(self, win_masked, b):

@@ -22,8 +22,13 @@ counts); "shard" the exchange-sharded rumor engine
 census sums each shard's knower counts).  Both shard over
 `mesh.make_mesh()` (one shard per card, or `pmesh.DEFAULT_SHARDS` slots
 of one card) unless `device` names a device, whose 8 slots they then
-take.  The result's state is assembled from the shards.  Every study
-runs on the CUDA card unless `device` names another device.
+take.  "dense", "ring" and "rumor" run on the CUDA card unless `device`
+names another device; with no device named and two or more distinct
+devices in `make_mesh()` (several cards) they are partitioned over them
+as the reference's GSPMD partitions them (parallel/partition.py: the
+ring through ring_shard's step, dense and rumor by row blocks), bitwise
+the one-device study.  The result's state is assembled from the
+shards.
 `SwimConfig(telemetry=True)` with "shard" raises ValueError: the
 engine has no tap (the reference fails there unpacking the frame).
 
@@ -31,10 +36,12 @@ engine has no tap (the reference fails there unpacking the frame).
 digest and a health summary, and dumps the flight recorder on an
 error-severity finding or when `flight_record` names a path.
 `_run_study_batch` runs one study per fault program of a library and
-stacks the results along a leading P axis.
+stacks the results along a leading P axis, each lane partitioned
+where a serial study would be.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -64,6 +71,8 @@ def pick_engine(n: int, engine: str = "auto") -> str:
 
 ENGINES = ("dense", "rumor", "shard", "ring", "ringshard")
 RING_ENGINES = ("ring", "ringshard")
+# the engines a study partitions over every device (parallel/partition.py)
+PARTITIONED = ("dense", "ring", "rumor")
 
 
 def _require_ported(engine: str) -> None:
@@ -74,12 +83,17 @@ def _require_ported(engine: str) -> None:
 def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
                engine: str, device=None, stream: bool = False, ckpt=None,
                chunk: int = 0):
-    """One study of `engine` on `device` (None: the card, or for the
-    sharded engines the default mesh)."""
+    """One study of `engine` on `device`.  None: for dense, ring and
+    rumor the card, or partitioned over `mesh.make_mesh()` where it has
+    two or more distinct devices (parallel/partition.py), as the
+    reference's GSPMD partitions them; for the sharded engines the
+    default mesh.  A partitioned or sharded study's state is
+    assembled."""
     if stream and engine not in RING_ENGINES:
         raise ValueError(
             f"streaming studies cover the ring engines only, not "
             f"'{engine}'")
+    placed = None
     if engine == "shard":
         from swim_tpu_torch.parallel import shard_engine
 
@@ -87,34 +101,40 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
             raise ValueError("the exchange-sharded rumor engine ('shard') "
                              "has no telemetry tap; use 'rumor' or "
                              "'ringshard' for telemetry studies")
-        _, state, plan, step_fn = shard_engine.start(cfg, plan, device)
-        res = runner.run_study_rumor(cfg, state, plan, key, periods,
-                                     step_fn)
-        return res._replace(state=pmesh.assemble(res.state))
-    if engine == "ringshard":
+        placed = shard_engine.start(cfg, plan, device)
+    elif engine == "ringshard":
         from swim_tpu_torch.parallel import ring_shard
 
-        _, state, plan, step_fn = ring_shard.start(cfg, plan, device)
-        if stream:
-            res = runner.run_study_ring_stream(cfg, state, plan, key,
-                                               periods, step_fn,
-                                               chunk=chunk, ckpt=ckpt)
-        else:
-            res = runner.run_study_ring(cfg, state, plan, key, periods,
-                                        step_fn)
+        placed = ring_shard.start(cfg, plan, device)
+    elif device is None and engine in PARTITIONED:
+        from swim_tpu_torch.parallel import partition
+
+        mesh = pmesh.make_mesh()
+        if partition.partitions(mesh):
+            placed = partition.start(cfg, engine, plan, mesh)
+    run = _study_runner(engine, stream, ckpt, chunk)
+    if placed is not None:
+        _, state, plan, step_fn = placed
+        res = run(cfg, state, plan, key, periods, step_fn)
         return res._replace(state=pmesh.assemble(res.state))
-    dev = devmod.resolve(device)
+    init = {"dense": dense, "rumor": rumor, "ring": ring}[engine].init_state
+    # the fresh state goes straight to the runner, which drops it after
+    # the first period: no frame here keeps it alive
+    return run(cfg, init(cfg, devmod.resolve(device)), plan, key, periods,
+               None)
+
+
+def _study_runner(engine: str, stream: bool, ckpt, chunk: int):
+    """The study runner of `engine`'s family, as run(cfg, state, plan,
+    key, periods, step_fn); step_fn None: the one-device step."""
     if engine == "dense":
-        return runner.run_study(cfg, dense.init_state(cfg, dev), plan, key,
-                                periods)
-    if engine == "rumor":
-        return runner.run_study_rumor(cfg, rumor.init_state(cfg, dev), plan,
-                                      key, periods)
-    state = ring.init_state(cfg, dev)
-    if stream:
-        return runner.run_study_ring_stream(cfg, state, plan, key, periods,
-                                            chunk=chunk, ckpt=ckpt)
-    return runner.run_study_ring(cfg, state, plan, key, periods)
+        return runner.run_study
+    if engine in ("rumor", "shard"):
+        return runner.run_study_rumor
+    if not stream:
+        return runner.run_study_ring
+    return functools.partial(runner.run_study_ring_stream, chunk=chunk,
+                             ckpt=ckpt)
 
 
 def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,

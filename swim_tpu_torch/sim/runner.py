@@ -17,7 +17,10 @@ The streaming ring runner keeps the compact track, runs in chunks of
 periods and can checkpoint between chunks (`StudyCheckpointer`) and
 resume bitwise.  The ring runners also step a placed state (the sharded
 engine, parallel/ring_shard.py) through its `mapped_step` as `step_fn`,
-and the result holds the placed state.  The census then counts each
+and the result holds the placed state; `run_study` steps the
+partitioned dense engine (parallel/partition.py) the same way, its
+census reading each shard's rows of `key` on the shard's device and
+joining the parts on shard 0's.  The ring census counts each
 shard's blocks of `win` and `cold` against its rows of `up` on the
 shard's device, and sums the partial counts in int64 on shard 0's
 device, cut to int32, as the reference's partitioned census does
@@ -41,6 +44,7 @@ takes one lane back out.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, NamedTuple
 
@@ -298,45 +302,71 @@ def _observers(state, base: FaultPlan):
     return t, crashed, ~crashed & (t >= base.join_step)
 
 
+def _dense_rows(key: torch.Tensor, live_rows: torch.Tensor,
+                live: torch.Tensor) -> tuple:
+    """What the dense census reads of a block of observer rows `key`
+    [m, N] (`live_rows` their liveness, `live` every node's): per
+    subject, some live row holds it SUSPECT or DEAD, some live row
+    holds it DEAD, every live row holds it DEAD; the int64 counts of
+    live suspect, dead and false-dead views; the largest incarnation."""
+    live_col = live_rows[:, None]
+    dead = lattice.is_dead(key)
+    susp = lattice.is_suspect(key)
+    dead_live = dead & live_col
+    return (((susp | dead) & live_col).any(dim=0), dead_live.any(dim=0),
+            (dead | ~live_col).all(dim=0), (susp & live_col).sum(dtype=I64),
+            dead_live.sum(dtype=I64),
+            (dead_live & live[None, :]).sum(dtype=I64),
+            lattice.incarnation_of(key).max())
+
+
 def dense_study_period(cfg: SwimConfig, state: dense.DenseState,
                        track: StudyTrack, base: FaultPlan, rnd, stepper):
     """One period of the dense study, all on the device: (state, track,
     the period's series row, its EngineFrame or None); `stepper` as
     `make_stepper` makes it.  The views are read off the [N, N] keys;
-    `live` (crash- and join-aware) selects the observers."""
+    `live` (crash- and join-aware) selects the observers.  A placed
+    state's row blocks are read each on its device and the parts joined
+    on `live`'s (ORs, ANDs, int64 sums, a max)."""
     state, frame = stepper(state, rnd)
-    t, crashed, live = _observers(state, base)
-    key = state.key
-    live_col = live[:, None]
-    dead = lattice.is_dead(key)
-    susp = lattice.is_suspect(key)
+    placed = isinstance(state.key, pmesh.Sharded)
+    st = (pmesh.assemble(state._replace(key=None, retransmit=None,
+                                        deadline=None)) if placed
+          else state)
+    t, crashed, live = _observers(st, base)
+    parts, off = [], 0
+    for blk in (state.key.blocks if placed else [state.key]):
+        m = blk.shape[0]
+        lv = live.to(blk.device)
+        parts.append([x.to(live.device) for x in
+                      _dense_rows(blk, lv[off:off + m], lv)])
+        off += m
+    ops = (torch.logical_or, torch.logical_or, torch.logical_and,
+           torch.add, torch.add, torch.add, torch.maximum)
+    sus_seen, dead_seen, dead_all, sus, dead_n, false_dead, inc = (
+        functools.reduce(op, col) for op, col in zip(ops, zip(*parts)))
     track = StudyTrack(
-        first_suspect=_first(track.first_suspect,
-                             ((susp | dead) & live_col).any(dim=0),
-                             crashed, t),
-        first_dead_view=_first(track.first_dead_view,
-                               (dead & live_col).any(dim=0), crashed, t),
-        disseminated=_first(track.disseminated,
-                            (dead | ~live_col).all(dim=0), crashed, t))
-    dead_live = dead & live_col
-    row = (_wrap32((susp & live_col).sum(dtype=I64)),
-           _wrap32(dead_live.sum(dtype=I64)),
-           _wrap32((dead_live & live[None, :]).sum(dtype=I64)),
-           lattice.incarnation_of(key).max())
+        first_suspect=_first(track.first_suspect, sus_seen, crashed, t),
+        first_dead_view=_first(track.first_dead_view, dead_seen, crashed, t),
+        disseminated=_first(track.disseminated, dead_all, crashed, t))
+    row = (_wrap32(sus), _wrap32(dead_n), _wrap32(false_dead), inc)
     return state, track, row, frame
 
 
 def run_study(cfg: SwimConfig, state: dense.DenseState, plan,
-              root_key: tuple[int, int], periods: int) -> StudyResult:
+              root_key: tuple[int, int], periods: int,
+              step_fn=None) -> StudyResult:
     """Dense-engine study with the full StudyTrack over all N nodes.
-    `root_key` is a threefry key (`threefry.key(seed)`).  Reads
-    state.step once."""
+    `root_key` is a threefry key (`threefry.key(seed)`); `step_fn(state,
+    plan, rnd)` overrides the step: the partitioned engine
+    (parallel/partition.py `build_step`) on a placed state and plan.
+    Reads state.step once."""
     dev = state.key.device
-    base = faults.base_of(plan)
+    base = pmesh.assemble(faults.base_of(plan))
     track = _new_track(cfg.n_nodes, dev)
     rows, frames = [], []
-    t0 = int(state.step)
-    stepper = make_stepper(cfg, plan, dense.step)
+    t0 = _step_of(state)
+    stepper = make_stepper(cfg, plan, dense.step, step_fn)
     for t in range(t0, t0 + periods):
         state, track, row, frame = dense_study_period(
             cfg, state, track, base, prng.draw_period(root_key, t, cfg, dev),

@@ -41,7 +41,8 @@ conftest, which imports JAX,
   * the sharded ring engine (8 shards on the card) equals the
     single-device engine and its plain versions in wave scope and on
     the compact and packed wires, with 8x the selb and coldsel
-    launches and no wavemerge, and a sharded period makes no host sync;
+    launches and wavemerge once a wave on each shard, and a sharded
+    period makes no host sync;
     memwall measures the sharded streaming study's peak on the card;
   * the exchange-sharded rumor engine (8 shards on the card) gives the
     rumor golden digests and the single-device rumor study, launches no
@@ -496,6 +497,18 @@ def test_profiled_run_and_marker_digest_on_the_card(cuda):
         assert torch.equal(getattr(plain.state, f), getattr(want, f)), f
 
 
+def _shard_merge_launches(cfg) -> int:
+    """wavemerge calls a period on each card shard of the sharded ring:
+    one a wave, and in wave scope under Lifeguard's buddy one more for
+    each wave whose sender forces a bit; none under pull."""
+    if cfg.ring_probe == "pull":
+        return 0
+    waves = 2 + 4 * cfg.k_indirect
+    fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
+    buddy = cfg.lifeguard and cfg.buddy and not fused
+    return waves + (1 + cfg.k_indirect if buddy else 0)
+
+
 @pytest.mark.parametrize("kw", [
     {}, dict(ring_sel_scope="period", ring_ici_wire="compact",
              ring_scalar_wire="packed")], ids=["wave", "compact_packed"])
@@ -503,8 +516,8 @@ def test_ringshard_equals_one_device_on_the_card(cuda, kw):
     """The sharded ring engine, 8 shards on the card, at 20,000 nodes for
     4 periods: state equal to the single-device engine's and to its own
     plain versions, selb and coldsel launched 8 times as often as on one
-    device and wavemerge never; one more sharded period makes no host
-    sync."""
+    device and wavemerge once a wave on each shard; one more sharded
+    period makes no host sync."""
     from swim_tpu_torch.parallel import mesh as pmesh
     from swim_tpu_torch.parallel import ring_shard
 
@@ -529,7 +542,8 @@ def test_ringshard_equals_one_device_on_the_card(cuda, kw):
     got, pl = sharded(False)
     after = launches()
     one = [b - a for a, b in zip(before, mid)]
-    assert [b - a for a, b in zip(mid, after)] == [8 * one[0], 8 * one[1], 0]
+    assert [b - a for a, b in zip(mid, after)] == \
+        [8 * one[0], 8 * one[1], 8 * periods * _shard_merge_launches(cfg)]
     plain = pmesh.assemble(sharded(True)[0])
     for f in ring.RingState._fields:
         assert torch.equal(getattr(pmesh.assemble(got), f),
@@ -614,7 +628,8 @@ def _mixed_mesh(cuda):
 def test_ringshard_on_a_card_and_cpu_mesh_equals_one_card(cuda, kw):
     """ringshard at 4,096 nodes on the mixed mesh for 2 periods: every
     field equals ring.run on the card; selb and coldsel launch on the
-    two card shards only (twice one card's), wavemerge never; the bytes
+    two card shards only (twice one card's), wavemerge on them once a
+    wave; the bytes
     copied between the devices equal the mesh's model of the recorded
     exchanges."""
     from swim_tpu_torch.parallel import mesh as pmesh
@@ -641,7 +656,8 @@ def test_ringshard_on_a_card_and_cpu_mesh_equals_one_card(cuda, kw):
         st = step(st, pl, rnd)
     after = launches()
     one = [b - a for a, b in zip(before, mid)]
-    assert [b - a for a, b in zip(mid, after)] == [2 * one[0], 2 * one[1], 0]
+    assert [b - a for a, b in zip(mid, after)] == \
+        [2 * one[0], 2 * one[1], 2 * periods * _shard_merge_launches(cfg)]
     assert [b.device.type for b in st.win.blocks] == \
         ["cuda", "cpu", "cuda", "cpu"]
     got = pmesh.assemble(st)

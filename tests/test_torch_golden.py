@@ -5,14 +5,18 @@ The JAX package's run and the port's CPU run of each golden config
 rumor engine, the rumor engine with Lifeguard) must both give the
 committed digest; chip_smoke.py asserts that the port on the card gives
 it too, which holds the card to the JAX package without JAX on the
-card's machine.
+card's machine.  The JAX runs start together on a thread pool at
+module scope, so their compiles overlap.
 """
 from __future__ import annotations
+
+import functools
 
 import jax
 import numpy as np
 import pytest
 from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
+from torch_engine_cases import run_together
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import dense as jdense
@@ -37,9 +41,39 @@ def jax_golden_run(name):
                      golden.GOLDEN_PERIODS)
 
 
+def jax_golden_marker_run(name):
+    from swim_tpu.obs import prof as jprof
+
+    cfg, nodes, at = golden.golden_config(name)
+    jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes, **golden.GOLDEN_CONFIGS[name])
+    plan = jfaults.with_loss(
+        jfaults.with_crashes(jfaults.none(cfg.n_nodes), nodes, at),
+        golden.GOLDEN_LOSS)
+    run = jprof.profiled_ring_run(
+        jcfg, jring.init_state(jcfg), plan,
+        jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS)
+    return np.asarray(run.markers)
+
+
 @pytest.fixture(scope="module")
-def jax_golden_state():
-    return jax_golden_run("period")
+def jax_runs():
+    """Every JAX run of the module, started together (`run_together`):
+    the golden ring runs ("run", name), their phase markers ("markers",
+    name) and the engine runs ("engine", name).  Each is the run the
+    tests below held to their digests one at a time."""
+    jobs = {}
+    for name in golden.GOLDEN_CONFIGS:
+        jobs["run", name] = functools.partial(jax_golden_run, name)
+        jobs["markers", name] = functools.partial(jax_golden_marker_run,
+                                                  name)
+    for name in golden.ENGINE_DIGESTS:
+        jobs["engine", name] = functools.partial(jax_engine_run, name)
+    return run_together(jobs)
+
+
+@pytest.fixture(scope="module")
+def jax_golden_state(jax_runs):
+    return jax_runs["run", "period"]
 
 
 def test_jax_run_gives_the_golden_digest(jax_golden_state):
@@ -53,8 +87,8 @@ def test_port_cpu_run_gives_the_golden_digest():
 
 
 @pytest.mark.parametrize("name", ["wave", "lifeguard"])
-def test_jax_run_gives_the_golden_digest_of(name):
-    ref = jax_golden_run(name)
+def test_jax_run_gives_the_golden_digest_of(name, jax_runs):
+    ref = jax_runs["run", name]
     st = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
     assert golden.digest(st) == golden.GOLDEN_DIGESTS[name]
     if name == "lifeguard":     # the digest pins a run that used Lifeguard
@@ -112,8 +146,8 @@ def jax_engine_run(name):
 
 
 @pytest.mark.parametrize("name", sorted(golden.ENGINE_DIGESTS))
-def test_engine_digests_from_both_packages(name):
-    ref = jax_engine_run(name)
+def test_engine_digests_from_both_packages(name, jax_runs):
+    ref = jax_runs["engine", name]
     assert golden.digest(ref) == golden.ENGINE_DIGESTS[name]
     got = golden.engine_run("cpu", name)
     assert golden.digest(got) == golden.ENGINE_DIGESTS[name]
@@ -168,33 +202,16 @@ def test_serve_golden_digest_in_both_packages():
     assert got[-1] == golden.GOLDEN_DIGEST_SERVE
 
 
-def jax_golden_markers():
-    from swim_tpu.obs import prof as jprof
-
-    out = {}
-    for name in golden.GOLDEN_CONFIGS:
-        cfg, nodes, at = golden.golden_config(name)
-        jcfg = JaxSwimConfig(n_nodes=cfg.n_nodes,
-                             **golden.GOLDEN_CONFIGS[name])
-        plan = jfaults.with_loss(
-            jfaults.with_crashes(jfaults.none(cfg.n_nodes), nodes, at),
-            golden.GOLDEN_LOSS)
-        run = jprof.profiled_ring_run(
-            jcfg, jring.init_state(jcfg), plan,
-            jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS)
-        out[name] = np.asarray(run.markers)
-    return out
-
-
 @pytest.mark.parametrize("package", ["jax", "port"])
-def test_golden_marker_digest_from_both_packages(package):
+def test_golden_marker_digest_from_both_packages(package, jax_runs):
     """GOLDEN_DIGEST_MARKERS holds the phase markers of the three golden
     runs (period scope, wave scope, Lifeguard with buddy) in the JAX
     package and in the port on the CPU.  The markers see the phases the
     step cuts: select, ppermute (fused only), merge and commit (pack
     folds the buddy rows, zero in their first 256 elements here), and
     no telemetry_tap without a tap."""
-    markers = (jax_golden_markers() if package == "jax"
+    markers = ({name: jax_runs["markers", name]
+                for name in golden.GOLDEN_CONFIGS} if package == "jax"
                else golden.golden_markers("cpu"))
     assert golden.markers_digest(markers) == golden.GOLDEN_DIGEST_MARKERS
     for name, m in markers.items():

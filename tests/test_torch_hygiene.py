@@ -6,7 +6,8 @@
     first letters and is allowed);
   * a subprocess in which `jax` and `swim_tpu` cannot be imported
     imports the port, runs a few CPU periods of each path and engine, two
-    periods of the sharded ring engine on 8 shards, a small streaming
+    periods of the sharded ring engine on 8 shards, two of the
+    partitioned dense and rumor engines on 8 shards, a small streaming
     study, a small study with the default engine and
     telemetry, its flight-recorder dump read back by the analyzer, a
     batch of two fault programs, a small packed scenario with its
@@ -82,7 +83,7 @@ def test_port_files_found():
             "engine_server.py", "prof.py", "expo.py", "memwall.py",
             "trend.py", "profiling.py", "roofline.py", "cli.py",
             "shard_engine.py", "audit.py", "oracle.py", "rumor_oracle.py",
-            "ring_oracle.py"} <= names
+            "ring_oracle.py", "partition.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
@@ -97,7 +98,8 @@ def test_port_files_found():
             "swim_tpu_torch/analysis/audit.py",
             "swim_tpu_torch/models/oracle.py",
             "swim_tpu_torch/models/rumor_oracle.py",
-            "swim_tpu_torch/models/ring_oracle.py"} <= rel
+            "swim_tpu_torch/models/ring_oracle.py",
+            "swim_tpu_torch/parallel/partition.py"} <= rel
 
 
 def test_chip_smoke_defines_each_name_once():
@@ -164,6 +166,12 @@ def test_steps_with_jax_unimportable():
         "mesh, st, pl, _ = shard_engine.start(cfg, plan, 'cpu')\n"
         "st = shard_engine.build_run(cfg, mesh, 2)(st, pl, 0)\n"
         "assert int(pmesh.assemble(st).step) == 2\n"
+        "from swim_tpu_torch.parallel import partition\n"
+        "for eng in ('dense', 'rumor'):\n"
+        "    mesh, st, pl, _ = partition.start(\n"
+        "        cfg, eng, plan, pmesh.make_mesh(devices=['cpu'] * 8))\n"
+        "    st = partition.build_run(cfg, mesh, eng, 2)(st, pl, 0)\n"
+        "    assert int(pmesh.assemble(st).step) == 2\n"
         "from swim_tpu_torch.models import dense, rumor\n"
         "for mod in (dense, rumor):\n"
         "    cfg = SwimConfig(n_nodes=64, lifeguard=True)\n"

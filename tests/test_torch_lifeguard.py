@@ -15,7 +15,8 @@ import pytest
 import torch
 from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
 from test_torch_ring import (
-    LIFEGUARD_STEP_CASES, case_id, check_run_parity, check_step_parity)
+    LIFEGUARD_STEP_CASES, case_id, check_run_parity, check_step_parity,
+    warm_jax)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import rumor as jrumor
@@ -23,6 +24,12 @@ from swim_tpu_torch import SwimConfig
 from swim_tpu_torch.models import rumor
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    """The JAX compiles of the cases below, started together."""
+    warm_jax(LIFEGUARD_STEP_CASES, ["lg_period", "lg_wave"])
 
 
 @pytest.mark.parametrize("cfg_name,name,n,periods,seed", LIFEGUARD_STEP_CASES,

@@ -16,7 +16,9 @@ buddy and dynamic suspicion, in both scopes (those cases run from
 tests/test_torch_lifeguard.py).  The Lifeguard cases assert that a
 buddy bit was forced and that a health score left 0, so they have
 teeth.  Whole-run parity holds the port's own threefry against
-`ring.run(..., jax.random.key(seed))`.  Tolerance: exact.
+`ring.run(..., jax.random.key(seed))`.  The JAX compiles of a module's
+cases start together on a thread pool at module scope (`warm_jax`).
+Tolerance: exact.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 from torch_engine_cases import (assert_same_frame, jax_tapped_step,
-                                one_torch_thread)
+                                one_torch_thread, run_together)
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import ring as jring
@@ -115,10 +117,43 @@ def case_id(case):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_draw(n: int, k: int, probe: str):
+    jcfg = JaxSwimConfig(n_nodes=n, k_indirect=k, ring_probe=probe)
+    return jax.jit(lambda key, t: jring.draw_period_ring(key, t, jcfg))
+
+
 def jax_draw(jcfg):
     """JAX's `draw_period_ring` for `jcfg`, jitted with the key and the
-    period as arguments (one compile per config)."""
-    return jax.jit(lambda key, t: jring.draw_period_ring(key, t, jcfg))
+    period as arguments.  The draw reads only the node count, the
+    fan-out k and the probe, so the configs that share those share one
+    compile (scope and Lifeguard change no draw)."""
+    return _jax_draw(jcfg.n_nodes, jcfg.k_indirect, jcfg.ring_probe)
+
+
+def warm_jax(step_cases, run_cfgs=()):
+    """Compile what `step_cases` and the run parity cases of `run_cfgs`
+    call in JAX, all at once (`run_together`): each (config, n)'s tapped
+    step and draw, each run config's `ring.run`.  The cases then find
+    their compiles done; what they compare is unchanged."""
+    jobs = {}
+    for cfg_name, name, n, _, seed in step_cases:
+        jobs.setdefault((cfg_name, n), functools.partial(
+            _warm_step, JaxSwimConfig(n_nodes=n, **CONFIGS[cfg_name]),
+            name, n, seed))
+    for cfg_name in run_cfgs:
+        jobs["run", cfg_name] = functools.partial(jax_run, cfg_name, 0)
+    run_together(jobs)
+
+
+def _warm_step(jcfg, name, n, seed):
+    rnd = jax_draw(jcfg)(jax.random.key(seed), 0)
+    return jax_tapped_step(jring, jcfg)(jring.init_state(jcfg),
+                                        jax_plan(name, n), rnd)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    warm_jax(STEP_CASES, sorted({cf for cf, _ in RUN_CASES}))
 
 
 def step_both(cfg_name, name, n, periods, seed, monkeypatch):
@@ -204,15 +239,26 @@ def test_run_parity(cfg_name, seed):
     check_run_parity(cfg_name, seed)
 
 
+RUN_N, RUN_PERIODS = 64, 20
+
+
+def run_plan():
+    return jfaults.with_loss(jfaults.with_crashes(
+        jfaults.none(RUN_N), [9, 40], [1, 3]), 0.1)
+
+
+def jax_run(cfg_name, seed):
+    """JAX's `ring.run` of the run parity case."""
+    jcfg = JaxSwimConfig(n_nodes=RUN_N, **CONFIGS[cfg_name])
+    return jring.run(jcfg, jring.init_state(jcfg), run_plan(),
+                     jax.random.key(seed), RUN_PERIODS)
+
+
 def check_run_parity(cfg_name, seed):
-    n, periods = 64, 20
-    jcfg = JaxSwimConfig(n_nodes=n, **CONFIGS[cfg_name])
+    n, periods = RUN_N, RUN_PERIODS
     cfg = SwimConfig(n_nodes=n, **CONFIGS[cfg_name])
-    jplan = jfaults.with_loss(jfaults.with_crashes(jfaults.none(n), [9, 40],
-                                                   [1, 3]), 0.1)
-    plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
-    want = jring.run(jcfg, jring.init_state(jcfg), jplan,
-                     jax.random.key(seed), periods)
+    plan = convert.plan_from_numpy(np_fields(run_plan()), "cpu")
+    want = jax_run(cfg_name, seed)
     got = ring.run(cfg, ring.init_state(cfg, "cpu"), plan, seed, periods)
     assert_same_state(got, want, f"run seed {seed}")
     half = ring.run(cfg, ring.init_state(cfg, "cpu"), plan, seed, 7)
@@ -223,19 +269,21 @@ def check_run_parity(cfg_name, seed):
 
 
 def test_state_round_trips_from_jax():
-    """A mid-run JAX state carried across keeps stepping in lockstep."""
-    n = 48
+    """A mid-run JAX state carried across keeps stepping in lockstep.
+    At the node count and length of the period-scope run parity cases,
+    so the JAX run's compile is theirs."""
+    n, periods = 64, 20
     jcfg = JaxSwimConfig(n_nodes=n, ring_sel_scope="period")
     cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
     jplan = jfaults.with_loss(jfaults.with_crashes(jfaults.none(n), [4],
                                                    [1]), 0.1)
     mid = jring.run(jcfg, jring.init_state(jcfg), jplan, jax.random.key(2),
-                    6)
+                    periods)
     ts = convert.state_from_numpy(np_fields(mid), "cpu")
     assert_same_state(ts, mid, "converted")
     plan = convert.plan_from_numpy(np_fields(jplan), "cpu")
-    want = jring.run(jcfg, mid, jplan, jax.random.key(2), 6)
-    assert_same_state(ring.run(cfg, ts, plan, 2, 6), want, "resumed")
+    want = jring.run(jcfg, mid, jplan, jax.random.key(2), periods)
+    assert_same_state(ring.run(cfg, ts, plan, 2, periods), want, "resumed")
 
 
 def test_engine_runs_on_cpu():

@@ -5,8 +5,9 @@
   * `live_knower_counts` against the JAX census, with pair budgets small
     enough that the chunks split the node axis;
   * `run_study_ring` and `run_study_ring_stream` (track, series, final
-    state) against the JAX runners, at the shapes `detection_study`
-    compiles (so JAX reuses one compile for both);
+    state) against the JAX runners, at the shapes and on the placed
+    inputs `detection_study` compiles (so JAX reuses one compile for
+    both), and the census of the full-track run's final state;
   * chunked == one-shot == resumed from a `StudyCheckpointer`, and the
     two ValueError refusals of a resume;
   * `detection_study` and one point of `suspicion_sweep` give the JAX
@@ -14,7 +15,8 @@
     `ringshard` gives the ring engine's studies, and the profiling flag
     leaves every study as it is;
   * the dense and rumor runners (`run_study`, `run_study_rumor`: track,
-    series, final state) against the JAX runners; `pick_engine`; the
+    series, final state) against the JAX runners, fed the placed inputs
+    the studies compile for (one compile each); `pick_engine`; the
     four studies' dicts with `engine="auto"` (dense) and `"rumor"`;
     streaming only for the ring engine;
   * the `study` golden digest from the JAX package and from the port.
@@ -29,11 +31,13 @@ import numpy as np
 import pytest
 import torch
 from torch_engine_cases import one_torch_thread  # noqa: F401 (fixture)
+from torch_engine_cases import run_together
 
 from swim_tpu import SwimConfig as JaxSwimConfig
 from swim_tpu.models import dense as jdense
 from swim_tpu.models import ring as jring
 from swim_tpu.models import rumor as jrumor
+from swim_tpu.parallel import mesh as jpmesh
 from swim_tpu.sim import experiments as jexperiments
 from swim_tpu.sim import faults as jfaults
 from swim_tpu.sim import runner as jrunner
@@ -83,11 +87,11 @@ def test_random_crashes_match_the_reference(seed, n, fraction, start, end):
         assert int((got.crash_step < faults.NEVER).sum()) > 0
 
 
-def test_live_knower_counts_match_the_reference():
+def test_live_knower_counts_match_the_reference(studies):
+    """The census of the JAX study's final state (12 pull periods)."""
     jcfg = JaxSwimConfig(n_nodes=N, **PULL)
     cfg = SwimConfig(n_nodes=N, **PULL)
-    jplan, _ = study_plans()
-    js = jring.run(jcfg, jring.init_state(jcfg), jplan, jax.random.key(0), 9)
+    js = jax.device_get(studies["jfull"].state)
     ts = convert.state_from_numpy(np_fields(js), "cpu")
     up = np.random.default_rng(2).random(N) < 0.8
     want = np.asarray(jring.live_knower_counts(jcfg, js, jnp.asarray(up)))
@@ -103,20 +107,49 @@ def test_live_knower_counts_match_the_reference():
 
 
 @pytest.fixture(scope="module")
-def studies():
-    """The JAX and port results of both runners on one study."""
+def jax_runs():
+    """The module's JAX runs with compiles of their own, started
+    together (`run_together`); the cases' own calls then find the
+    compiles done: both ring runners on one study (the full-track run on
+    placed inputs, as detection_study compiles it), the rotor-probe
+    suspicion sweep point, the golden streaming study, and the dense and
+    rumor studies' two configurations (vanilla and Lifeguard)."""
     jcfg = JaxSwimConfig(n_nodes=N, **PULL)
-    cfg = SwimConfig(n_nodes=N, **PULL)
-    jplan, plan = study_plans()
-    return dict(
-        plan=plan,
-        jfull=jrunner.run_study_ring(jcfg, jring.init_state(jcfg), jplan,
-                                     jax.random.key(0), PERIODS),
-        full=runner.run_study_ring(cfg, ring.init_state(cfg, "cpu"), plan,
-                                   threefry.key(0), PERIODS),
-        jstream=jrunner.run_study_ring_stream(
+    jplan, _ = study_plans()
+    kw = dict(n=SMALL, periods=SMALL_PERIODS, crash_fraction=0.1)
+    return run_together({
+        "jfull": lambda: jrunner.run_study_ring(
+            jcfg, *placed(jring.init_state(jcfg), jplan, N),
+            jax.random.key(0), PERIODS),
+        "jstream": lambda: jrunner.run_study_ring_stream(
             jcfg, jring.init_state(jcfg), jplan, jax.random.key(0), PERIODS,
             chunk=CHUNK),
+        "sweep": lambda: jexperiments.suspicion_sweep(
+            n=N, mults=(3.0,), periods=PERIODS, engine="ring"),
+        "golden": jax_golden_study,
+        "dense": lambda: jexperiments.lifeguard_ablation(engine="auto", **kw),
+        "rumor": lambda: jexperiments.lifeguard_ablation(engine="rumor",
+                                                         **kw)})
+
+
+def placed(state, plan, n):
+    """A JAX state and plan placed on the 8-device mesh as the JAX
+    package's studies place them (`experiments._run_study`), so a runner
+    called on them shares the studies' compile."""
+    mesh = jpmesh.make_mesh()
+    return (jpmesh.shard_state(state, mesh, n=n),
+            jpmesh.shard_state(plan, mesh, n=n))
+
+
+@pytest.fixture(scope="module")
+def studies(jax_runs):
+    """The JAX and port results of both runners on one study."""
+    cfg = SwimConfig(n_nodes=N, **PULL)
+    _, plan = study_plans()
+    return dict(
+        plan=plan, jfull=jax_runs["jfull"], jstream=jax_runs["jstream"],
+        full=runner.run_study_ring(cfg, ring.init_state(cfg, "cpu"), plan,
+                                   threefry.key(0), PERIODS),
         stream=runner.run_study_ring_stream(
             cfg, ring.init_state(cfg, "cpu"), plan, threefry.key(0),
             PERIODS, chunk=CHUNK))
@@ -199,14 +232,13 @@ def test_chunked_oneshot_and_resumed_streams_are_equal(studies, tmp_path):
                                      ckpt=ck)
 
 
-def test_detection_study_and_suspicion_sweep_match_the_reference():
+def test_detection_study_and_suspicion_sweep_match_the_reference(jax_runs):
     want = jexperiments.detection_study(n=N, periods=PERIODS, engine="ring")
     got = experiments.detection_study(n=N, periods=PERIODS, engine="ring",
                                       device="cpu")
     assert got == want
     assert got["ring_probe"] == "pull" and got["suspect_detected"] > 0
-    want = jexperiments.suspicion_sweep(n=N, mults=(3.0,), periods=PERIODS,
-                                        engine="ring")
+    want = jax_runs["sweep"]
     got = experiments.suspicion_sweep(n=N, mults=(3.0,), periods=PERIODS,
                                       engine="ring", device="cpu")
     assert got == want
@@ -261,16 +293,20 @@ def test_studies_outside_the_port_raise(kw, match, tmp_path):
                                         device="cpu", **off))
 
 
-def test_golden_study_digest():
+def jax_golden_study():
     c = golden.STUDY_CRASHES
     jcfg = JaxSwimConfig(n_nodes=golden.GOLDEN_N, **golden.STUDY_CONFIG)
     jplan = jfaults.with_loss(jfaults.with_random_crashes(
         jfaults.none(golden.GOLDEN_N), jax.random.key(c["seed"]),
         c["fraction"], c["start"], c["end"]), golden.GOLDEN_LOSS)
-    j = jrunner.run_study_ring_stream(
+    return jrunner.run_study_ring_stream(
         jcfg, jring.init_state(jcfg), jplan,
         jax.random.key(golden.GOLDEN_SEED), golden.GOLDEN_PERIODS,
         chunk=golden.STUDY_CHUNK)
+
+
+def test_golden_study_digest(jax_runs):
+    j = jax_runs["golden"]
     assert golden.study_digest(np_fields(j.state), np_fields(j.track),
                                np_fields(j.series)) == \
         golden.GOLDEN_DIGEST_STUDY
@@ -313,17 +349,21 @@ def test_pick_engine_matches_the_reference():
 
 
 @pytest.mark.parametrize("engine", ["dense", "rumor"])
-def test_dense_and_rumor_runners_match_the_reference(engine):
+def test_dense_and_rumor_runners_match_the_reference(engine, jax_runs):
     jplan, plan = small_plans()
     jcfg, cfg = JaxSwimConfig(n_nodes=SMALL), SwimConfig(n_nodes=SMALL)
+    # placed as test_studies_match_the_reference's studies place them:
+    # one compile for both
     if engine == "dense":
-        j = jrunner.run_study(jcfg, jdense.init_state(jcfg), jplan,
+        j = jrunner.run_study(jcfg, *placed(jdense.init_state(jcfg), jplan,
+                                            SMALL),
                               jax.random.key(0), SMALL_PERIODS)
         t = runner.run_study(cfg, dense.init_state(cfg, "cpu"), plan,
                              threefry.key(0), SMALL_PERIODS)
         cls = dense.DenseState
     else:
-        j = jrunner.run_study_rumor(jcfg, jrumor.init_state(jcfg), jplan,
+        j = jrunner.run_study_rumor(jcfg, *placed(jrumor.init_state(jcfg),
+                                                  jplan, SMALL),
                                     jax.random.key(0), SMALL_PERIODS)
         t = runner.run_study_rumor(cfg, rumor.init_state(cfg, "cpu"), plan,
                                    threefry.key(0), SMALL_PERIODS)
@@ -341,7 +381,7 @@ def test_dense_and_rumor_runners_match_the_reference(engine):
 
 
 @pytest.mark.parametrize("engine", ["auto", "rumor"])
-def test_studies_match_the_reference(engine):
+def test_studies_match_the_reference(engine, jax_runs):
     """The four studies as their users call them, at a small n: "auto"
     picks the dense engine there."""
     kw = dict(n=SMALL, periods=SMALL_PERIODS, engine=engine)

@@ -17,6 +17,7 @@ with tolerance 0.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -40,6 +41,17 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def run_together(jobs: dict) -> dict:
+    """{name: fn()} for zero-argument JAX calls, started together on a
+    thread pool of up to 4, each result blocked on: XLA compiles outside
+    the GIL, so the compiles a test module shares at module scope
+    overlap."""
+    with ThreadPoolExecutor(min(len(jobs), 4)) as pool:
+        futs = {name: pool.submit(fn) for name, fn in jobs.items()}
+        return {name: jax.block_until_ready(f.result())
+                for name, f in futs.items()}
 
 
 def np_fields(nt) -> dict:
