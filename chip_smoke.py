@@ -222,9 +222,11 @@ Phases, each printed as one JSON line:
      study on `ringshard` streaming in chunks of 3 for 9 periods, again
      checkpointing every 3, stopped in-process after 6 and resumed:
      summaries equal, track, series and state bitwise, the summary the
-     `ring` engine's; the wall and busy ms a period, idle share and
-     kernels a period of the sharded wave-scope period beside the
-     single-device one in the same call.
+     `ring` engine's; memwall's measured peak of the 1M pull study (12
+     periods) sharded and on one device, the sharded within 5% of the
+     other; the wall and busy ms a period, idle share and kernels a
+     period of the sharded wave-scope period beside the single-device
+     one in the same call.
  17. shard: the exchange-sharded rumor engine (parallel/shard_engine.py)
      with D = 8 shards on the one card, 1,000,000 nodes (R = 4,096), 0.1%
      crashing, loss 0.1.  First, before the children start: the peak
@@ -276,10 +278,15 @@ Phases, each printed as one JSON line:
      (analysis/audit.sharded_wire_arms, 512 nodes) on the mix, every
      row passing.  For each: launches, the bytes copied between the
      devices a period (equal to ring_shard.mesh_copy_bytes of the
-     recorded exchanges) beside obs/ici.py's bill for D = 4 and the
-     fetch factor, the seconds.  Where PyTorch sees two or more cards,
+     recorded exchanges: a roll, ring hop or compact wire block copies
+     the source posts its shards read from another device) beside
+     obs/ici.py's bill for D = 4 and the fetch factor, of every
+     exchange, of the rolls and of the pull ring passes, the seconds.
+     Where PyTorch sees two or more cards,
      after the children are joined: the same parity on `make_mesh()`
-     at 1M, the wall a period beside one card, each card's peak
+     at 1M (the rolls' fetch factor at most 1: two blocks a shard
+     read, where the reference moves two), the wall a period beside
+     one card, each card's peak
      (memwall), the audit's wire arms with the sync check and one
      period under the sync check; on one card the line `"part":
      "all_cards", "run": false`.  `launches_multidevice` sums the
@@ -2642,6 +2649,7 @@ SHARD_STUDY_PERIODS = 9
 SHARD_STUDY_CHUNK = 3
 SHARD_TIMED_PERIODS = 5
 SHARD_CKPT_DIR = Path(__file__).resolve().parent / "_shard_ckpt"
+SHARD_MEMWALL_RATIO = 1.05      # sharded study peak over one device's
 
 
 def shard_mesh():
@@ -2734,7 +2742,8 @@ def capture_shard_period(cfg, placed, plan, t: int, mesh=None) -> dict:
     wavemerge.merge_waves = keep("wavemerge", real[2])
     try:
         rnd = ring.draw_period_ring(threefry.key(0), t, cfg, "cuda")
-        ring_shard.mapped_step(cfg, mesh or shard_mesh())(placed, plan, rnd)
+        ring_shard.mapped_step(cfg, mesh or shard_mesh())(
+            placed, plan, rnd, ring.rotor_offsets(cfg, t))
     finally:
         (selb.select_first_b, coldsel.cold_update_select,
          wavemerge.merge_waves) = real
@@ -2832,12 +2841,14 @@ def shard_no_sync_period() -> None:
     cfg = SwimConfig(n_nodes=N, **SHARD_CONFIGS["wave"])
     st, pl = shard_place(cfg, crash_plan(cfg, SHARD_PERIODS))
     step = ring_shard.mapped_step(cfg, shard_mesh())
-    st = step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, "cuda"))
+    st = step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, "cuda"),
+              ring.rotor_offsets(cfg, 0))
     rnd = ring.draw_period_ring(threefry.key(0), 1, cfg, "cuda")
+    shifts = ring.rotor_offsets(cfg, 1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        step(st, pl, rnd)
+        step(st, pl, rnd, shifts)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -2930,7 +2941,9 @@ def shard_study(card: str) -> None:
 def shard_memwall(card: str) -> None:
     """memwall's streaming-study accounting at N (pull, 12 periods) on
     `ringshard` and on one device in the same call: both measured, each
-    peak at least its state and inside the card's memory."""
+    peak at least its state and inside the card's memory, the sharded
+    peak within SHARD_MEMWALL_RATIO of one device's (the shards hold
+    the state once, and no exchange stacks every shard's block)."""
     t0 = time.perf_counter()
     reps = {e: memwall.study_memory_analysis(N, engine=e, device="cuda")
             for e in ("ring", "ringshard")}
@@ -2942,6 +2955,10 @@ def shard_memwall(card: str) -> None:
     if sh["shards"] != SHARDS or sh["shard_state_bytes"] * SHARDS != \
             sh["state_bytes"]:
         raise AssertionError(f"ringshard: memwall shards {sh}")
+    ratio = sh["total_bytes"] / reps["ring"]["total_bytes"]
+    if ratio > SHARD_MEMWALL_RATIO:
+        raise AssertionError(f"ringshard: memwall peak {ratio:.4f} of one "
+                             f"device's, over {SHARD_MEMWALL_RATIO}")
     keys = ("state_bytes", "argument_bytes", "output_bytes", "temp_bytes",
             "total_bytes", "budget_fraction")
     emit(phase="ringshard", part="memwall", n_nodes=N, shards=SHARDS,
@@ -2949,7 +2966,7 @@ def shard_memwall(card: str) -> None:
          shard_state_bytes=sh["shard_state_bytes"],
          ringshard={k: sh[k] for k in keys},
          one_device={k: reps["ring"][k] for k in keys},
-         peak_ratio=sh["total_bytes"] / reps["ring"]["total_bytes"],
+         peak_ratio=ratio,
          seconds=time.perf_counter() - t0, card=card)
 
 
@@ -3378,18 +3395,22 @@ def mesh_ring_run(cfg, plan, mesh, periods: int, seed: int = 0):
     torch.cuda.synchronize()
     reset_launches()
     mesh.copied_bytes = 0
-    for rnd in ring.period_randomness(cfg, threefry.key(seed), 0, periods,
-                                      "cuda"):
-        st = step(st, pl, rnd)
+    for rnd, shifts in ring.period_draws(cfg, threefry.key(seed), 0, periods,
+                                         "cuda"):
+        st = step(st, pl, rnd, shifts)
     torch.cuda.synchronize()
     return st, pl, step.record, mesh.copied_bytes, read_launches()
 
 
 def copy_row(cfg, mesh, record: list, copied: int, periods: int) -> dict:
     """The bytes copied between devices a period against the mesh's
-    model of the recorded exchanges (they must be equal), the bill of
+    model of the recorded exchanges (they must be equal: each permute
+    copies the posts its shards read from another device), the bill of
     obs/ici.py for D shards, and the fetch factor (copied over the bytes
-    the reference's layout moves into the D shards)."""
+    the reference's layout moves into the D shards): of every exchange,
+    of the rolls (and the compact wire's blocks) and of the pull ring
+    passes (None where the record has none).  On a mesh of distinct
+    cards the rolls' factor must be at most 1."""
     from swim_tpu_torch.analysis import audit
 
     model = ring_shard.mesh_copy_bytes(record, mesh)
@@ -3397,18 +3418,27 @@ def copy_row(cfg, mesh, record: list, copied: int, periods: int) -> dict:
         raise AssertionError(f"multidevice: copied {copied} bytes, the "
                              f"mesh's model of the exchanges {model}")
     ref = mesh.size * sum(audit.family_bytes(record).values())
-    fam = audit.family_bytes([e for e in record if e["op"] == "ppermute"])
-    rolls = [e for e in record if e["op"] == "ppermute"]
-    roll_copied = ring_shard.mesh_copy_bytes(rolls, mesh)
+    perms = [e for e in record if e["op"] == "ppermute"]
+
+    def factor(entries):
+        moved = mesh.size * sum(audit.family_bytes(entries).values())
+        return (ring_shard.mesh_copy_bytes(entries, mesh) / moved
+                if moved else None)
+
+    rolls = factor([e for e in perms if "ring_pass" not in e["terms"]])
+    passes = factor([e for e in perms if "ring_pass" in e["terms"]])
+    if (len(mesh.distinct) == mesh.size and rolls is not None
+            and rolls > 1.0):
+        raise AssertionError(f"multidevice: the rolls' fetch factor "
+                             f"{rolls} over {mesh.size} cards exceeds 1")
     bill = ici.trace_ici_bytes(cfg, mesh.size)["per_chip_bytes_per_period"]
     return dict(copied_bytes_per_period=copied / periods,
                 model_bytes_per_period=model / periods,
                 reference_bytes_per_period=ref / periods,
                 bill_per_chip_per_period=bill,
                 bill_all_shards_per_period=bill * mesh.size,
-                fetch_factor=copied / ref,
-                fetch_factor_rolls=roll_copied / (mesh.size
-                                                  * fam["ppermute"]))
+                fetch_factor=copied / ref, fetch_factor_rolls=rolls,
+                fetch_factor_ring_passes=passes)
 
 
 def multi_ring_part(name: str, kw: dict, n: int) -> dict:
@@ -3523,11 +3553,13 @@ def multi_study_part() -> dict:
         mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
         st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cuda"),
                                   plan)
+        step = ring_shard.mapped_step(cfg, mesh)
+        step.record = []
         torch.cuda.synchronize()
         reset_launches()
         mesh.copied_bytes = 0
         res = runner.run_study_ring_stream(
-            cfg, st, pl, key, periods, ring_shard.mapped_step(cfg, mesh),
+            cfg, st, pl, key, periods, step,
             ckpt=runner.StudyCheckpointer(str(MULTI_CKPT_DIR),
                                           every=MULTI_STUDY_CHUNK))
         torch.cuda.synchronize()
@@ -3547,6 +3579,7 @@ def multi_study_part() -> dict:
                 raise AssertionError(f"multidevice study: {part}.{f} "
                                      "differs")
     resumed = periods - MULTI_STUDY_CHUNK
+    copies = copy_row(cfg, mesh, step.record, copied, resumed)
     want = {"selb": card_shards(mesh) * resumed, "coldsel": 0,
             "wavemerge": 0}
     if launches != want:
@@ -3556,7 +3589,7 @@ def multi_study_part() -> dict:
          chunk=MULTI_STUDY_CHUNK, ring_probe="pull", snapshots=snaps,
          saved_on="8 slots of the card", resumed_on=MIXED_DEVICES,
          summaries_equal=True, track_series_bitwise=True,
-         launches=launches, copied_bytes_per_period=copied / resumed,
+         launches=launches, **copies,
          crashed=b.get("crashed"), seconds=time.perf_counter() - t0)
     return launches
 
@@ -3639,12 +3672,13 @@ def all_cards_part(card: str) -> None:
     audit_copies = audit_wire_rows(mesh)
     rep = memwall.study_memory_analysis(N, engine="ringshard")
     rnd = ring.draw_period_ring(threefry.key(0), MULTI_PERIODS, cfg, "cuda")
+    shifts = ring.rotor_offsets(cfg, MULTI_PERIODS)
     step = ring_shard.mapped_step(cfg, mesh)
     for d in mesh.distinct:
         torch.cuda.synchronize(d)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        step(placed, pl, rnd)
+        step(placed, pl, rnd, shifts)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     emit(phase="multidevice", part="all_cards", run=True, cards=cards,

@@ -622,7 +622,7 @@ def sharded_wire_arms(mesh, wire_n: int, add) -> dict:
         step.around = watch
         mesh.copied_bytes = 0
         with sync_check(shard_sync):
-            step(st_w, pl_w, rnd_w)
+            step(st_w, pl_w, rnd_w, ring.rotor_offsets(cfg_w, 0))
         copied = mesh.copied_bytes
         records = exchange_records(step.record)
 
@@ -734,7 +734,7 @@ def run_audit(wire_n: int = 512, retrace_n: int = 256, d: int = 8,
             held["step"] = ring_shard.mapped_step(cfg_s, mesh)
         st_p, pl_p = ring_shard.place(cfg_s, mesh,
                                       ring.init_state(cfg_s, dev), prog)
-        held["step"](st_p, pl_p, rnd_s)
+        held["step"](st_p, pl_p, rnd_s, ring.rotor_offsets(cfg_s, 0))
 
     ok, extra, detail = build_row(count_builds(sharded_value, progs[:2]),
                                   2)

@@ -409,7 +409,9 @@ class GlobalOps:
     the reference's GlobalOps (ring.py:625-756), plus the three kernel
     steps (their plain versions with `plain`).  `step` routes through
     these the reference's node identity (`ids`, `zeros_nodes`,
-    `full_nodes`), rolls (with its labels), global sums and maxima,
+    `full_nodes`), the period's rotor offsets (`offsets`: device
+    values here, host ints in ShardOps), rolls (with its labels),
+    global sums and maxima,
     scatters and gathers by node id, heard-bit lookups and first-k
     compactions; on one device each is the plain PyTorch op it names.
     obs/ici.py's CountingOps overrides them to tally the bytes of the
@@ -448,6 +450,10 @@ class GlobalOps:
         return partial
 
     # -- communication ----------------------------------------------------
+    def offsets(self, rnd: RingRandomness):
+        """(s_off, q_off) of the period, the device values of `rnd`."""
+        return rnd.s_off, rnd.q_off
+
     def _roll(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         idx = torch.remainder(self._ids.to(torch.int64) + d, self.n)
         return x[idx]
@@ -791,7 +797,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         return prof.capture(**parts)
 
     if not pull:
-        s_off = rnd.s_off
+        s_off, q_off = ops.offsets(rnd)
         target = torch.remainder(ids + s_off, n)
         prober = active & ops.roll_from(joined, s_off,
                                         label="roll_probe_gate")
@@ -897,7 +903,8 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         def deliver(ok, d, cv=None):
             """One wave: receiver i ORs sel row (i + d) mod n under ok."""
             nonlocal win
-            d = d.to(I32)
+            if isinstance(d, torch.Tensor):
+                d = d.to(I32)
             if tap is not None:
                 tap_oks.append(ok)
             if fused:
@@ -917,7 +924,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         need = prober & ~acked
         relayed = ops.zeros_nodes(torch.bool)
         for a in range(k):
-            q = rnd.q_off[a]
+            q = q_off[a]
             d4 = s_off - q
             ok3, _ = wave_ok(need, -q, rnd.loss_w3[:, a])     # W3 ping-req
             deliver(ok3, -q)
@@ -1315,14 +1322,25 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
     )
 
 
+def period_draws(cfg: SwimConfig, key: tuple[int, int], t0: int,
+                 periods: int, device):
+    """(RingRandomness, host shifts) of periods t0 .. t0+periods-1 in
+    order: the shifts are the period's `rotor_offsets` as a tuple of
+    ints (what the sharded step reads its rolls' source shards from),
+    and the offsets of all the periods are copied to the device once."""
+    host = [tuple(rotor_offsets(cfg, t0 + i)) for i in range(periods)]
+    table = torch.tensor(host, dtype=I32, device=device)
+    for i in range(periods):
+        yield (draw_period_ring(key, t0 + i, cfg, device, offsets=table[i]),
+               host[i])
+
+
 def period_randomness(cfg: SwimConfig, key: tuple[int, int], t0: int,
                       periods: int, device):
     """RingRandomness of periods t0 .. t0+periods-1 in order, the rotor
     offsets of all of them copied to the device once."""
-    table = torch.tensor([rotor_offsets(cfg, t0 + i) for i in range(periods)],
-                         dtype=I32, device=device)
-    for i in range(periods):
-        yield draw_period_ring(key, t0 + i, cfg, device, offsets=table[i])
+    for rnd, _ in period_draws(cfg, key, t0, periods, device):
+        yield rnd
 
 
 def run(cfg: SwimConfig, state: RingState, plan: FaultPlan, seed: int,

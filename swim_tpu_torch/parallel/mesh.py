@@ -24,16 +24,18 @@ whole tensors on shard 0's device.
 shard, in lockstep, because the reference's step body is SPMD code that
 calls collectives mid-step.  Each collective is a rendezvous: every
 shard posts its block and waits, then every shard reads what it needs
-in its own thread, on its own device: a stack is built once per device
-from the posted blocks (a block from another device copied in), an
-integer sum or max is computed once, on the device of the first shard
-that reads it, and copied to the others.  The shards take turns between
-rendezvous (one runs at a time), which keeps D threads from contending
-for the interpreter.  All reductions are integer, so a sum is the same
-in any order.  A shard that raises aborts the rendezvous, so every other
-shard raises too; a wait longer than BARRIER_TIMEOUT_S seconds breaks
-it the same way.  `run_spmd` runs one function on every shard and
-returns their results in shard order.
+in its own thread, on its own device: a permute reads only the posts
+of the shards it names (one of another device copied in, one of its
+own device as it is), a stack is built once per device from the
+posted blocks, an integer sum or max is computed once, on the device
+of the first shard that reads it, and copied to the others.  The
+shards take turns between rendezvous (one runs at a time), which keeps
+D threads from contending for the interpreter.  All reductions are
+integer, so a sum is the same in any order.  A shard that raises
+aborts the rendezvous, so every other shard raises too; a wait longer
+than BARRIER_TIMEOUT_S seconds breaks it the same way.  `run_spmd`
+runs one function on every shard and returns their results in shard
+order.
 
 Ordering on the card: each shard runs on the caller's current stream of
 its device, and records an event on it when it posts.  A block read on
@@ -81,6 +83,14 @@ class Mesh:
         """Blocks one stack copies between devices: every device takes
         the blocks of the shards on the others."""
         return sum(self.size - self.devices.count(dv) for dv in self.distinct)
+
+    def permute_copies(self, offsets) -> int:
+        """Blocks one permute copies between devices when every shard
+        reads the posts of shards me + o, o in `offsets`: those on
+        another device than the reader's."""
+        d = self.size
+        return sum(self.devices[(r + o) % d] != self.devices[r]
+                   for r in range(d) for o in offsets)
 
     def reduce_copies(self) -> int:
         """Blocks one psum or pmax copies between devices: the blocks of
@@ -387,9 +397,30 @@ class Collectives:
         return [self._fetch(p, dev) for p in posts]
 
     # -- the collectives of the reference's shard_map ---------------------
+    def permute(self, rank: int, x, srcs: tuple) -> list:
+        """[post of shard j on the caller's device for j in srcs]: every
+        shard posts x (a tensor or a tuple of them) and reads only the
+        posts of the shards `srcs` names (host ints; ppermute).  A post
+        of the caller's device is read as it is, one of another device
+        copied (`_fetch`, whose copy waits on the post's event and
+        keeps the source block alive on the copying stream).  Every
+        shard passes the same shift, so every shard enters every
+        exchange, and reads in its turn before it posts again, while
+        the posts are held.  A post read as it is is the poster's own
+        tensor: neither shard writes it afterwards (the rule for every
+        collective's result)."""
+        posts = self._post(rank, x)
+        dev = self.mesh.devices[rank]
+        out = []
+        for j in srcs:
+            p = posts[j]
+            out.append(tuple(self._fetch(p._replace(value=v), dev)
+                             for v in p.value)
+                       if isinstance(p.value, tuple) else self._fetch(p, dev))
+        return out
+
     def stack(self, rank: int, x: torch.Tensor) -> torch.Tensor:
-        """[D, *x.shape]: every shard's x in shard order (all_gather;
-        a ppermute reads the block it needs from it)."""
+        """[D, *x.shape]: every shard's x in shard order (all_gather)."""
         posts = self._post(rank, x)
         return self._once_per_device(
             rank, lambda dev: torch.stack(self._gathered(posts, dev)))

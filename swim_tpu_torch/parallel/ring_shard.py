@@ -9,13 +9,17 @@ results) or equal on every shard (reductions and gathers), so the
 placed state is bitwise the single-device engine's:
 
   * rolls: a roll by d = k*S + r is rows [r, S) of shard me+k and rows
-    [0, r) of shard me+k+1.  k and r stay on the device (the shift is a
-    device scalar and reading it would wait for the card), so the
-    blocks are picked by indexing the posted blocks with a device
-    index.  On the packed scalar wire (`ring_scalar_wire="packed"`) a
-    wave's scalars travel as one u8 bundle (ops/wavepack.py), bools at
-    one bit a node, narrow codes at their wire width, and both
-    neighbour blocks unpack before the r-row stitch;
+    [0, r) of shard me+k+1.  Every shift is a host function of the
+    period (+-s_off, +-q_off[a], +-(s_off - q_off[a]), from
+    `ring.rotor_offsets`), so the step is given the period's host
+    shifts and k and r are host ints: a roll reads the posts of shards
+    me+k and me+k+1 point to point (`Collectives.permute`, the
+    reference's ppermute), only me+k when r = 0, and a post of its own
+    device without a copy.  On the packed scalar wire
+    (`ring_scalar_wire="packed"`) a wave's scalars travel as one u8
+    bundle (ops/wavepack.py), bools at one bit a node, narrow codes at
+    their wire width, and both neighbour blocks unpack before the r-row
+    stitch;
   * the wave merge: per wave, the rolled selection block ORed in under
     the wave's mask.  On the "compact" ICI wire the first-B selection
     is packed once into slot indices [S, B] and each wave moves one
@@ -30,7 +34,7 @@ placed state is bitwise the single-device engine's:
     updates addressed to its rows; a gather sums the owner's value (one
     owner per id);
   * the pull branch's random-peer reads: a ring pass, the query bundle
-    visiting every shard once;
+    visiting every shard once, each hop one read of shard me-1's post;
   * first-k compaction: local compaction, a gather of D small key
     blocks, a top-k.
 
@@ -40,25 +44,29 @@ the plain versions with `plain=True`, and on CPU tensors.
 
 Each shard computes on its own device: the exchanged blocks reach it
 through the collectives, and each period's randomness is cut to its rows
-and copied to its device before the shards start.  A roll's shift is a
-device value, so a roll still gathers all D posted blocks where the
-reference's layout moves two (`mesh_copy_bytes` counts what a mesh
-copies for a period's exchanges).
+and copied to its device before the shards start.  `mesh_copy_bytes`
+counts what a mesh copies between devices for a period's exchanges: a
+permute the blocks its shards read from another device, an all-gather
+every other device's blocks into each device.
 
 `place` splits a whole state and plan onto the mesh by the reference's
 spec tables (`_state_specs`, `_plan_specs`, `_rnd_specs`),
-`mapped_step` gives the sharded step(state, plan, rnd) on placed
-trees, `build_run` a run of periods, and `mesh.assemble` the whole
-state back; `start` places a fresh state and a plan on the default
-mesh (`mesh.make_mesh()`: one shard per card, or 8 slots of one card)
-or on 8 slots of a named device, and builds its step.  A
+`mapped_step` gives the sharded step(state, plan, rnd, shifts) on
+placed trees (`shifts` the period's host offsets, as
+`ring.rotor_offsets` and `ring.period_draws` give them; a step
+without them raises), `build_run` a run of periods, and
+`mesh.assemble` the whole state back; `start` places a fresh state
+and a plan on the default mesh (`mesh.make_mesh()`: one shard per
+card, or 8 slots of one card) or on 8 slots of a named device, and
+builds its step.  A
 `ShardedStep`'s `record`, when set to a list, receives every exchange
 of shard 0: its op, the dtype and shape of every tensor it posts
 (`payloads`, with the reference's `wire_dtype`: uint32 for the u32
 values of `U32_LANES` in their int32 carriers; `dtype` and `shape` name
 the main one), the number of such blocks the reference's layout moves
 into one device for it (`blocks`: two for a roll by a device-side
-distance, D for an all-gather, one otherwise), and the bytes the bill
+distance, D for an all-gather, one otherwise), the offsets o of the
+shards me+o whose posts a permute read (`srcs`), and the bytes the bill
 charges for it under its labels (`terms`, the convention of
 obs/ici.py).  Its `around`, when set, is a per-shard context manager
 factory (mesh.run_spmd).  `ShardedStep.built` counts
@@ -94,8 +102,9 @@ class ShardOps:
 
     def __init__(self, cfg: SwimConfig, n_shards: int, rank: int,
                  coll: pmesh.Collectives, device, plain: bool = False,
-                 record: list | None = None):
+                 record: list | None = None, shifts: tuple = ()):
         self.n = cfg.n_nodes
+        self.shifts = shifts
         self.d = n_shards
         self.s = self.n // n_shards
         self.rank = rank
@@ -112,9 +121,11 @@ class ShardOps:
         self._ids = self.lo + torch.arange(self.s, dtype=I32, device=device)
         self._rows = torch.arange(self.s, dtype=I64, device=device)
 
-    def _log(self, op: str, payload, terms: dict, blocks: int = 1) -> None:
+    def _log(self, op: str, payload, terms: dict, blocks: int = 1,
+             srcs: tuple | None = None) -> None:
         """Record one exchange: `payload` is the tensor posted (or a
-        tuple of them, the first the main one)."""
+        tuple of them, the first the main one); `srcs` the offsets of
+        the shards a permute read."""
         if self.record is None:
             return
         parts = payload if isinstance(payload, tuple) else (payload,)
@@ -125,10 +136,13 @@ class ShardOps:
             desc.append({"dtype": dtype, "shape": tuple(p.shape),
                          "wire_dtype": "uint32" if carrier
                          and p.dtype == I32 else dtype})
-        self.record.append({
+        entry = {
             "op": op, "dtype": desc[0]["dtype"], "shape": desc[0]["shape"],
             "payloads": desc, "blocks": blocks,
-            "bytes": sum(terms.values()), "terms": dict(terms)})
+            "bytes": sum(terms.values()), "terms": dict(terms)}
+        if srcs is not None:
+            entry["srcs"] = tuple(srcs)
+        self.record.append(entry)
 
     # -- node identity ----------------------------------------------------
     def ids(self) -> torch.Tensor:
@@ -150,25 +164,42 @@ class ShardOps:
         return self.coll.pmax(self.rank, partial)
 
     # -- communication ----------------------------------------------------
-    def _shift(self, d):
-        """(k, r) of a global shift d = k*S + r, device tensors."""
-        dd = torch.remainder(torch.as_tensor(d, device=self.device)
-                             .to(I64), self.n)
-        return dd // self.s, torch.remainder(dd, self.s)
+    def offsets(self, rnd):
+        """(s_off, q_off) of the period: the host shifts the step was
+        given, so every roll's source shards are known on the host."""
+        return self.shifts[0], self.shifts[1:]
 
-    def _pair(self, stacked: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        """[2, ...]: the blocks of shards me+k and me+k+1, picked from the
-        posted blocks by a device index."""
-        j = torch.remainder(self.rank + k, self.d)
-        return stacked.index_select(
-            0, torch.stack([j, torch.remainder(j + 1, self.d)]))
+    def _shift(self, d: int) -> tuple[int, int]:
+        """(k, r) of a global shift d = k*S + r, d a host int (a device
+        value would make every roll wait for the card)."""
+        if not isinstance(d, int):
+            raise TypeError(f"a sharded roll's shift must be a host int, "
+                            f"not {type(d).__name__}")
+        return divmod(d % self.n, self.s)
 
-    def _stitch(self, a: torch.Tensor, b: torch.Tensor,
-                r: torch.Tensor) -> torch.Tensor:
-        """Rows [r, r + S) of a ++ b."""
-        return torch.cat([a, b]).index_select(0, r + self._rows)
+    def _read(self, x, offs: tuple) -> list:
+        """The posts of shards me + o for o in `offs` (x posted by every
+        shard: a tensor or a tuple of them), on this shard's device."""
+        return self.coll.permute(
+            self.rank, x, tuple((self.rank + o) % self.d for o in offs))
 
-    def roll_from(self, x: torch.Tensor, d, label=None,
+    def _roll_blocks(self, x, d: int, terms: dict) -> tuple:
+        """(blocks, r) of a roll by d, recorded with the bill's `terms`:
+        the posts of x of shards me+k and me+k+1 (me+k alone when
+        r = 0)."""
+        k, r = self._shift(d)
+        srcs = (k,) if r == 0 else (k, k + 1)
+        self._log("ppermute", x, terms, blocks=2, srcs=srcs)
+        return self._read(x, srcs), r
+
+    @staticmethod
+    def _stitch(blocks, r: int) -> torch.Tensor:
+        """Rows [r, r + S) of blocks[0] ++ blocks[1]."""
+        if r == 0:
+            return blocks[0].clone()
+        return torch.cat([blocks[0][r:], blocks[1][:r]])
+
+    def roll_from(self, x: torch.Tensor, d: int, label=None,
                   itemsize=None) -> torch.Tensor:
         """x at global node (i + d) mod n for my rows i.  A lone bool
         vector on the packed scalar wire ships as a one-part bundle (1
@@ -179,26 +210,21 @@ class ShardOps:
             return self.roll_bundle((x,), d, labels=(label,))[0]
         if itemsize is not None and itemsize < x.element_size():
             return self._roll_packed((x,), d, (label,), (itemsize,))[0]
-        k, r = self._shift(d)
-        stacked = self.coll.stack(self.rank, x)
-        self._log("ppermute", x, {label or "roll": 2 * x.numel()
-                                  * x.element_size()}, blocks=2)
-        a, b = self._pair(stacked, k)
-        return self._stitch(a, b, r)
+        blocks, r = self._roll_blocks(
+            x, d, {label or "roll": 2 * x.numel() * x.element_size()})
+        return self._stitch(blocks, r)
 
     def _roll_packed(self, parts, d, labels, itemsizes):
-        k, r = self._shift(d)
         payload = wavepack.pack_bundle(parts, itemsizes)
-        stacked = self.coll.stack(self.rank, payload)
         terms: dict = {}
         for x, lb, sz in zip(parts, labels, itemsizes):
             key = lb or "roll"
             terms[key] = (terms.get(key, 0)
                           + 2 * wavepack.bundle_nbytes(x, sz))
-        self._log("ppermute", payload, terms, blocks=2)
-        pa, pb = (wavepack.unpack_bundle(p, parts, itemsizes)
-                  for p in self._pair(stacked, k))
-        return tuple(self._stitch(xa, xb, r) for xa, xb in zip(pa, pb))
+        blocks, r = self._roll_blocks(payload, d, terms)
+        unpacked = [wavepack.unpack_bundle(p, parts, itemsizes)
+                    for p in blocks]
+        return tuple(self._stitch(xs, r) for xs in zip(*unpacked))
 
     def roll_bundle(self, parts, d, labels=None, itemsizes=None):
         """roll_from over several same-offset node vectors: one u8
@@ -254,11 +280,10 @@ class ShardOps:
         """Every tensor of xs from shard me-1 (one ring hop)."""
         if self.d == 1:
             return xs
-        stacked = self.coll.stack_many(self.rank, xs)
         self._log("ppermute", tuple(xs), {
-            "ring_pass": sum(x.numel() * x.element_size() for x in xs)})
-        src = (self.rank - 1) % self.d
-        return tuple(s[src] for s in stacked)
+            "ring_pass": sum(x.numel() * x.element_size() for x in xs)},
+            srcs=(-1,))
+        return self._read(tuple(xs), (-1,))[0]
 
     def gather_nodewise(self, arr, idx):
         """arr[idx] for a node-axis arr and node-axis global ids [S]:
@@ -361,18 +386,17 @@ class ShardOps:
             idx = wavepack.pack_slots(sel, self.b_pig)
             sz = wavepack.slot_dtype(self.ww).itemsize
             wire = wavepack.narrow_bytes(idx, sz)
-            nxt = self.coll.stack(self.rank, wire)[(self.rank + 1) % self.d]
             self._log("ppermute", wire,
-                      {"sel_wire_boundary": wire.numel()})
+                      {"sel_wire_boundary": wire.numel()}, srcs=(1,))
+            (nxt,) = self._read(wire, (1,))
             both = torch.cat([wire, nxt])
         for w, (ok, d) in enumerate(zip(oks, offs)):
             if self.wire == "compact":
                 k, r = self._shift(d)
-                z = both.index_select(0, r + self._rows)
-                stacked = self.coll.stack(self.rank, z)
-                self._log("ppermute", z, {"roll_sel_waves": z.numel()})
-                j = torch.remainder(self.rank + k, self.d)
-                y = stacked.index_select(0, j.reshape(1))[0]
+                z = both[r:r + self.s]
+                self._log("ppermute", z, {"roll_sel_waves": z.numel()},
+                          srcs=(k,))
+                (y,) = self._read(z, (k,))
                 rolled = wavepack.unpack_slots(
                     wavepack.widen_bytes(y, idx.dtype), self.ww)
             else:
@@ -477,29 +501,58 @@ def _slice_rnd(rnd, specs, lo: int, s: int, device):
 def mesh_copy_bytes(record: list, mesh: pmesh.Mesh) -> int:
     """Bytes `mesh`'s collectives copy between devices for the exchanges
     of `record` (shard 0's, as `ShardedStep.record` keeps them; every
-    shard posts the same shapes): each psum's posted bytes times
-    `mesh.reduce_copies()`, each stack's (a roll, a ring pass, an
-    all-gather) times `mesh.stack_copies()`."""
+    shard posts the same shapes and passes the same shift): each psum's
+    posted bytes times `mesh.reduce_copies()`, each permute's (a roll, a
+    ring hop, a compact wire block) times the blocks its shards read
+    from another device (`mesh.permute_copies` of its `srcs`), each
+    all-gather's times `mesh.stack_copies()`."""
     total = 0
     for e in record:
         posted = sum(getattr(torch, p["dtype"]).itemsize
                      * torch.Size(p["shape"]).numel() for p in e["payloads"])
-        total += posted * (mesh.reduce_copies() if e["op"] == "psum"
-                           else mesh.stack_copies())
+        if e["op"] == "psum":
+            copies = mesh.reduce_copies()
+        elif "srcs" in e:
+            copies = mesh.permute_copies(e["srcs"])
+        else:
+            copies = mesh.stack_copies()
+        total += posted * copies
     return total
 
 
+def host_shifts(cfg: SwimConfig, shifts) -> tuple:
+    """`shifts` ([s_off, q_off[0..k)] of the period as host ints) as a
+    tuple of ints; a ValueError when it is missing or of another
+    length."""
+    if shifts is None:
+        raise ValueError(
+            "the sharded ring step needs the period's host shifts "
+            "(ring.rotor_offsets(cfg, step), as ring.period_draws yields "
+            "them): step(state, plan, rnd, shifts)")
+    shifts = tuple(int(x) for x in shifts)
+    if len(shifts) != 1 + cfg.k_indirect:
+        raise ValueError(f"{len(shifts)} host shifts for k_indirect="
+                         f"{cfg.k_indirect}; want s_off and k q_off")
+    return shifts
+
+
 class ShardedStep:
-    """The sharded step(state, plan, rnd) on a placed state and plan and
-    a whole RingRandomness (as `ring.draw_period_ring` draws it): the
-    placed next state, with cfg.telemetry its EngineFrame and with
-    cfg.profiling the int32 phase-marker vector (obs/prof.py) appended,
-    `(state, frame?, markers?)`.  Both extras are reductions over the
+    """The sharded step(state, plan, rnd, shifts) on a placed state and
+    plan, a whole RingRandomness (as `ring.draw_period_ring` draws it)
+    and the period's host shifts (`ring.rotor_offsets` of its step, as
+    `ring.period_draws` yields them beside the randomness; a call
+    without them raises ValueError): the placed next state, with
+    cfg.telemetry its EngineFrame and with cfg.profiling the int32
+    phase-marker vector (obs/prof.py) appended, `(state, frame?,
+    markers?)`.  Both extras are reductions over the
     shards, equal on every shard.  `plain=True` runs the kernels' plain
     versions; `record`, a list, collects shard 0's exchanges; `around`
     (rank -> context manager) wraps each shard's body in its thread."""
 
     built = 0
+    # the study runners pass a period's host shifts to a step_fn that
+    # says it takes them (sim/runner.make_stepper)
+    takes_shifts = True
 
     def __init__(self, cfg: SwimConfig, mesh: pmesh.Mesh,
                  plain: bool = False):
@@ -511,11 +564,12 @@ class ShardedStep:
         self.around = None
         ShardedStep.built += 1
 
-    def __call__(self, state, plan, rnd):
+    def __call__(self, state, plan, rnd, shifts=None):
         cfg, d = self.cfg, self.d
         s = cfg.n_nodes // d
         rspecs = _rnd_specs(cfg)
         record = self.record
+        shifts = host_shifts(cfg, shifts)
 
         rnds = [_slice_rnd(rnd, rspecs, r * s, s, dev)
                 for r, dev in enumerate(self.mesh.devices)]
@@ -525,7 +579,8 @@ class ShardedStep:
 
             dev = self.mesh.devices[rank]
             ops = ShardOps(cfg, d, rank, coll, dev, plain=self.plain,
-                           record=record if rank == 0 else None)
+                           record=record if rank == 0 else None,
+                           shifts=shifts)
             tap = {} if cfg.telemetry else None
             pr = PhaseProbe() if cfg.profiling else None
             st = ring.step(cfg, pmesh.block(state, rank),
@@ -583,9 +638,9 @@ def build_run(cfg: SwimConfig, mesh: pmesh.Mesh, periods: int,
             root_key = threefry.key(root_key)
         ys = []
         t0 = int(pmesh.assemble(state.step))
-        for rnd in ring.period_randomness(cfg, root_key, t0, periods,
-                                          state.win.device):
-            out = sm(state, plan, rnd)
+        for rnd, shifts in ring.period_draws(cfg, root_key, t0, periods,
+                                             state.win.device):
+            out = sm(state, plan, rnd, shifts)
             if extras:
                 state = out[0]
                 ys.append(out[1:])

@@ -77,8 +77,10 @@ def card_line() -> str:
         timeout=60).stdout.strip()
 
 
-def run_tree(tree: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", WORKER], cwd=tree,
+def run_tree(tree: Path, worker: str = WORKER) -> dict:
+    """The JSON last line of `worker` run in a fresh process from
+    `tree`'s root."""
+    proc = subprocess.run([sys.executable, "-c", worker], cwd=tree,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n"

@@ -41,7 +41,6 @@ where a serial study would be.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -93,7 +92,7 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
         raise ValueError(
             f"streaming studies cover the ring engines only, not "
             f"'{engine}'")
-    placed = None
+    placed = None                       # [mesh, state, plan, step_fn]
     if engine == "shard":
         from swim_tpu_torch.parallel import shard_engine
 
@@ -101,40 +100,46 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
             raise ValueError("the exchange-sharded rumor engine ('shard') "
                              "has no telemetry tap; use 'rumor' or "
                              "'ringshard' for telemetry studies")
-        placed = shard_engine.start(cfg, plan, device)
+        placed = list(shard_engine.start(cfg, plan, device))
     elif engine == "ringshard":
         from swim_tpu_torch.parallel import ring_shard
 
-        placed = ring_shard.start(cfg, plan, device)
+        placed = list(ring_shard.start(cfg, plan, device))
     elif device is None and engine in PARTITIONED:
         from swim_tpu_torch.parallel import partition
 
         mesh = pmesh.make_mesh()
         if partition.partitions(mesh):
-            placed = partition.start(cfg, engine, plan, mesh)
-    run = _study_runner(engine, stream, ckpt, chunk)
-    if placed is not None:
-        _, state, plan, step_fn = placed
-        res = run(cfg, state, plan, key, periods, step_fn)
-        return res._replace(state=pmesh.assemble(res.state))
-    init = {"dense": dense, "rumor": rumor, "ring": ring}[engine].init_state
-    # the fresh state goes straight to the runner, which drops it after
-    # the first period: no frame here keeps it alive
-    return run(cfg, init(cfg, devmod.resolve(device)), plan, key, periods,
-               None)
+            placed = list(partition.start(cfg, engine, plan, mesh))
+    if placed is None:
+        init = {"dense": dense, "rumor": rumor,
+                "ring": ring}[engine].init_state
+        placed = [None, init(cfg, devmod.resolve(device)), plan, None]
+    plan, step_fn = placed[2], placed[3]
+    # the runner is called directly and takes the initial state out of
+    # `placed`: no frame here holds it, and the runner drops it after
+    # its first period
+    if stream:
+        res = runner.run_study_ring_stream(cfg, placed.pop(1), plan, key,
+                                           periods, step_fn, chunk=chunk,
+                                           ckpt=ckpt)
+    else:
+        res = _study_runner(engine)(cfg, placed.pop(1), plan, key, periods,
+                                    step_fn)
+    if step_fn is None:
+        return res
+    return res._replace(state=pmesh.assemble(res.state))
 
 
-def _study_runner(engine: str, stream: bool, ckpt, chunk: int):
-    """The study runner of `engine`'s family, as run(cfg, state, plan,
-    key, periods, step_fn); step_fn None: the one-device step."""
+def _study_runner(engine: str):
+    """The full-track study runner of `engine`'s family, as run(cfg,
+    state, plan, key, periods, step_fn); step_fn None: the one-device
+    step."""
     if engine == "dense":
         return runner.run_study
     if engine in ("rumor", "shard"):
         return runner.run_study_rumor
-    if not stream:
-        return runner.run_study_ring
-    return functools.partial(runner.run_study_ring_stream, chunk=chunk,
-                             ckpt=ckpt)
+    return runner.run_study_ring
 
 
 def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,

@@ -212,18 +212,26 @@ def _first(cur, cond, crashed, t):
 
 
 def make_stepper(cfg: SwimConfig, plan, engine_step, step_fn=None):
-    """(state, rnd) -> (state, EngineFrame or None): `engine_step(cfg,
-    state, plan, rnd)`, with its tap when cfg.telemetry.
-    `step_fn(state, plan, rnd)` overrides it; under telemetry it returns
-    (state, frame) itself, as in the reference."""
+    """(state, rnd, shifts=None) -> (state, EngineFrame or None):
+    `engine_step(cfg, state, plan, rnd)`, with its tap when
+    cfg.telemetry.  `step_fn(state, plan, rnd)` overrides it; under
+    telemetry it returns (state, frame) itself, as in the reference.
+    A step_fn whose `takes_shifts` is true (the sharded ring's) is
+    called with the period's host shifts too, as the ring runners pass
+    them (`ring.period_draws`)."""
     if step_fn is not None:
-        if cfg.telemetry:
-            return lambda st, rnd: step_fn(st, plan, rnd)
-        return lambda st, rnd: (step_fn(st, plan, rnd), None)
-    if not cfg.telemetry:
-        return lambda st, rnd: (engine_step(cfg, st, plan, rnd), None)
+        takes = getattr(step_fn, "takes_shifts", False)
 
-    def tapped(st, rnd):
+        def call(st, rnd, shifts=None):
+            out = (step_fn(st, plan, rnd, shifts) if takes
+                   else step_fn(st, plan, rnd))
+            return out if cfg.telemetry else (out, None)
+        return call
+    if not cfg.telemetry:
+        return lambda st, rnd, shifts=None: (engine_step(cfg, st, plan,
+                                                         rnd), None)
+
+    def tapped(st, rnd, shifts=None):
         tap: dict = {}
         st = engine_step(cfg, st, plan, rnd, tap=tap)
         return st, frame_from_tap(tap, st.step.device)
@@ -254,21 +262,22 @@ def run_study_ring(cfg: SwimConfig, state: ring.RingState, plan,
     base = pmesh.assemble(faults.base_of(plan))
     track = _new_track(cfg.n_nodes, dev)
     rows, frames = [], []
-    for rnd in ring.period_randomness(cfg, root_key, _step_of(state),
-                                      periods, dev):
-        state, track, row, frame = ring_study_period(cfg, state, track,
-                                                     base, rnd, stepper)
+    for rnd, shifts in ring.period_draws(cfg, root_key, _step_of(state),
+                                         periods, dev):
+        state, track, row, frame = ring_study_period(
+            cfg, state, track, base, rnd, stepper, shifts)
         rows.append(row)
         frames.append(frame)
     return RingStudyResult(state, track, _stack(rows), _frames(frames))
 
 
 def ring_study_period(cfg: SwimConfig, state, track: StudyTrack,
-                      base: FaultPlan, rnd, stepper):
+                      base: FaultPlan, rnd, stepper, shifts=None):
     """One period of the full-track ring study, all on the device:
     (state, track, the period's series row, its EngineFrame or None);
-    `base` is the plan's whole FaultPlan."""
-    state, frame = stepper(state, rnd)
+    `base` is the plan's whole FaultPlan, `shifts` the period's host
+    shifts (the sharded step's)."""
+    state, frame = stepper(state, rnd, shifts)
     whole, t, crashed, up, knowers, gone_na, gone_dead = _census(
         cfg, state, base)
     not_alive, dead_seen, dead_all, counts = _subject_flags(
@@ -477,11 +486,12 @@ def _compact_subject_flags(subjects, subject, rkey, knowers, up,
 
 
 def study_period(cfg: SwimConfig, state, track: CompactTrack, base, rnd,
-                 stepper):
+                 stepper, shifts=None):
     """One period of a streaming study, all on the device (no host
     read): (state, track, the period's series row, its EngineFrame or
-    None).  `base` is the plan's whole FaultPlan."""
-    state, frame = stepper(state, rnd)
+    None).  `base` is the plan's whole FaultPlan, `shifts` the period's
+    host shifts (the sharded step's)."""
+    state, frame = stepper(state, rnd, shifts)
     whole, t, _, up, knowers, gone_na, gone_dead = _census(cfg, state,
                                                            base)
     not_alive, dead_seen, dead_all = _compact_subject_flags(
@@ -510,10 +520,10 @@ def _run_study_ring_chunk(cfg: SwimConfig, state, track: CompactTrack,
     dev = state.win.device
     base = pmesh.assemble(faults.base_of(plan))
     rows, frames = [], []
-    for rnd in ring.period_randomness(cfg, root_key, _step_of(state),
-                                      periods, dev):
+    for rnd, shifts in ring.period_draws(cfg, root_key, _step_of(state),
+                                         periods, dev):
         state, track, row, frame = study_period(cfg, state, track, base,
-                                                rnd, stepper)
+                                                rnd, stepper, shifts)
         rows.append(row)
         frames.append(frame)
     return state, track, _stack(rows), _frames(frames)
@@ -584,14 +594,18 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
                          "telemetry frames; disable one of them")
     stepper = make_stepper(cfg, plan, ring.step, step_fn)
     dev = state.win.device
+    # each chunk takes the state out of `held` and puts its end state
+    # back, so no frame here keeps the state a chunk started from
+    held = {"state": state}
+    del state
     track = None
     done = 0
     series_parts: list = []
     frame_parts: list = []
     if ckpt is not None:
-        restored = ckpt.restore(state)
+        restored = ckpt.restore(held["state"])
         if restored is not None:
-            state, track, series_prefix, root_key, done = restored
+            held["state"], track, series_prefix, root_key, done = restored
             if done > periods:
                 raise ValueError(
                     f"checkpoint at step {done} is beyond the requested "
@@ -616,8 +630,8 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
                  else periods)
     while done < periods:
         csize = min(chunk, periods - done)
-        state, track, series_c, frames_c = _run_study_ring_chunk(
-            cfg, state, track, plan, root_key, csize, stepper)
+        held["state"], track, series_c, frames_c = _run_study_ring_chunk(
+            cfg, held.pop("state"), track, plan, root_key, csize, stepper)
         done += csize
         series_parts.append(host_series(series_c))
         if frames_c is not None:
@@ -625,11 +639,11 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
         if ckpt is not None and done < periods:
             series_so_far = PeriodSeries(*(np.concatenate(xs) for xs in
                                            zip(*series_parts)))
-            ckpt.save(state, track, series_so_far, root_key, done)
+            ckpt.save(held["state"], track, series_so_far, root_key, done)
     series = PeriodSeries(*(torch.from_numpy(np.concatenate(xs)).to(dev)
                             for xs in zip(*series_parts)))
     frames = concat_frames(frame_parts) if frame_parts else None
-    return RingStudyResult(state, track, series, frames)
+    return RingStudyResult(held["state"], track, series, frames)
 
 
 # ---------------------------------------------------------------------

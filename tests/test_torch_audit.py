@@ -176,7 +176,8 @@ def test_port_bill_keys_lie_in_the_vocabulary(arm):
 
 def _sharded_period(step, cfg, mesh, prog):
     st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, CPU), prog)
-    step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, CPU))
+    step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, CPU),
+         ring.rotor_offsets(cfg, 0))
 
 
 @pytest.mark.parametrize("rebuild", [False, True],

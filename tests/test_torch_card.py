@@ -553,7 +553,8 @@ def test_ringshard_equals_one_device_on_the_card(cuda, kw):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        ring_shard.mapped_step(cfg, mesh)(got, pl, rnd)
+        ring_shard.mapped_step(cfg, mesh)(got, pl, rnd,
+                                          ring.rotor_offsets(cfg, periods))
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
@@ -651,9 +652,9 @@ def test_ringshard_on_a_card_and_cpu_mesh_equals_one_card(cuda, kw):
     step = ring_shard.mapped_step(cfg, mesh)
     step.record = []
     mesh.copied_bytes = 0
-    for rnd in ring.period_randomness(cfg, threefry.key(3), 0, periods,
-                                      cuda):
-        st = step(st, pl, rnd)
+    for rnd, shifts in ring.period_draws(cfg, threefry.key(3), 0, periods,
+                                         cuda):
+        st = step(st, pl, rnd, shifts)
     after = launches()
     one = [b - a for a, b in zip(before, mid)]
     assert [b - a for a, b in zip(mid, after)] == \

@@ -49,6 +49,14 @@ def jax_step(kw: tuple):
         jring.step, JaxSwimConfig(n_nodes=N, **dict(kw))))
 
 
+@functools.lru_cache(maxsize=None)
+def jax_draw(kw: tuple):
+    """JAX's `draw_period_ring` for the config, jitted once (a draw
+    dispatched op by op takes about 0.4 s a period)."""
+    jcfg = JaxSwimConfig(n_nodes=N, **dict(kw))
+    return jax.jit(lambda key, t: jring.draw_period_ring(key, t, jcfg))
+
+
 def inject(entries, capacity=8):
     """A JAX batch of `capacity` slots holding `entries`."""
     subject = np.full((capacity,), -1, np.int32)
@@ -70,6 +78,7 @@ def run_both(kw: dict, periods: int, ext_by_period=None, seed=0):
     cfg = SwimConfig(n_nodes=N, **kw)
     jcfg = JaxSwimConfig(n_nodes=N, **kw)
     step = jax_step(tuple(sorted(kw.items())))
+    draw = jax_draw(tuple(sorted(kw.items())))
     jstate = jring.init_state(jcfg)
     plan = jfaults.none(N)
     pplan = convert.plan_from_numpy(np_fields(plan), "cpu")
@@ -77,7 +86,7 @@ def run_both(kw: dict, periods: int, ext_by_period=None, seed=0):
     key = jax.random.key(seed)
     for t in range(periods):
         ext = (ext_by_period or {}).get(t, jring.ext_none(8))
-        rnd = jring.draw_period_ring(key, t, jcfg)
+        rnd = draw(key, t)
         jstate = step(jstate, plan, rnd, ext=ext)
         state = ring.step(
             cfg, state, pplan,

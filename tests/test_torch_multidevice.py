@@ -20,12 +20,21 @@ and count its bytes as the mesh counts a copy (`meta_reads_as_zeros`).
   * Each collective returns shard r's result on `mesh.devices[r]`; on
     an all-CPU mesh the values are the reference's and no byte is
     copied; on the mixed mesh a stack copies `stack_copies()` blocks, a
-    psum or pmax `reduce_copies()`.
+    psum or pmax `reduce_copies()`, a permute only the named posts of
+    another device (`permute_copies`).
   * One sharded period of each engine on the mixed mesh keeps every
     block on its shard's device; the ring's exchange record is the
     all-CPU mesh's, and the bytes the mesh copied equal
     `ring_shard.mesh_copy_bytes` of that record (0 on the all-CPU
-    mesh).
+    mesh).  On a blocked mesh (4 CPU shards, then 4 meta) the rolls,
+    ring hops and compact wire blocks copy what the permute model
+    counts, less than a stack of every block would; on 8 distinct
+    cards the model gives a roll at most 2 blocks a shard and a ring
+    hop 1.  A sharded step without the period's host shifts raises.
+  * A ringshard (full-track and streaming), `shard` and partitioned
+    study started by `experiments._run_study` holds no block of its
+    placed initial state by its second period but the ones the engine
+    carries in place.
   * The audit's sharded wire arms pass on a mixed mesh, the bytes
     copied equal to the model of their exchanges.
   * A streaming ringshard study's snapshot from an all-CPU mesh
@@ -40,6 +49,9 @@ exact.  The port's ops run on one thread.
 """
 from __future__ import annotations
 
+import gc
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,8 +64,8 @@ from swim_tpu_torch import SwimConfig, convert
 from swim_tpu_torch.analysis import audit
 from swim_tpu_torch.models import ring, rumor
 from swim_tpu_torch.parallel import mesh as pmesh
-from swim_tpu_torch.parallel import ring_shard, shard_engine
-from swim_tpu_torch.sim import faults, runner
+from swim_tpu_torch.parallel import partition, ring_shard, shard_engine
+from swim_tpu_torch.sim import experiments, faults, runner
 from swim_tpu_torch.utils import checkpoint, threefry
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -226,18 +238,50 @@ def test_collectives_return_on_each_shards_device(meta_reads_as_zeros):
         + (sum_b + max_b) * mesh.reduce_copies())
 
 
+def test_permute_reads_only_the_named_posts(meta_reads_as_zeros):
+    """Every shard reads the posts of shards me+1 and me-1 (a tuple
+    post too): the values on an all-CPU mesh, each on the reader's
+    device, and on the mixed mesh only the reads of another device's
+    posts copied."""
+    def body(rank, coll):
+        dev = coll.mesh.devices[rank]
+        x = torch.full((3,), rank + 1, dtype=torch.int32, device=dev)
+        y = torch.arange(2, dtype=torch.int64, device=dev) + rank
+        d = coll.d
+        return (coll.permute(rank, x, ((rank + 1) % d, (rank - 1) % d)),
+                coll.permute(rank, (x, y), ((rank + 1) % d,)))
+
+    cpu = pmesh.make_mesh(devices=["cpu"] * 4)
+    for rank, (pair, ((nx, ny),)) in enumerate(pmesh.run_spmd(cpu, body)):
+        assert [t.tolist() for t in pair] == [[(rank + 1) % 4 + 1] * 3,
+                                              [(rank - 1) % 4 + 1] * 3]
+        assert nx.tolist() == pair[0].tolist()
+        assert ny.tolist() == [(rank + 1) % 4, (rank + 1) % 4 + 1]
+    assert cpu.copied_bytes == 0
+    mixed = pmesh.make_mesh(devices=MIXED[:4])
+    for rank, (pair, ((nx, ny),)) in enumerate(pmesh.run_spmd(mixed, body)):
+        assert all(t.device == mixed.devices[rank]
+                   for t in (*pair, nx, ny))
+    assert mixed.permute_copies((1, -1)) == 8
+    assert mixed.permute_copies((0,)) == 0
+    assert mixed.copied_bytes == 12 * mixed.permute_copies((1, -1)) + \
+        (12 + 16) * mixed.permute_copies((1,))
+
+
 # ---------------------------------------------------------------------------
 # a sharded period on the mixed mesh
 # ---------------------------------------------------------------------------
 
-def _ring_period(mesh):
-    cfg = SwimConfig(n_nodes=N, ring_sel_scope="period", **SMALL_GEOM)
+def _ring_period(mesh, **kw):
+    cfg = SwimConfig(n_nodes=N, **{"ring_sel_scope": "period", **SMALL_GEOM,
+                                   **kw})
     st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cpu"),
                               crash_plan())
     step = ring_shard.mapped_step(cfg, mesh, plain=True)
     step.record = []
     mesh.copied_bytes = 0
-    out = step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, "cpu"))
+    out = step(st, pl, ring.draw_period_ring(threefry.key(0), 0, cfg, "cpu"),
+               ring.rotor_offsets(cfg, 0))
     return out, step.record
 
 
@@ -253,6 +297,163 @@ def test_ring_period_keeps_each_shard_on_its_device(meta_reads_as_zeros):
     _, cpu_record = _ring_period(cpu)
     assert cpu_record == record
     assert cpu.copied_bytes == ring_shard.mesh_copy_bytes(record, cpu) == 0
+
+
+# (wire keywords) of the exchanges the permute model is checked on
+PERMUTE_WIRES = {
+    "window": {},
+    "compact_packed": dict(ring_ici_wire="compact",
+                           ring_scalar_wire="packed"),
+    "pull": dict(ring_probe="pull"),
+}
+
+
+def _posted(e) -> int:
+    return sum(getattr(torch, p["dtype"]).itemsize
+               * torch.Size(p["shape"]).numel() for p in e["payloads"])
+
+
+def _stack_model(record, mesh) -> int:
+    """What the exchanges of `record` copied when every roll, ring hop
+    and compact block stacked every shard's post on every device."""
+    return sum(_posted(e) * (mesh.reduce_copies() if e["op"] == "psum"
+                             else mesh.stack_copies()) for e in record)
+
+
+@pytest.mark.parametrize("wire", list(PERMUTE_WIRES))
+def test_blocked_mesh_copies_what_the_permutes_read(meta_reads_as_zeros,
+                                                    wire):
+    """4 CPU shards then 4 meta: one period's copied bytes equal
+    `mesh_copy_bytes` of its record, below what stacking every post
+    copied; every ppermute entry names the shard offsets it read."""
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4 + ["meta"] * 4)
+    _, record = _ring_period(mesh, **PERMUTE_WIRES[wire])
+    perms = [e for e in record if e["op"] == "ppermute"]
+    assert perms and all(e["srcs"] for e in perms)
+    assert all("srcs" not in e for e in record if e["op"] != "ppermute")
+    copied = mesh.copied_bytes
+    assert copied == ring_shard.mesh_copy_bytes(record, mesh) > 0
+    assert copied < _stack_model(record, mesh)
+
+
+def test_card_mesh_model_reads_two_blocks_a_roll_and_one_a_hop():
+    """On a mesh named with 8 distinct cards (arithmetic over the
+    record, no card), each roll copies at most 2 blocks a shard, each
+    ring hop 1, each compact block at most 1: the rolls' fetch factor
+    (copied over D times the bill's bytes) at most 1, where the stack
+    copied (D - 1) / 2 times the bill."""
+    cards = pmesh.Mesh([f"cuda:{i}" for i in range(D)])
+    for wire, kw in PERMUTE_WIRES.items():
+        _, record = _ring_period(pmesh.make_mesh(devices=["cpu"] * D), **kw)
+        rolls = [e for e in record if e["op"] == "ppermute"
+                 and e["blocks"] == 2]
+        hops = [e for e in record if "ring_pass" in e["terms"]]
+        assert bool(hops) == (wire == "pull") and bool(rolls) != bool(hops)
+        for e in record:
+            if e["op"] != "ppermute":
+                continue
+            most = 2 if e["blocks"] == 2 else 1
+            got = ring_shard.mesh_copy_bytes([e], cards)
+            assert got <= most * D * _posted(e), (wire, e)
+            assert got < _stack_model([e], cards), (wire, e)
+        for e in hops:
+            assert ring_shard.mesh_copy_bytes([e], cards) == D * _posted(e)
+        if rolls:
+            bill = sum(e["blocks"] * _posted(e) for e in rolls)
+            assert ring_shard.mesh_copy_bytes(rolls, cards) <= D * bill
+            assert _stack_model(rolls, cards) == D * bill * (D - 1) / 2
+
+
+def test_a_sharded_step_needs_the_host_shifts():
+    """The sharded step without the period's host shifts, or with a
+    list of another length, raises; a roll by a device shift raises."""
+    cfg = SwimConfig(n_nodes=N, ring_sel_scope="period", **SMALL_GEOM)
+    mesh = pmesh.make_mesh(devices=["cpu"] * D)
+    st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cpu"),
+                              crash_plan())
+    step = ring_shard.mapped_step(cfg, mesh)
+    rnd = ring.draw_period_ring(threefry.key(0), 0, cfg, "cpu")
+    with pytest.raises(ValueError, match="host shifts"):
+        step(st, pl, rnd)
+    with pytest.raises(ValueError, match="host shifts"):
+        step(st, pl, rnd, ring.rotor_offsets(cfg, 0)[:1])
+    assert step.takes_shifts
+
+    def body(rank, coll):
+        ops = ring_shard.ShardOps(cfg, D, rank, coll, "cpu")
+        return ops.roll_from(torch.zeros(N // D), rnd.s_off)
+
+    with pytest.raises(TypeError, match="host int"):
+        pmesh.run_spmd(mesh, body)
+
+
+class _FirstStateWatch:
+    """A study's step_fn wrapped: at its first call it keeps a weak
+    reference to block 0 of every placed field of the initial state; at
+    its second, `held` names the fields whose initial block is alive
+    and not the one the state carries (in place) into that period."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+        self.takes_shifts = getattr(step_fn, "takes_shifts", False)
+        self.calls = 0
+        self.refs: dict = {}
+        self.held = self.gone = None
+
+    def __call__(self, state, plan, rnd, *shifts):
+        self.calls += 1
+        blocks = {f: getattr(state, f).blocks[0] for f in state._fields
+                  if isinstance(getattr(state, f), pmesh.Sharded)}
+        if self.calls == 1:
+            self.refs = {f: weakref.ref(b) for f, b in blocks.items()}
+        elif self.calls == 2:
+            gc.collect()
+            self.held = {f for f, r in self.refs.items()
+                         if r() is not None and r() is not blocks[f]}
+            self.gone = {f for f, r in self.refs.items() if r() is None}
+        del blocks
+        return self.step_fn(state, plan, rnd, *shifts)
+
+
+# (engine, start module, stream, the field whose initial block must go)
+FIRST_STATE_CASES = {
+    "ringshard": ("ringshard", ring_shard, False, "win"),
+    "ringshard_stream": ("ringshard", ring_shard, True, "win"),
+    "shard": ("shard", shard_engine, False, "knows"),
+    "partitioned_dense": ("dense", partition, False, "key"),
+}
+
+
+@pytest.mark.parametrize("case", list(FIRST_STATE_CASES))
+def test_studies_drop_their_placed_initial_state(monkeypatch, case):
+    """`experiments._run_study` of a sharded or partitioned study at
+    N = 64 (8 CPU shard slots; the partitioned one with the slots
+    counted as devices): by the second period no frame holds a block of
+    the placed initial state but those the engine updates in place."""
+    engine, mod, stream, field = FIRST_STATE_CASES[case]
+    watches = []
+    real = mod.start
+
+    def start(*a, **kw):
+        mesh, st, pl, step_fn = real(*a, **kw)
+        watches.append(_FirstStateWatch(step_fn))
+        return mesh, st, pl, watches[-1]
+
+    monkeypatch.setattr(mod, "start", start)
+    device = "cpu"
+    if mod is partition:
+        device = None
+        monkeypatch.setattr(pmesh, "make_mesh",
+                            lambda *a, **kw: pmesh.Mesh(["cpu"] * D))
+        monkeypatch.setattr(partition, "partitions", lambda mesh: True)
+    cfg = SwimConfig(n_nodes=N, rumor_capacity=64, **SMALL_GEOM)
+    plan = faults.with_crashes(faults.none(N, "cpu"), [5, 23], [0, 1])
+    res = experiments._run_study(cfg, plan, threefry.key(3), 3, engine,
+                                 device, stream=stream)
+    (watch,) = watches
+    assert watch.calls == 3 and int(res.state.step) == 3
+    assert watch.held == set(), watch.held
+    assert field in watch.gone
 
 
 def test_shard_engine_period_keeps_each_shard_on_its_device(

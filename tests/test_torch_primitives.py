@@ -179,9 +179,10 @@ class TestDrawPeriodRing:
                              ring_sel_scope="period")
         cfg = SwimConfig(n_nodes=n, k_indirect=k, ring_sel_scope="period")
         jkey, key = jax.random.key(3), threefry.key(3)
+        jdraw = jax.jit(lambda kk, t: jring.draw_period_ring(kk, t, jcfg))
         steps = [0, 1, 2, n - 2, n - 1, n, 2 * n + 5]
         for t in steps:
-            want = jring.draw_period_ring(jkey, t, jcfg)
+            want = jdraw(jkey, t)
             got = randomness_to_numpy(ring.draw_period_ring(key, t, cfg,
                                                             "cpu"))
             for f in ring.RingRandomness._fields:

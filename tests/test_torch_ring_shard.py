@@ -121,8 +121,9 @@ def port_arm(kw: dict, plan):
             "step": ring_shard.mapped_step(cfg, mesh)}
 
 
-def step_arm(arm, rnd):
-    out = arm["step"](arm["state"], arm["plan"], rnd)
+def step_arm(arm, rnd, t):
+    out = arm["step"](arm["state"], arm["plan"], rnd,
+                      ring.rotor_offsets(arm["cfg"], t))
     extras = ()
     if isinstance(out, tuple) and not hasattr(out, "_fields"):
         out, *extras = out
@@ -169,7 +170,7 @@ def test_sharded_step_equals_jax_mapped_step(case):
         suspects += int((np.asarray(jstate.rkey) & 1).sum())
         trnd = port_rnd(rnd)
         for kw, arm in zip(port_kws, arms):
-            extras = step_arm(arm, trnd)
+            extras = step_arm(arm, trnd, t)
             where = f"{case} {kw} period {t}"
             assert_same_state(arm["state"], jstate, where)
             assert len(extras) == len(jextras)
@@ -235,7 +236,7 @@ def test_sharded_step_equals_single_program(case):
         for t in range(periods):
             rnd = draw(key, t)
             js, jframe = jstep(js, plan, rnd)
-            (frame,) = step_arm(arm, port_rnd(rnd))
+            (frame,) = step_arm(arm, port_rnd(rnd), t)
             where = f"{case} {build.__name__} period {t}"
             assert_same_state(arm["state"], js, where)
             assert_same_frame(frame, jframe, where)
@@ -257,8 +258,8 @@ def test_build_run_equals_stepwise_and_one_device():
     st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cpu"), plan)
     step = ring_shard.mapped_step(cfg, mesh)
     stepped = []
-    for rnd in ring.period_randomness(cfg, (0, 11), 0, periods, "cpu"):
-        st, frame = step(st, pl, rnd)
+    for rnd, shifts in ring.period_draws(cfg, (0, 11), 0, periods, "cpu"):
+        st, frame = step(st, pl, rnd, shifts)
         stepped.append(frame)
     want = ring.run(cfg.replace(telemetry=False),
                     ring.init_state(cfg, "cpu"), plan, 11, periods)
@@ -360,7 +361,8 @@ def test_a_raising_shard_releases_the_others():
     rnd = ring.draw_period_ring((0, 0), 0, cfg, "cpu")
     t0 = time.monotonic()
     with pytest.raises(RuntimeError):
-        ring_shard.mapped_step(cfg, mesh)(st, pl, rnd)
+        ring_shard.mapped_step(cfg, mesh)(st, pl, rnd,
+                                          ring.rotor_offsets(cfg, 0))
     assert time.monotonic() - t0 < 5.0
     assert threading.active_count() == before
 
@@ -408,7 +410,8 @@ def recorded_period(cfg):
     st, pl = ring_shard.place(cfg, mesh, ring.init_state(cfg, "cpu"), plan)
     step = ring_shard.mapped_step(cfg, mesh)
     step.record = []
-    step(st, pl, ring.draw_period_ring((0, 0), 0, cfg, "cpu"))
+    step(st, pl, ring.draw_period_ring((0, 0), 0, cfg, "cpu"),
+         ring.rotor_offsets(cfg, 0))
     return step.record
 
 

@@ -137,15 +137,17 @@ def port_step_both(mod, cfg, st, plan, rnd, **kw):
 def jax_trajectory(mod, draw, cfg_kw: dict, plan, periods: int,
                    seed: int = 0) -> dict:
     """The JAX engine `mod` (dense or rumor) stepped period by period
-    with its tap: {"init": numpy state, "rnd": [numpy draws], "states":
-    [numpy state after each period], "frames": [its EngineFrame]}."""
+    with its tap, each period's `draw` jitted: {"init": numpy state,
+    "rnd": [numpy draws], "states": [numpy state after each period],
+    "frames": [its EngineFrame]}."""
     jcfg = JaxSwimConfig(**cfg_kw)
     step = jax_tapped_step(mod, jcfg)
+    jdraw = jax.jit(lambda key, t: draw(key, t, jcfg))
     st = mod.init_state(jcfg)
     out = {"init": np_fields(st), "rnd": [], "states": [], "frames": []}
     key = jax.random.key(seed)
     for t in range(periods):
-        rnd = draw(key, t, jcfg)
+        rnd = jdraw(key, t)
         out["rnd"].append(rnd)
         st, frame = step(st, plan, rnd)
         out["states"].append(np_fields(st))
