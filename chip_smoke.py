@@ -14,7 +14,14 @@ Phases, each printed as one JSON line:
      launches after warm-up) beside the bytes the function must move and
      the least time the card could take (for coldsel also the bound that
      counts cold in 32-byte sectors); and the time of a PyTorch copy of
-     the window, the rate this card reaches on one read and one write;
+     the window, the rate this card reaches on one read and one write.
+     Then the lane forms a batched study launches, P = 3 lanes of the
+     1M shapes under torch.func.vmap, each against its plain version
+     lane by lane, bitwise, and one launch a call: selb on P*N rows,
+     coldsel with shared and per-lane flush rows and on N + 1 columns
+     (the 4-byte path), wavemerge fused (V = 14, VB = 0 and 4),
+     one-wave (V = 1, VB = 0 and 1) and on WW = 3; each one's ms per
+     launch beside its bytes and bound;
   4. golden: the port on the card reproduces the three engine digests
      of golden.py (period scope, wave scope, Lifeguard with buddy) and
      the study digest (a pull-mode streaming detection study), which
@@ -107,7 +114,12 @@ Phases, each printed as one JSON line:
      at 1,000,000 nodes, P = 3 programs, 20 periods, telemetry on, and
      on the rumor engine at 100,000 nodes, P = 2, 10 periods: every lane
      bitwise equal to its serial run on the card (state, track, series,
-     frames), launches P times the serial ones, and the peak memory.
+     frames); the batch is one step a period over the lane axis, so its
+     kernel launches equal one lane's serial run's; PyTorch's vmap
+     fallback (an op run lane by lane) is an error; wall, launches a
+     period and peak memory beside the serial runs'; one batched period
+     of each engine (the lanes' draws included) with the sync check set
+     to raise.
 
  12. scenario: the scenario library and the search (sim/scenario.py,
      sim/search.py).  `rack_outage`, `flap`, `flap_boundary` and
@@ -115,7 +127,9 @@ Phases, each printed as one JSON line:
      nodes, 40-48 periods), `baseline_config3` (rumor, 100,000 nodes, 4
      arms x 100 periods) and `lean_fidelity` (the ring pull study, 4,096
      nodes, 24 periods) through `scenario.run` on the card, serial and
-     with `batch=True`: equal verdict bytes (out_dir normalised), and for
+     with `batch=True` (the arms sharing a SwimConfig as one step a
+     period: the launches of one arm for each such group): equal
+     verdict bytes (out_dir normalised), and for
      the four ring specs and `lean_fidelity` equal to the port's verdict
      on the CPU; each spec's verdict, checks, walls, the bill of its
      packed arms, and its launches per ring period (a packed ring arm
@@ -336,6 +350,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 from typing import Callable
 
@@ -474,6 +489,165 @@ def check_wavemerge(gen, n, ww, v, vb, offs=None, density=0.4):
                           want))
 
 
+# ---------------------------------------------------- kernels on lanes
+
+
+LANES = 3
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """PyTorch's vmap fallback (an op without a batching rule, run lane
+    by lane) as an error."""
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop.*")
+            yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+
+
+def lanes_of(fn, *args, dims):
+    """`fn` under torch.func.vmap over the lane axis of `args` (`dims`
+    None: an operand every lane shares), as a batched study calls it."""
+    with no_vmap_fallback():
+        return torch.func.vmap(fn, in_dims=dims)(*args)
+
+
+def check_selb_lanes(gen, p, n, ww, b):
+    """selb on [p, n, ww] lanes (one launch of p*n rows) against the plain
+    version lane by lane."""
+    win = rand_u32(gen, (p, n, ww))
+    win[torch.rand(win.shape, generator=gen, device="cuda") < 0.3] = 0
+    got = lanes_of(lambda w: selb.select_first_b(w, b), win, dims=(0,))
+    want = torch.stack([selb.select_first_b_plain(w, b) for w in win])
+    return win, require_equal(f"selb lanes p={p} n={n} ww={ww} b={b}",
+                              got, want)
+
+
+def check_coldsel_lanes(gen, p, rw, n, ow, q, shared_flush):
+    """coldsel on [p, rw, n] lanes (flush rows shared by the lanes or one
+    set a lane) against the plain version lane by lane."""
+    cold = rand_u32(gen, (p, rw, n))
+    fr = torch.randint(0, rw, (ow,) if shared_flush else (p, ow),
+                       generator=gen, device="cuda", dtype=torch.int32)
+    fv = rand_u32(gen, (p, ow, n))
+    u = torch.rand((p, q, n), generator=gen, device="cuda")
+    qr = torch.randint(-2, rw + 2, (p, q, n), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    qr = torch.where(u < 0.8, 0, qr).to(torch.int32)
+    c_k = cold.clone()
+    s_k = lanes_of(lambda c, f, v, r: coldsel.cold_update_select(
+        c, f, v, r)[1], c_k, fr, fv, qr,
+        dims=(0, None if shared_flush else 0, 0, 0))
+    c_p = cold.clone()
+    s_p = torch.stack([coldsel.cold_update_select_plain(
+        c_p[i], fr if shared_flush else fr[i], fv[i], qr[i])[1]
+        for i in range(p)])
+    what = (f"coldsel lanes p={p} rw={rw} n={n} ow={ow} q={q} "
+            f"shared_flush={shared_flush}")
+    return ((c_k, fr, fv, qr),
+            max(require_equal(what + " cold", c_k, c_p),
+                require_equal(what + " sel", s_k, s_p)))
+
+
+def check_wavemerge_lanes(gen, p, n, ww, v, vb, shared_offs,
+                          density=0.4):
+    """wavemerge on [p, n, ww] lanes (offsets shared by the lanes or one
+    set a lane; each lane's rolls wrap inside its own rows) against the
+    plain version lane by lane."""
+    win = rand_u32(gen, (p, n, ww))
+    sel = rand_u32(gen, (p, n, ww))
+    oks = torch.rand((p, v, n), generator=gen, device="cuda") < density
+    offs = torch.randint(-2 * n, 2 * n, (v,) if shared_offs else (p, v),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    bcol = torch.randint(-1, ww + 2, (p, vb, n), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    bit = torch.randint(0, 32, (p, vb, n), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    bval = torch.where(torch.rand((p, vb, n), generator=gen, device="cuda")
+                       < 0.3, torch.ones_like(bit) << bit, 0)
+    got = win.clone()
+    lanes_of(wavemerge.merge_waves, got, sel, oks, offs, bcol, bval,
+             dims=(0, 0, 0, None if shared_offs else 0, 0, 0))
+    want = win.clone()
+    for i in range(p):
+        wavemerge.merge_waves_plain(want[i], sel[i], oks[i],
+                                    offs if shared_offs else offs[i],
+                                    bcol[i], bval[i])
+    what = (f"wavemerge lanes p={p} n={n} ww={ww} v={v} vb={vb} "
+            f"shared_offs={shared_offs}")
+    return ((win, sel, oks, offs, bcol, bval),
+            require_equal(what, got, want))
+
+
+def lanes_rows(gen, cfg, n: int = N, p: int = LANES) -> dict:
+    """Each kernel on p lanes of the ring's shapes at n nodes against its
+    plain version lane by lane, bitwise: coldsel with shared and per-lane
+    flush rows, and on n + 1 columns (the 4-byte path); wavemerge fused
+    (V = 2 + 4k, VB = 0 and VB = 1 + k), one-wave (V = 1, VB = 0 and 1)
+    and on WW = 3 (the 4-byte path), offsets shared and per lane; each
+    checked call one launch.  Then each kernel's time per launch on p
+    lanes beside the bytes and the bound."""
+    g = ring.geometry(cfg)
+    ww, rw, ow, q = g.ww, g.rw, g.ow, g.c + 1
+    v, k = 2 + 4 * cfg.k_indirect, cfg.k_indirect
+    b = cfg.max_piggyback
+    reset_launches()
+    win, err_s = check_selb_lanes(gen, p, n, ww, b)
+    err_c, cold_args = [], None
+    for n_e, shared in ((n, True), (n, False), (n + 1, False)):
+        args, e = check_coldsel_lanes(gen, p, rw, n_e, ow, q, shared)
+        err_c.append(e)
+        cold_args = cold_args or args
+    err_w, forms = [], {}
+    for name, n_e, ww_e, v_e, vb_e, shared in (
+            ("fused", n, ww, v, 0, True), ("fused_vb", n, ww, v, 1 + k, False),
+            ("one_wave", n, ww, 1, 0, False), ("one_wave_vb", n, ww, 1, 1, True),
+            ("ww3", n + 1, 3, v, 2, False)):
+        args, e = check_wavemerge_lanes(gen, p, n_e, ww_e, v_e, vb_e, shared)
+        err_w.append(e)
+        forms[name] = args
+    calls = {"selb": 1, "coldsel": 3, "wavemerge": 5}
+    got = read_launches()
+    if got != calls:
+        raise AssertionError(f"lane kernels launched {got}; one launch a "
+                             f"call gives {calls}")
+
+    out = {}
+    flat = win.reshape(-1, ww)
+    nbytes = 2 * p * n * ww * 4
+    bms, by = bound(nbytes, p * n * ww * 8)
+    out["selb"] = dict(lanes=p, max_abs_err=err_s,
+                       ms=gpu_ms(lambda: selb.select_first_b(flat, b)),
+                       bytes=nbytes, bound_ms=bms, bound_by=by,
+                       shape=[p, n, ww])
+    cold, fr, fv, qr = cold_args
+    nbytes = (2 * ow + 3 * q) * n * 4 * p
+    bms, by = bound(nbytes, p * n * (ow + q * (ow + 4)))
+    out["coldsel"] = dict(lanes=p, max_abs_err=max(err_c),
+                          ms=gpu_ms(lambda: coldsel._op(cold, fr, fv, qr)),
+                          bytes=nbytes, bound_ms=bms, bound_by=by,
+                          shape=[p, rw, n], ow=ow, q=q)
+    forms_out = {}
+    for name in ("fused", "fused_vb", "one_wave"):
+        w, s_, o, f, bc, bv = forms[name]
+        nv, nvb = o.shape[1], bc.shape[1]
+        nbytes = 3 * p * n * ww * 4 + p * nv * n + 2 * p * nvb * n * 4
+        bms, by = bound(nbytes, p * n * ww * (3 * nv + 2 * nvb))
+        forms_out[name] = dict(
+            ms=gpu_ms(lambda: wavemerge._op(w, s_, o, f, bc, bv)),
+            bytes=nbytes, bound_ms=bms, bound_by=by, v=nv, vb=nvb)
+    out["wavemerge"] = dict(lanes=p, max_abs_err=max(err_w),
+                            ms=forms_out["fused"]["ms"],
+                            bytes=forms_out["fused"]["bytes"],
+                            bound_ms=forms_out["fused"]["bound_ms"],
+                            bound_by=forms_out["fused"]["bound_by"],
+                            shape=[p, n, ww], forms=forms_out)
+    return out
+
+
 def kernel_phase(cfg) -> dict:
     g = ring.geometry(cfg)
     ww, rw, ow, q = g.ww, g.rw, g.ow, g.c + 1
@@ -564,6 +738,13 @@ def kernel_phase(cfg) -> dict:
                              bound_by=by, shape=[N, ww], v=v, vb=0)
     emit(phase="kernel", name="wavemerge", edge_cases=len(edge) + 1,
          **rows["wavemerge"])
+
+    # the lane forms a batched study launches (P = LANES at N nodes)
+    for name, r in lanes_rows(gen, cfg).items():
+        emit(phase="kernel", part="lanes", name=name, **r)
+        rows[name].update(
+            max_abs_err=max(rows[name]["max_abs_err"], r["max_abs_err"]),
+            lanes_ms=r["ms"], lanes_bound_ms=r["bound_ms"])
     return rows
 
 
@@ -1479,9 +1660,11 @@ def engine_tap_phase(name: str, n: int, periods: int, card: str) -> None:
 
 def batch_phase(name: str, engine: str, n: int, periods: int, progs,
                 card: str) -> dict:
-    """`_run_study_batch` with telemetry on: every lane against its
-    serial run on the card, launches P times the serial ones, peak
-    memory."""
+    """`_run_study_batch` with telemetry on, one step a period over the
+    lane axis: every lane against its serial run on the card, bitwise;
+    the kernels' launches those of one lane's serial run (each kernel
+    launches once a period for all lanes); wall, launches a period and
+    peak memory beside the serial runs'."""
     cfg = SwimConfig(n_nodes=n, telemetry=True)
     keys = [threefry.key(20 + p) for p in range(len(progs))]
     torch.cuda.synchronize()
@@ -1489,37 +1672,100 @@ def batch_phase(name: str, engine: str, n: int, periods: int, progs,
     before = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
-    batched = experiments._run_study_batch(cfg, progs, keys, periods, engine)
+    with no_vmap_fallback():
+        batched = experiments._run_study_batch(cfg, progs, keys, periods,
+                                               engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    serial_launches = {}
+    serial_launches, serial_wall, serial_peak = [], [], []
     leaves = 0
     for p, prog in enumerate(progs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        t0 = time.perf_counter()
         serial = experiments._run_study(cfg, prog, keys[p], periods, engine,
                                         torch.device("cuda"))
-        for k, v in read_launches().items():
-            serial_launches[k] = serial_launches.get(k, 0) + v
+        torch.cuda.synchronize()
+        serial_wall.append(time.perf_counter() - t0)
+        serial_peak.append(torch.cuda.max_memory_allocated())
+        serial_launches.append(read_launches())
         leaves = require_same(f"{name} batch lane {p}",
                               runner.lane_result(batched, p), serial)
-    if launches != serial_launches:
-        raise AssertionError(f"{name} batch launches {launches}, serial "
-                             f"lanes {serial_launches}")
+        del serial
+    if any(sl != serial_launches[0] for sl in serial_launches) or \
+            launches != serial_launches[0]:
+        raise AssertionError(f"{name} batch launches {launches}; one "
+                             f"lane's serial run {serial_launches}")
     series = batched.series
     emit(phase="telemetry", part="batch", run=name, engine=engine,
          n_nodes=n, lanes=len(progs), periods=periods,
          segments=[int(p.seg_kind.shape[0]) for p in progs],
          leaves_equal_per_lane=leaves, launches=launches,
-         launches_serial=serial_launches,
+         launches_serial_lane=serial_launches[0],
+         launches_per_period={k: v / periods for k, v in launches.items()},
          suspect_views_peak=[int(x) for x in series.suspect_views.max(1)
                              .values],
          waves_delivered_sum=[int(x) for x in
                               batched.telemetry.waves_delivered.sum(1)],
-         wall_ms=wall * 1e3, max_memory_allocated=peak,
+         wall_ms=wall * 1e3, wall_ms_serial_lanes=[w * 1e3
+                                                   for w in serial_wall],
+         max_memory_allocated=peak,
+         max_memory_allocated_serial=max(serial_peak),
          allocated_before=before, card=card)
     return launches
+
+
+def no_sync_batch_period(engine: str, n: int, p: int) -> None:
+    """One batched study period (the lanes' draws and one vmapped
+    period, telemetry on) with PyTorch's sync check set to raise, after
+    a first period that builds the per-(cfg, device) tables."""
+    cfg = SwimConfig(n_nodes=n, telemetry=True)
+    mod = {"ring": ring, "rumor": rumor}[engine]
+    plan = crash_plan(cfg, 10)
+    plans = runner.batch_states([plan] * p)
+    state = runner.batch_states([mod.init_state(cfg, "cuda")] * p)
+    track = runner.StudyTrack(*(torch.full((p, n), runner.NEVER,
+                                           dtype=torch.int32, device="cuda")
+                                for _ in range(3)))
+    draws = runner.lane_draws(cfg, engine, [threefry.key(30 + i)
+                                            for i in range(p)], 0, 2, "cuda")
+    rnd = next(draws)
+    period = runner.batch_period(cfg, engine, rnd)
+    state, track, _, _ = period(state, track, plans, rnd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, track, _, _ = period(state, track, plans, next(draws))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if state.step.tolist() != [2] * p:
+        raise AssertionError(f"{engine} batched period: steps "
+                             f"{state.step.tolist()}")
+    emit(phase="telemetry", part="no_sync_batch", engine=engine, n_nodes=n,
+         lanes=p)
+
+
+def batches_phase(card: str) -> dict:
+    """The 1M ring batch (P = 3) and the 100,000-node rumor batch (P = 2),
+    and a batched period of each with no host sync; returns each batch's
+    kernel launches."""
+    no_sync_batch_period("ring", N, LANES)
+    no_sync_batch_period("rumor", BATCH_RUMOR_N, 2)
+    prog = program_plan(N)
+    gray = prog._replace(seg_level=prog.seg_level.clone())
+    gray.seg_level[0] = faults.level_to_threshold(0.6)
+    empty = faults.as_program(crash_plan(SwimConfig(n_nodes=N),
+                                         SLICE_PERIODS))
+    n_r = BATCH_RUMOR_N
+    return {"batch": batch_phase("ring 1M", "ring", N, TAP_PERIODS,
+                                 [prog, gray, empty], card),
+            "batch_rumor": batch_phase(
+                "rumor 100k", "rumor", n_r, 10,
+                [program_plan(n_r), faults.as_program(crash_plan(
+                    SwimConfig(n_nodes=n_r), 10))], card)}
 
 
 def telemetry_phase(card: str) -> dict:
@@ -1534,18 +1780,7 @@ def telemetry_phase(card: str) -> dict:
     engine_no_sync_period("rumor", BATCH_RUMOR_N, telemetry=True)
     engine_tap_phase("dense", experiments.DENSE_MAX, 10, card)
     engine_tap_phase("rumor", N, 10, card)
-    prog = program_plan(N)
-    gray = prog._replace(seg_level=prog.seg_level.clone())
-    gray.seg_level[0] = faults.level_to_threshold(0.6)
-    empty = faults.as_program(crash_plan(SwimConfig(n_nodes=N),
-                                         SLICE_PERIODS))
-    launches["batch"] = batch_phase("ring 1M", "ring", N, TAP_PERIODS,
-                                    [prog, gray, empty], card)
-    n_r = BATCH_RUMOR_N
-    launches["batch_rumor"] = batch_phase(
-        "rumor 100k", "rumor", n_r, 10,
-        [program_plan(n_r), faults.as_program(crash_plan(
-            SwimConfig(n_nodes=n_r), 10))], card)
+    launches.update(batches_phase(card))
     emit(phase="telemetry", part="done", seconds=time.perf_counter() - t0,
          card=card)
     return launches
@@ -1592,20 +1827,30 @@ def library_phase(card: str) -> dict:
         sc = scenario.get(name)
         verdict, text, wall, launches = run_scenario(sc, "card", "cuda",
                                                      False)
-        _, text_b, wall_b, launches_b = run_scenario(sc, "batch", "cuda",
-                                                     True)
+        with no_vmap_fallback():
+            _, text_b, wall_b, launches_b = run_scenario(sc, "batch", "cuda",
+                                                         True)
         if text_b != text:
             raise AssertionError(f"{name}: batched verdict differs from "
                                  "the serial one on the card")
-        if launches_b != launches:
+        # one batched step a period for the arms sharing a SwimConfig:
+        # the serial launches of one arm per group
+        arms = scenario._arm_defs(sc)
+        groups = len({scenario._arm_prepare(sc, spec, "cpu")[1]
+                      for _arm, spec, _gate in arms})
+        want_b = {k: v // len(arms) * groups for k, v in launches.items()}
+        if launches_b != want_b or any(v % len(arms)
+                                       for v in launches.values()):
             raise AssertionError(f"{name}: batched launches {launches_b}, "
-                                 f"serial {launches}")
+                                 f"serial {launches} over {len(arms)} "
+                                 f"arms in {groups} batches")
         row = dict(phase="scenario", part="library", name=name,
                    n_nodes=sc.n, periods=sc.periods,
                    arms=list(verdict["arms"]), verdict=verdict["verdict"],
                    checks=[[c["check"], c.get("arm"), c["ok"]]
                            for c in verdict["checks"]],
-                   wall_s=wall, wall_s_batch=wall_b, launches=launches)
+                   wall_s=wall, wall_s_batch=wall_b, launches=launches,
+                   launches_batch=launches_b, batches=groups)
         if name in LIB_CPU:
             _, text_c, wall_c, _ = run_scenario(sc, "cpu", "cpu", False)
             if text_c != text:
@@ -4140,7 +4385,7 @@ def main() -> None:
                 "wavemerge": "swim_tpu/ops/wavemerge.py:136"}
     extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
              "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve",
-             "ringshard")
+             "ringshard", "lanes_ms", "lanes_bound_ms")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]

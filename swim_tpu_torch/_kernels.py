@@ -41,8 +41,9 @@ _I = ctypes.c_int
 # kernel name -> argtypes of its `<name>_launch` entry point
 SIGNATURES = {
     "selb": [_P, _P, _LL, _I, _I, _P],
-    "coldsel": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "wavemerge": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "coldsel": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _LL, _LL, _P],
+    "wavemerge": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _LL, _LL,
+                  _LL, _LL, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

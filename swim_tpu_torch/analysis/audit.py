@@ -475,7 +475,7 @@ CENSUS_FLOOR_CHUNKS = 2
 # Peak allocation of the census above the state, per word-node pair of
 # the budget: the expanded bits (1 byte a bit, 32 a pair), the int32 copy
 # of them PyTorch's sum(dtype=int32) makes of a uint8 input (128 a
-# pair), and the masked chunk and its contiguous copy (8 a pair).
+# pair), and the masked chunk and its bytes (8 a pair).
 CENSUS_BYTES_PER_PAIR = 32 + 128 + 8
 # the per-word counts, the overlay vectors and the allocator's 512-byte
 # rounding of each

@@ -22,6 +22,13 @@
 // which clamps to row 0), so there the reads coalesce and the streamed
 // arrays are what is left.
 //
+// Lanes: a batched study (the reference's vmap over `pallas_call`)
+// passes P lanes in one launch, cold[P, RW, N] and sel[P, Q, N] with one
+// lane each in the grid's y axis; flush_rows, flush_vals and q_rows
+// carry a lane stride, 0 where the lanes share one copy, so a shared
+// operand is never copied P times.  Each lane is the one-lane kernel on
+// its own slices.
+//
 // Design: a thread owns 4 consecutive columns (one when N % 4 != 0 or a
 // pointer is not 16-byte aligned), so flush_vals, q_rows and sel move as
 // coalesced 16-byte accesses, marked evict-first because each is
@@ -87,16 +94,27 @@ template <> struct Vec<1> {
   }
 };
 
-// Thread j of the grid owns columns [j * VEC, j * VEC + VEC).
-template <int VEC>
+// Thread j of the grid owns columns [j * VEC, j * VEC + VEC).  LANES:
+// the grid's y axis runs lanes; without it (one study) the kernel is
+// the one-lane code, the lane offsets compiled out.
+template <int VEC, bool LANES>
 __global__ void __launch_bounds__(kThreads)
 coldsel_kernel(uint32_t* __restrict__ cold,
                const int32_t* __restrict__ flush_rows,
                const uint32_t* __restrict__ flush_vals,
                const int32_t* __restrict__ q_rows,
                uint32_t* __restrict__ sel,
-               long long n, int rw, int ow, int nq) {
+               long long n, int rw, int ow, int nq, long long ls_fr,
+               long long ls_fv, long long ls_qr) {
   extern __shared__ int32_t s_fr[];  // flush_rows, -1 where out of range
+  if constexpr (LANES) {
+    const long long lane = blockIdx.y;
+    cold += lane * rw * n;
+    sel += lane * nq * n;
+    flush_rows += lane * ls_fr;
+    flush_vals += lane * ls_fv;
+    q_rows += lane * ls_qr;
+  }
   for (int w = threadIdx.x; w < ow; w += blockDim.x) {
     const int r = flush_rows[w];
     s_fr[w] = (r >= 0 && r < rw) ? r : -1;
@@ -171,22 +189,33 @@ coldsel_kernel(uint32_t* __restrict__ cold,
 template <int VEC>
 int launch(uint32_t* cold, const int32_t* fr, const uint32_t* fv,
            const int32_t* qr, uint32_t* sel, long long n, int rw, int ow,
-           int nq, cudaStream_t stream) {
+           int nq, int lanes, long long ls_fr, long long ls_fv,
+           long long ls_qr, cudaStream_t stream) {
   const long long work = (n + VEC - 1) / VEC;
   const long long blocks = (work + kThreads - 1) / kThreads;
-  coldsel_kernel<VEC><<<(unsigned)blocks, kThreads,
-                        (size_t)ow * sizeof(int32_t), stream>>>(
-      cold, fr, fv, qr, sel, n, rw, ow, nq);
+  const dim3 grid((unsigned)blocks, (unsigned)lanes);
+  const size_t smem = (size_t)ow * sizeof(int32_t);
+  if (lanes > 1)
+    coldsel_kernel<VEC, true><<<grid, kThreads, smem, stream>>>(
+        cold, fr, fv, qr, sel, n, rw, ow, nq, ls_fr, ls_fv, ls_qr);
+  else
+    coldsel_kernel<VEC, false><<<grid, kThreads, smem, stream>>>(
+        cold, fr, fv, qr, sel, n, rw, ow, nq, ls_fr, ls_fv, ls_qr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lanes >= 1; ls_* are the lane strides, in elements, of flush_rows,
+// flush_vals and q_rows (0: shared by every lane).  cold and sel are
+// lane-contiguous, RW*N and Q*N elements a lane.
 extern "C" int coldsel_launch(void* cold, const void* flush_rows,
                               const void* flush_vals, const void* q_rows,
                               void* sel, long long n, int rw, int ow, int nq,
-                              void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
+                              int lanes, long long ls_fr, long long ls_fv,
+                              long long ls_qr, void* stream) {
+  if (n <= 0 || lanes <= 0) return (int)cudaGetLastError();
+  if (lanes > 65535) return (int)cudaErrorInvalidValue;
   const bool vec = n % 4 == 0 && (uintptr_t)cold % 16 == 0 &&
                    (uintptr_t)flush_vals % 16 == 0 &&
                    (uintptr_t)q_rows % 16 == 0 && (uintptr_t)sel % 16 == 0;
@@ -196,6 +225,8 @@ extern "C" int coldsel_launch(void* cold, const void* flush_rows,
   auto* qr = (const int32_t*)q_rows;
   auto* s = (uint32_t*)sel;
   auto st = (cudaStream_t)stream;
-  return vec ? launch<4>(c, fr, fv, qr, s, n, rw, ow, nq, st)
-             : launch<1>(c, fr, fv, qr, s, n, rw, ow, nq, st);
+  return vec ? launch<4>(c, fr, fv, qr, s, n, rw, ow, nq, lanes, ls_fr,
+                         ls_fv, ls_qr, st)
+             : launch<1>(c, fr, fv, qr, s, n, rw, ow, nq, lanes, ls_fr,
+                         ls_fv, ls_qr, st);
 }

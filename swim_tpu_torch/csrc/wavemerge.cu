@@ -23,6 +23,12 @@
 // a 1M-node period the kernel takes the time of win, oks and two full
 // sel passes (206 MB) at about 2.7 TB/s, not of one sel pass.
 //
+// Lanes: a batched study (the reference's vmap over `pallas_call`)
+// passes P lanes in one launch, win[P, N, WW] with one lane each in the
+// grid's y axis; sel, oks, offs, bcol and bval carry a lane stride, 0
+// where the lanes share one copy.  Each lane is the one-lane kernel on
+// its own slices, so its rolls wrap inside its own N rows.
+//
 // Design: a block of about 256 threads owns a tile of T consecutive
 // receivers (T = 85 at WW = 12), one contiguous run of T*WW words of
 // win; the tile's base is 64-bit and everything inside it is 32-bit.
@@ -100,8 +106,10 @@ template <> struct Vec<1> {
 };
 
 // blockDim.x is a multiple of 32 and >= tile * (ww / VEC); thread j owns
-// chunk j of the tile's run (none when j >= tile * (ww / VEC)).
-template <int VEC>
+// chunk j of the tile's run (none when j >= tile * (ww / VEC)).  LANES:
+// the grid's y axis runs lanes; without it (one study) the kernel is the
+// one-lane code, the lane offsets compiled out.
+template <int VEC, bool LANES>
 __global__ void wavemerge_kernel(uint32_t* __restrict__ win,
                                  const uint32_t* __restrict__ sel,
                                  const uint8_t* __restrict__ oks,
@@ -109,8 +117,19 @@ __global__ void wavemerge_kernel(uint32_t* __restrict__ win,
                                  const int32_t* __restrict__ bcol,
                                  const uint32_t* __restrict__ bval,
                                  long long n, int ww, int v, int vb,
-                                 int tile) {
+                                 int tile, long long ls_sel,
+                                 long long ls_oks, long long ls_offs,
+                                 long long ls_bcol, long long ls_bval) {
   using V = Vec<VEC>;
+  if constexpr (LANES) {
+    const long long lane = blockIdx.y;
+    win += lane * n * ww;
+    sel += lane * ls_sel;
+    oks += lane * ls_oks;
+    offs += lane * ls_offs;
+    bcol += lane * ls_bcol;
+    bval += lane * ls_bval;
+  }
   __shared__ uint32_t s_ok[kMaxThreads];  // [groups][tile] partial ok words
   __shared__ int32_t s_bcol[kMaxTile];
   __shared__ uint32_t s_bval[kMaxTile];
@@ -193,25 +212,40 @@ __global__ void wavemerge_kernel(uint32_t* __restrict__ win,
 template <int VEC>
 int launch(uint32_t* win, const uint32_t* sel, const uint8_t* oks,
            const int32_t* offs, const int32_t* bcol, const uint32_t* bval,
-           long long n, int ww, int v, int vb, cudaStream_t stream) {
+           long long n, int ww, int v, int vb, int lanes, long long ls_sel,
+           long long ls_oks, long long ls_offs, long long ls_bcol,
+           long long ls_bval, cudaStream_t stream) {
   const int cw = ww / VEC;
   if (cw > kMaxThreads) return (int)cudaErrorInvalidValue;
   const int tile = cw >= kTargetThreads ? 1 : kTargetThreads / cw;
   const int threads = (tile * cw + 31) / 32 * 32;
   const long long blocks = (n + tile - 1) / tile;
-  wavemerge_kernel<VEC><<<(unsigned)blocks, threads, 0, stream>>>(
-      win, sel, oks, offs, bcol, bval, n, ww, v, vb, tile);
+  const dim3 grid((unsigned)blocks, (unsigned)lanes);
+  if (lanes > 1)
+    wavemerge_kernel<VEC, true><<<grid, threads, 0, stream>>>(
+        win, sel, oks, offs, bcol, bval, n, ww, v, vb, tile, ls_sel, ls_oks,
+        ls_offs, ls_bcol, ls_bval);
+  else
+    wavemerge_kernel<VEC, false><<<grid, threads, 0, stream>>>(
+        win, sel, oks, offs, bcol, bval, n, ww, v, vb, tile, ls_sel, ls_oks,
+        ls_offs, ls_bcol, ls_bval);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lanes >= 1; ls_* are the lane strides, in elements, of sel, oks, offs,
+// bcol and bval (0: shared by every lane).  win is lane-contiguous, N*WW
+// elements a lane.
 extern "C" int wavemerge_launch(void* win, const void* sel, const void* oks,
                                 const void* offs, const void* bcol,
                                 const void* bval, long long n, int ww, int v,
-                                int vb, void* stream) {
-  if (n <= 0 || ww <= 0) return (int)cudaGetLastError();
-  if (v > kMaxWaves) return (int)cudaErrorInvalidValue;
+                                int vb, int lanes, long long ls_sel,
+                                long long ls_oks, long long ls_offs,
+                                long long ls_bcol, long long ls_bval,
+                                void* stream) {
+  if (n <= 0 || ww <= 0 || lanes <= 0) return (int)cudaGetLastError();
+  if (v > kMaxWaves || lanes > 65535) return (int)cudaErrorInvalidValue;
   const bool vec = ww % 4 == 0 && (uintptr_t)win % 16 == 0 &&
                    (uintptr_t)sel % 16 == 0;
   auto* w = (uint32_t*)win;
@@ -221,6 +255,8 @@ extern "C" int wavemerge_launch(void* win, const void* sel, const void* oks,
   auto* bc = (const int32_t*)bcol;
   auto* bv = (const uint32_t*)bval;
   auto st = (cudaStream_t)stream;
-  return vec ? launch<4>(w, s, o, f, bc, bv, n, ww, v, vb, st)
-             : launch<1>(w, s, o, f, bc, bv, n, ww, v, vb, st);
+  return vec ? launch<4>(w, s, o, f, bc, bv, n, ww, v, vb, lanes, ls_sel,
+                         ls_oks, ls_offs, ls_bcol, ls_bval, st)
+             : launch<1>(w, s, o, f, bc, bv, n, ww, v, vb, lanes, ls_sel,
+                         ls_oks, ls_offs, ls_bcol, ls_bval, st);
 }

@@ -262,8 +262,12 @@ def draw_period_ring(key: tuple[int, int], step: int, cfg: SwimConfig,
     `key = threefry.key(seed)`.  `offsets` (int32[1+k] on the device,
     from `rotor_offsets`) saves the host-to-device copy per period.
     Pull mode draws nine f32 uniforms instead of the u16 legs (which
-    stay empty); the rotor offsets are computed all the same."""
+    stay empty); the rotor offsets are computed all the same.  `key`
+    may be a list of P keys (a batched study's lanes): every draw then
+    gains a leading P axis, lane p bitwise key p's, and the rotor
+    offsets, a function of the step alone, stay one shared copy."""
     dev = devmod.resolve(device)
+    lanes = () if isinstance(key, tuple) else (len(key),)
     n, k = cfg.n_nodes, cfg.k_indirect
     if offsets is None:
         offsets = torch.tensor(rotor_offsets(cfg, step), dtype=I32,
@@ -271,7 +275,7 @@ def draw_period_ring(key: tuple[int, int], step: int, cfg: SwimConfig,
     kk = threefry.fold_in(key, step)
     if cfg.ring_probe == "pull":
         ks = threefry.split(kk, 9)
-        zero = torch.zeros((0,), dtype=I32, device=dev)
+        zero = torch.zeros(lanes + (0,), dtype=I32, device=dev)
 
         def uni(i, shape):
             return threefry.uniform(ks[i], shape, dev)
@@ -316,15 +320,46 @@ def _col_select_multi(mat: torch.Tensor, cols: list[torch.Tensor]):
 
 def _lane_counts(words: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """int32[OW*32]: per-lane active-knower counts of u32[OW, N] words
-    (lane w*32 + b counts active nodes with bit b of word w set).  The
-    words are read as little-endian bytes, so byte j's bit i is lane
-    bit 8j + i; the expanded bits are one byte each."""
-    ow, n = words.shape
+    (lane w*32 + b counts active nodes with bit b of word w set)."""
+    return _lane_counts_op(words, active)
+
+
+@torch.library.custom_op("swim_tpu_torch::lane_counts", mutates_args=())
+def _lane_counts_op(words: torch.Tensor,
+                    active: torch.Tensor) -> torch.Tensor:
+    """`_lane_counts` of words [..., OW, N] and active [..., N] (leading
+    lane axes broadcast).  The words are read as little-endian bytes, so
+    byte j's bit i is lane bit 8j + i; the expanded bits are one byte
+    each.  A custom op so that its vmap rule can read the bytes off the
+    lane-stacked words: some PyTorch versions cannot batch a dtype view
+    under vmap."""
+    ow = words.shape[-2]
     sh = torch.arange(8, dtype=torch.uint8, device=words.device)
-    masked = torch.where(active[None, :], words, 0)
-    octets = masked.contiguous().view(torch.uint8).reshape(ow, n, 4, 1)
-    bits = (octets >> sh) & 1                                 # [OW, N, 4, 8]
-    return bits.sum(dim=1, dtype=I32).reshape(ow * WORD)
+    masked = torch.where(active[..., None, :], words, 0)
+    octets = masked.contiguous().view(torch.uint8).reshape(*masked.shape,
+                                                           4, 1)
+    bits = (octets >> sh) & 1                          # [..., OW, N, 4, 8]
+    return bits.sum(dim=-3, dtype=I32).reshape(*masked.shape[:-2],
+                                               ow * WORD)
+
+
+@_lane_counts_op.register_fake
+def _(words, active):
+    """The meta device's shapes (obs/ici.py steps a period there)."""
+    return words.new_empty((*words.shape[:-2], words.shape[-2] * WORD),
+                           dtype=I32)
+
+
+def _lane_counts_vmap(info, in_dims, words, active):
+    """All lanes in one call, the lane axis leading."""
+    wd, ad = in_dims
+    words = (words.movedim(wd, 0) if wd is not None
+             else words.expand(info.batch_size, *words.shape))
+    return _lane_counts_op(words, active if ad is None
+                           else active.movedim(ad, 0)), 0
+
+
+_lane_counts_op.register_vmap(_lane_counts_vmap)
 
 
 def _sum32(x: torch.Tensor) -> torch.Tensor:
@@ -479,10 +514,8 @@ class GlobalOps:
 
     def scatter_add(self, dst, idx, val: int):
         valid = (idx >= 0) & (idx < dst.shape[0])
-        out = dst.clone()
-        out.scatter_add_(0, torch.where(valid, idx, 0).to(torch.int64),
-                         torch.where(valid, val, 0).to(dst.dtype))
-        return out
+        return dst.scatter_add(0, torch.where(valid, idx, 0).to(torch.int64),
+                               torch.where(valid, val, 0).to(dst.dtype))
 
     def scatter_or_word(self, win, rows, cols, bits):
         """win[rows, cols] |= bits, in place, by an add (the caller's
@@ -698,7 +731,7 @@ def step(cfg: SwimConfig, state: RingState, plan: FaultPlan,
         entry_gw0 + torch.arange(g.ow, dtype=I32, device=dev),
         g.rw).to(I32)                                          # i32[OW]
     if pull:
-        cold.index_copy_(0, flush_rows.to(torch.int64), out_cols.T)
+        cold.index_put_((flush_rows.to(torch.int64),), out_cols.T)
     else:
         flush_vals = out_cols.T.contiguous()                   # u32[OW, N]
     fresh_cols = out_cols & carry_mask[None, :]

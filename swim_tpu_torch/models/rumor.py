@@ -117,11 +117,12 @@ class RumorRandomness(NamedTuple):
     resample_u: torch.Tensor   # f32[N, RESAMPLE_ATTEMPTS]
 
 
-def draw_period_rumor(key: tuple[int, int], step: int, cfg: SwimConfig,
+def draw_period_rumor(key, step: int, cfg: SwimConfig,
                       device) -> RumorRandomness:
     """The reference's `draw_period_rumor(jax.random.key(seed), step,
     cfg)` for `key = threefry.key(seed)`: the nine base draws plus the
-    resample draws of the `fold_in(fold_in(key, step), 0x5e71)` stream."""
+    resample draws of the `fold_in(fold_in(key, step), 0x5e71)` stream.
+    For a list of P keys every draw gains a leading P axis."""
     rk = threefry.fold_in(threefry.fold_in(key, step), 0x5E71)
     return RumorRandomness(
         base=draw_period(key, step, cfg, device),
@@ -217,18 +218,48 @@ def live_knowers(knows: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """int32[R]: per rumor, the number of `up` nodes that heard it
     (sum(knows & up[:, None], 0)).  Groups of KNOW_GROUP rows are summed
     in uint8, then the group sums in int32, a chunk of rows at a time."""
-    n, r = knows.shape
-    out = torch.zeros((r,), dtype=I32, device=knows.device)
+    return _live_knowers_op(knows, up)
+
+
+@torch.library.custom_op("swim_tpu_torch::live_knowers", mutates_args=())
+def _live_knowers_op(knows: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """`live_knowers` of knows [..., N, R] and up [..., N] (leading lane
+    axes broadcast).  A custom op so that its vmap rule can read the
+    heard-bits as bytes off the lane-stacked matrix: some PyTorch
+    versions cannot batch a dtype view under vmap."""
+    n, r = knows.shape[-2:]
+    lead = torch.broadcast_shapes(knows.shape[:-2], up.shape[:-1])
+    out = torch.zeros((*lead, r), dtype=I32, device=knows.device)
     g = KNOW_GROUP
     for c0, c1 in _chunks(n):
-        kn = (knows[c0:c1] & up[c0:c1, None]).view(torch.uint8)
+        kn = (knows[..., c0:c1, :] & up[..., c0:c1, None]).view(torch.uint8)
         full = (c1 - c0) // g * g
         if full:
-            part = kn[:full].reshape(-1, g, r).sum(dim=1, dtype=torch.uint8)
-            out += part.sum(dim=0, dtype=I32)
+            part = kn[..., :full, :].reshape(*lead, -1, g, r).sum(
+                dim=-2, dtype=torch.uint8)
+            out += part.sum(dim=-2, dtype=I32)
         if full < c1 - c0:
-            out += kn[full:].sum(dim=0, dtype=I32)
+            out += kn[..., full:, :].sum(dim=-2, dtype=I32)
     return out
+
+
+@_live_knowers_op.register_fake
+def _(knows, up):
+    """The meta device's shapes (a mesh may hold meta shards)."""
+    lead = torch.broadcast_shapes(knows.shape[:-2], up.shape[:-1])
+    return knows.new_empty((*lead, knows.shape[-1]), dtype=I32)
+
+
+def _live_knowers_vmap(info, in_dims, knows, up):
+    """All lanes in one call, the lane axis leading."""
+    kd, ud = in_dims
+    knows = (knows.movedim(kd, 0) if kd is not None
+             else knows.expand(info.batch_size, *knows.shape))
+    return _live_knowers_op(knows, up if ud is None
+                            else up.movedim(ud, 0)), 0
+
+
+_live_knowers_op.register_vmap(_live_knowers_vmap)
 
 
 def view_matrix(cfg: SwimConfig, state: RumorState) -> torch.Tensor:
@@ -446,8 +477,7 @@ def _originate(cfg: SwimConfig, state: RumorState, t, tb: Table,
     confirmed = scatter.set_drop(state.confirmed, wslot, False)
     snode = scatter.set_drop(state.sent_node, wslot, -1)
     stime = scatter.set_drop(state.sent_time, wslot, 0)
-    newly = scatter.set_drop(torch.zeros((r_cap,), dtype=torch.bool,
-                                         device=dev), wslot, True)
+    newly = scatter.set_drop(torch.zeros_like(state.confirmed), wslot, True)
 
     # sentinel joins: a placed suspect-class candidate is an independent
     # suspector; it takes a free sentinel slot if it is new there
@@ -577,10 +607,9 @@ def step(cfg: SwimConfig, state: RumorState, plan: FaultPlan,
                             subject=subject, gone_key=gone_key)
 
     # the period's heard-bits, written in place; row m is the spare row
-    # that takes the writes of False
-    kbuf = torch.empty((m + 1, r_cap), dtype=torch.bool, device=dev)
-    kbuf[:m] = state.knows
-    kbuf[m] = False
+    # that takes the writes of False (made from `knows`, so that under
+    # vmap it carries the lane axis)
+    kbuf = torch.cat([state.knows, state.knows.new_zeros((1, r_cap))])
     knows = kbuf[:m]
     true = torch.ones((), dtype=torch.bool, device=dev)
     first_val = []          # the first wave's val [m, B], for the tap

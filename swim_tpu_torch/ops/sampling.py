@@ -67,7 +67,16 @@ def feistel(x: torch.Tensor, m: int, ka: torch.Tensor,
     between two reads of the loop condition on the host (a walk leaves
     a value in [0, m) as it is, so the result is the reference's).  On
     a CUDA tensor each read is a sync; the rotor engine's hot path uses
-    `py_feistel` instead."""
+    `py_feistel` instead.  Under `torch.func.vmap` the walk runs once
+    over every lane's values (`_walk`'s vmap rule): a host read of a
+    batched condition cannot run inside the vmap."""
+    return _walk(x, ka, kb, m)
+
+
+@torch.library.custom_op("swim_tpu_torch::feistel_walk", mutates_args=())
+def _walk(x: torch.Tensor, ka: torch.Tensor, kb: torch.Tensor,
+          m: int) -> torch.Tensor:
+    """`feistel` on tensors of one broadcast shape."""
     b = _half_bits(m)
     rks = _round_keys(ka, kb)
     mm = u32.carrier(m)
@@ -76,6 +85,26 @@ def feistel(x: torch.Tensor, m: int, ka: torch.Tensor,
         for _ in range(WALK_BATCH):
             y = torch.where(u32.uge(y, mm), _perm2b(y, b, rks), y)
     return y
+
+
+def _walk_vmap(info, in_dims, x, ka, kb, m):
+    """The walk over all lanes at once: each operand broadcast to
+    [P, *shape] (elementwise, so each lane gets its own bits)."""
+    ts = (x, ka, kb)
+    logical = [tuple(t.shape) if d is None
+               else tuple(t.shape[:d] + t.shape[d + 1:])
+               for t, d in zip(ts, in_dims[:3])]
+    shape = torch.broadcast_shapes(*logical)
+    lanes = []
+    for t, d, ls in zip(ts, in_dims[:3], logical):
+        if d is not None:
+            t = t.movedim(d, 0).reshape(
+                (info.batch_size,) + (1,) * (len(shape) - len(ls)) + ls)
+        lanes.append(t.expand((info.batch_size,) + shape))
+    return _walk(*lanes, m), 0
+
+
+_walk.register_vmap(_walk_vmap)
 
 
 def round_robin_target(node: torch.Tensor, epoch: torch.Tensor,

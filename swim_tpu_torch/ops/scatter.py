@@ -11,7 +11,11 @@ and `torch.nonzero` waits for the card to learn its output size, so:
     goes to a spare slot).
 
 Callers keep the valid indices of a `set_drop` distinct, so every
-result is deterministic.
+result is deterministic.  Under `torch.func.vmap` (a batched study) an
+in-place write needs a destination that carries the lane axis when its
+values do: `set_drop` callers pass one (a fresh buffer made `_like` a
+lane-carrying tensor), and `scatter_max` and `first_true`, whose
+destination may be fresh, write out of place.
 """
 from __future__ import annotations
 
@@ -31,11 +35,8 @@ def set_drop(dst: torch.Tensor, idx: torch.Tensor, val, col=None):
     if not isinstance(val, torch.Tensor):
         val = torch.full((), val, dtype=dst.dtype, device=dst.device)
     i = torch.where((idx >= 0) & (idx < n), idx, n).to(torch.int64)
-    if col is None:
-        ext[i] = val
-    else:
-        ext[i, col.to(torch.int64)] = val
-    return ext[:n]
+    ix = (i,) if col is None else (i, col.to(torch.int64))
+    return ext.index_put_(ix, val)[:n]
 
 
 def scatter_max(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -46,9 +47,9 @@ def scatter_max(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     valid = (idx >= 0) & (idx < dst.shape[0])
     v = u32.flip(val) if unsigned else val
     v = torch.where(valid, v, u32.SIGN)
-    d = u32.flip(dst) if unsigned else dst.clone()
-    d.scatter_reduce_(0, torch.where(valid, idx, 0).to(torch.int64), v,
-                      "amax")
+    d = u32.flip(dst) if unsigned else dst
+    d = d.scatter_reduce(0, torch.where(valid, idx, 0).to(torch.int64), v,
+                         "amax")
     return u32.flip(d) if unsigned else d
 
 
@@ -61,6 +62,5 @@ def first_true(valid: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     slot = torch.where(valid & (pos < size), pos, size).to(torch.int64)
     buf = torch.full((size + 1,), fill, dtype=torch.int32,
                      device=valid.device)
-    buf.scatter_(0, slot, torch.arange(m, dtype=torch.int32,
-                                       device=valid.device))
-    return buf[:size]
+    return buf.scatter(0, slot, torch.arange(m, dtype=torch.int32,
+                                             device=valid.device))[:size]

@@ -12,7 +12,10 @@ words newest first with a running budget and cuts the overflowing word
 at its budget-th set bit by a popcount binary ascent.  WW and b are
 runtime arguments.  A CPU tensor goes to `select_first_b_plain`, the
 budgeted extract loop of the reference's `_lax_twin`.  Any other device
-raises; nothing falls back.
+raises; nothing falls back.  Both sit behind one `torch.library`
+custom op whose vmap rule runs a batched study's P lanes, [P, N, WW],
+as P*N rows in one call (the reference's `pallas_call` batching rule
+gives its kernel the lane axis the same way).
 """
 from __future__ import annotations
 
@@ -56,18 +59,8 @@ def select_first_b_plain(win_masked: torch.Tensor, b: int) -> torch.Tensor:
     return u32.from_u64(torch.stack(taken, dim=-1))
 
 
-def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
-    """int32 carrier [N, WW] -> int32 carrier [N, WW]."""
-    if win_masked.dtype != torch.int32 or win_masked.dim() != 2:
-        raise ValueError("select_first_b wants an int32 [N, WW] carrier, "
-                         f"got {win_masked.dtype} {tuple(win_masked.shape)}")
-    if b < 0:
-        raise ValueError(f"select_first_b: negative budget {b}")
-    if win_masked.device.type == "cpu":
-        return select_first_b_plain(win_masked, b)
-    if win_masked.device.type != "cuda":
-        raise ValueError(f"select_first_b: no kernel for device "
-                         f"{win_masked.device}")
+def _launch(win_masked: torch.Tensor, b: int) -> torch.Tensor:
+    """The kernel on a contiguous int32 [N, WW] CUDA carrier."""
     if not win_masked.is_contiguous():
         raise ValueError("select_first_b: window must be contiguous")
     n, ww = win_masked.shape
@@ -76,3 +69,36 @@ def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
                     out.data_ptr(), n, ww, min(b, ww * WORD))
     _count_launch()
     return out
+
+
+@torch.library.custom_op("swim_tpu_torch::select_first_b", mutates_args=())
+def _op(win_masked: torch.Tensor, b: int) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card."""
+    if win_masked.device.type == "cpu":
+        return select_first_b_plain(win_masked, b)
+    return _launch(win_masked, b)
+
+
+def _vmap_rule(info, in_dims, win_masked, b):
+    """Lanes [P, N, WW] run as P*N rows in one launch: the kernel is
+    row-local."""
+    lanes = win_masked.movedim(in_dims[0], 0)
+    out = _op(lanes.reshape(-1, lanes.shape[-1]), b)
+    return out.reshape(lanes.shape), 0
+
+
+_op.register_vmap(_vmap_rule)
+
+
+def select_first_b(win_masked: torch.Tensor, b: int) -> torch.Tensor:
+    """int32 carrier [N, WW] -> int32 carrier [N, WW]; under
+    `torch.func.vmap` P lanes go to the kernel as one launch."""
+    if win_masked.dtype != torch.int32 or win_masked.dim() != 2:
+        raise ValueError("select_first_b wants an int32 [N, WW] carrier, "
+                         f"got {win_masked.dtype} {tuple(win_masked.shape)}")
+    if b < 0:
+        raise ValueError(f"select_first_b: negative budget {b}")
+    if win_masked.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"select_first_b: no kernel for device "
+                         f"{win_masked.device}")
+    return _op(win_masked, b)

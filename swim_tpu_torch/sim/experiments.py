@@ -35,9 +35,10 @@ engine has no tap (the reference fails there unpacking the frame).
 `detection_study(telemetry=True)` adds the per-period EngineFrame
 digest and a health summary, and dumps the flight recorder on an
 error-severity finding or when `flight_record` names a path.
-`_run_study_batch` runs one study per fault program of a library and
-stacks the results along a leading P axis, each lane partitioned
-where a serial study would be.
+`_run_study_batch` runs one study per fault program of a library along
+a leading P axis: dense, rumor and ring on one device as one step a
+period over the lanes (`runner.run_study_batch`); the sharded ring and
+a partitioned study lane by lane.
 """
 from __future__ import annotations
 
@@ -105,16 +106,12 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
         from swim_tpu_torch.parallel import ring_shard
 
         placed = list(ring_shard.start(cfg, plan, device))
-    elif device is None and engine in PARTITIONED:
+    elif device is None and engine in PARTITIONED and _partitioned():
         from swim_tpu_torch.parallel import partition
 
-        mesh = pmesh.make_mesh()
-        if partition.partitions(mesh):
-            placed = list(partition.start(cfg, engine, plan, mesh))
+        placed = list(partition.start(cfg, engine, plan, pmesh.make_mesh()))
     if placed is None:
-        init = {"dense": dense, "rumor": rumor,
-                "ring": ring}[engine].init_state
-        placed = [None, init(cfg, devmod.resolve(device)), plan, None]
+        placed = [None, _init_state(engine, cfg, device), plan, None]
     plan, step_fn = placed[2], placed[3]
     # the runner is called directly and takes the initial state out of
     # `placed`: no frame here holds it, and the runner drops it after
@@ -129,6 +126,20 @@ def _run_study(cfg: SwimConfig, plan, key: tuple[int, int], periods: int,
     if step_fn is None:
         return res
     return res._replace(state=pmesh.assemble(res.state))
+
+
+def _init_state(engine: str, cfg: SwimConfig, device):
+    """A fresh one-device state of `engine` ("dense", "rumor", "ring")."""
+    mod = {"dense": dense, "rumor": rumor, "ring": ring}[engine]
+    return mod.init_state(cfg, devmod.resolve(device))
+
+
+def _partitioned() -> bool:
+    """Whether `mesh.make_mesh()` holds two or more distinct devices, so
+    that a study with no device named is partitioned over them."""
+    from swim_tpu_torch.parallel import partition
+
+    return partition.partitions(pmesh.make_mesh())
 
 
 def _study_runner(engine: str):
@@ -152,8 +163,11 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
     runs the serial study on `faults.lane_program(batch, p)` and its own
     threefry key `keys[p]`, from a fresh state.  De-interleave with
     `runner.lane_result`: each lane is its serial run bit for bit
-    (inert padding slots add 0 to every lane threshold).  The lanes run
-    one after another."""
+    (inert padding slots add 0 to every lane threshold).  Dense, rumor
+    and ring on one device run as one step a period over the lane axis
+    (`runner.run_study_batch`, the reference's vmap).  The sharded ring
+    ("ringshard") and a study partitioned over several devices run
+    their lanes one after another."""
     if engine == "shard":
         raise ValueError("batched studies: the exchange-sharded engine "
                          "has no fault-program path; use rumor, ring, "
@@ -169,6 +183,13 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
     if capacity is not None:
         cap = max(cap, int(capacity))
     batch = faults.stack_programs(progs, cap)
+    if engine in PARTITIONED and (device is not None
+                                  or not _partitioned()):
+        # the runner drops the initial states after the first period
+        return runner.run_study_batch(
+            cfg, runner.batch_states([_init_state(engine, cfg, device)
+                                      for _ in progs]),
+            batch.program, keys, periods, engine)
     return runner.batch_states(
         [_run_study(cfg, faults.lane_program(batch, p), key, periods,
                     engine, device) for p, key in enumerate(keys)])

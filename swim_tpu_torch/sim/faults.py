@@ -14,7 +14,7 @@ to a FaultPlan (reference faults.py:137-339); `link_lanes` turns them
 into the per-node u16 thresholds the rotor waves add to the loss
 threshold.  A `ProgramBatch` stacks P programs of one N along a leading
 P axis, padded to one segment capacity (`experiments._run_study_batch`
-runs a study per lane).
+runs a study per lane, one step a period over the lane axis).
 """
 from __future__ import annotations
 

@@ -38,9 +38,10 @@ With `cfg.telemetry` every runner steps the engine with its tap and
 returns the period-stacked `EngineFrame` (obs/engine.py) as the
 result's `telemetry`; else that field is None.
 
-`batch_states` stacks the results of P studies of one configuration
-along a leading P axis (`experiments._run_study_batch`); `lane_result`
-takes one lane back out.
+`run_study_batch` runs P studies of one configuration as one step a
+period over a leading lane axis (`torch.func.vmap` of the study bodies,
+as the reference's vmap); `batch_states` stacks per-lane states or
+results along that axis and `lane_result` takes one lane back out.
 """
 from __future__ import annotations
 
@@ -152,7 +153,7 @@ def _subject_flags(n: int, subject, rkey, knowers, up, gone_not_alive,
             | (used & is_d & (knowers >= live_total)).to(I32) << 2)
     sub = torch.where(used, subject, n).to(I64)
     verdict = torch.zeros((n + 1,), dtype=I32, device=subject.device)
-    verdict = verdict.scatter_reduce_(0, sub, code, "amax")[:n]
+    verdict = verdict.scatter_reduce(0, sub, code, "amax")[:n]
     verdict = (verdict | torch.where(gone_not_alive, 1, 0)
                | torch.where(gone_dead, 6, 0))
     return ((verdict & 1) > 0, (verdict & 2) > 0, (verdict & 4) > 0,
@@ -649,6 +650,94 @@ def run_study_ring_stream(cfg: SwimConfig, state, plan,
 # ---------------------------------------------------------------------
 # Batched studies: P studies of one configuration along a leading P axis
 # ---------------------------------------------------------------------
+
+
+_BODIES = {
+    "dense": (dense.step, dense_study_period, StudyResult),
+    "rumor": (rumor.step, rumor_study_period, RumorStudyResult),
+    "ring": (ring.step, ring_study_period, RingStudyResult),
+}
+
+
+def lane_draws(cfg: SwimConfig, kind: str, keys: list, t0: int,
+               periods: int, dev):
+    """Every lane's draws of periods t0 .. t0+periods-1, stacked along a
+    leading P axis (one set of launches a period): the ring's rotor
+    offsets, a function of the step alone, stay one shared copy."""
+    if kind == "ring":
+        for rnd, _ in ring.period_draws(cfg, keys, t0, periods, dev):
+            yield rnd
+        return
+    draw = prng.draw_period if kind == "dense" else rumor.draw_period_rumor
+    for t in range(t0, t0 + periods):
+        yield draw(keys, t, cfg, dev)
+
+
+def _lane_dims(rnd):
+    """vmap in-dims of a lane-stacked draw: 0 on every leaf, None on the
+    ring's shared rotor offsets."""
+    dims = tree_map(lambda x: 0, rnd)
+    if isinstance(rnd, ring.RingRandomness):
+        dims = dims._replace(s_off=None, q_off=None)
+    return dims
+
+
+def batch_period(cfg: SwimConfig, kind: str, rnd):
+    """`kind`'s study period vmapped over the lane axis: (state, track,
+    plan, rnd), each lane-stacked as `rnd` (a `lane_draws` draw), ->
+    (state, track, the period's series row, its EngineFrame; the
+    state's step in the frame's place when cfg.telemetry is off)."""
+    engine_step, body, _ = _BODIES[kind]
+
+    def period(state, track, plan, rnd):
+        stepper = make_stepper(cfg, plan, engine_step)
+        out = body(cfg, state, track, faults.base_of(plan), rnd, stepper)
+        return out if cfg.telemetry else out[:3] + (state.step,)
+
+    return torch.func.vmap(period, in_dims=(0, 0, 0, _lane_dims(rnd)))
+
+
+def run_study_batch(cfg: SwimConfig, states, plans, root_keys,
+                    periods: int, kind: str):
+    """P studies of one configuration as one step a period over a
+    leading lane axis: the reference's `run_study_batch`, a vmap of the
+    unchanged study bodies.  `states` and `plans` carry a leading P axis
+    (`batch_states`, `faults.stack_programs`), `root_keys` is one
+    threefry key per lane and `kind` the engine ("dense", "rumor" or
+    "ring", on one device).  Each period draws every lane's randomness
+    in one set of launches, outside the vmap, and calls
+    `torch.func.vmap` of the engine's study period once on the
+    lane-stacked (state, track, plan, draws): every op, the three
+    kernels included (their vmap rules), runs once for all lanes.  The
+    lanes share one period clock, read once.  Returns the engine's
+    result with every leaf [P, ...] (series and frames [P, periods]);
+    lane p is bitwise the serial study of lane p's state, plan and
+    key."""
+    result = _BODIES[kind][2]
+    keys = list(root_keys)
+    steps = states.step.cpu()
+    if steps.shape != (len(keys),):
+        raise ValueError(f"batched studies: {len(keys)} root keys for "
+                         f"states of lanes {tuple(steps.shape)}")
+    if not bool((steps == steps[0]).all()):
+        raise ValueError("batched studies: the lanes start at different "
+                         f"steps {steps.tolist()}")
+    dev = states.step.device
+    track = StudyTrack(*(torch.full((len(keys), cfg.n_nodes), NEVER,
+                                    dtype=I32, device=dev)
+                         for _ in range(3)))
+    state, rows, frames, vperiod = states, [], [], None
+    del states
+    for rnd in lane_draws(cfg, kind, keys, int(steps[0]), periods, dev):
+        vperiod = vperiod or batch_period(cfg, kind, rnd)
+        state, track, row, frame = vperiod(state, track, plans, rnd)
+        rows.append(row)
+        frames.append(frame)
+    frames = (type(frames[0])(*(torch.stack(c, 1) for c in zip(*frames)))
+              if cfg.telemetry and frames else None)
+    return result(state, track, PeriodSeries(*(torch.stack(c, 1)
+                                               for c in zip(*rows))),
+                  frames)
 
 
 def batch_states(states) -> Any:

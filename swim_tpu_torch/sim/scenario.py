@@ -15,8 +15,8 @@ the byte bill of its lanes on the sharded layout (obs/ici.py).  `run`
 writes a diffable verdict artifact: sorted keys, no timestamps, and
 the same bytes as the reference's for the same spec (the paths under
 `out_dir` aside).  `run(batch=True)` runs the arms sharing a SwimConfig
-as one batch (`experiments._run_study_batch`, lane by lane) with the
-same verdict.
+as one batch (`experiments._run_study_batch`, one step a period over
+the arms' lanes) with the same verdict.
 
 Entry points run on the CUDA card unless `device` names another.
 `engine="real"` (`replay_storm`) runs a core/cluster.py SimCluster of
@@ -337,7 +337,8 @@ def _run_engine_arm(sc: Scenario, arm: str, spec: dict, out_dir: str,
 def _run_engine_arms_batched(sc: Scenario, out_dir: str, dev) -> dict:
     """All engine arms of one scenario as batches: arms sharing a
     SwimConfig run as one `experiments._run_study_batch` (each arm's
-    program padded to the group's capacity), and each lane goes through
+    program padded to the group's capacity, one step a period over the
+    arms' lanes), and each lane goes through
     the same `_arm_digest` as a serial arm, so the per-arm dicts, dumps
     and verdict are the serial run's.  The byte bill is priced from the
     arm's own program, never the padded copy."""

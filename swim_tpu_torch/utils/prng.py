@@ -35,9 +35,11 @@ class PeriodRandomness(NamedTuple):
     lha_u: torch.Tensor       # [N]    Lifeguard probe thinning
 
 
-def draw_period(key: tuple[int, int], step: int, cfg: SwimConfig,
+def draw_period(key, step: int, cfg: SwimConfig,
                 device) -> PeriodRandomness:
-    """Period `step`'s draws from the threefry key `key`."""
+    """Period `step`'s draws from the threefry key `key`; for a list of
+    P keys (a batched study's lanes) every draw gains a leading P axis,
+    lane p bitwise key p's."""
     n, k = cfg.n_nodes, cfg.k_indirect
     ks = threefry.split(threefry.fold_in(key, step), 9)
     shapes = ((n,), (n, k), (n,), (n,), (n, k), (n, k), (n, k), (n, k),

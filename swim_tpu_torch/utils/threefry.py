@@ -24,6 +24,12 @@ On top of `bits`, jax/_src/random.py's `_uniform` (f32 in [0, 1): the
 mantissa bits under exponent 0) and `_randint` (two split keys, u32
 remainders with a 2**16 mod span multiplier) as `uniform` and
 `randint`.
+
+Every function also takes a list of P keys, one per lane of a batched
+study: `fold_in` and `split` work lane by lane on the host, and `bits`,
+`uniform` and `randint` send the keys to the device as [P, 1] tensors
+and hash the [P, size] counters in one pass, lane p bitwise the draw of
+key p (what the reference's vmapped `jax.random` calls give).
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ def _rotl(v, r: int):
 
 def _hash(k1: int, k2: int, x0, x1):
     """threefry2x32 (20 rounds).  x0/x1 are Python ints or int64
-    tensors holding u32 values; the keys are Python ints."""
+    tensors holding u32 values; the keys are Python ints or int64
+    tensors that broadcast against them."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M
     x1 = (x1 + ks[1]) & _M
@@ -64,34 +71,57 @@ def key(seed: int) -> tuple[int, int]:
     return (0, seed & _M)
 
 
-def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
+def fold_in(k, data: int):
+    """The key folded with `data`; for a list of keys, the list of the
+    lanes' folded keys."""
+    if not isinstance(k, tuple):
+        return [fold_in(kp, data) for kp in k]
     return _hash(k[0], k[1], 0, data & _M)
 
 
-def split(k: tuple[int, int], num: int) -> list[tuple[int, int]]:
+def split(k, num: int) -> list:
+    """`num` keys; for a list of P keys, `num` lists of P keys (entry i
+    holds every lane's key i)."""
+    if not isinstance(k, tuple):
+        return [list(col) for col in zip(*(split(kp, num) for kp in k))]
     return [_hash(k[0], k[1], 0, i) for i in range(num)]
 
 
-def bits(k: tuple[int, int], shape, device) -> torch.Tensor:
-    """int32 carrier of `jax.random.bits(key, shape, jnp.uint32)`."""
+def _lanes(k, device):
+    """(k1, k2, lane shape) of one key (ints, no lane axis) or of a list
+    of keys (int64 [P, 1] tensors on `device`, lane shape (P,)).  A card
+    gets the keys from pinned memory without blocking: a copy from
+    pageable memory would wait for the card."""
+    if isinstance(k, tuple):
+        return k[0], k[1], ()
+    kt = torch.tensor(k, dtype=torch.int64).reshape(-1, 2)
+    if torch.device(device).type == "cuda":
+        kt = kt.pin_memory()
+    kt = kt.to(device, non_blocking=True)
+    return kt[:, :1], kt[:, 1:], (kt.shape[0],)
+
+
+def bits(k, shape, device) -> torch.Tensor:
+    """int32 carrier of `jax.random.bits(key, shape, jnp.uint32)`; for a
+    list of P keys, [P, *shape] with lane p the draw of key p."""
     shape = tuple(shape)
     size = math.prod(shape)
     if size >= (1 << 32):
         raise ValueError("bits: more than 2**32 counters")
+    k1, k2, lanes = _lanes(k, device)
     lo = torch.arange(size, dtype=torch.int64, device=device)
-    o0, o1 = _hash(k[0], k[1], torch.zeros_like(lo), lo)
-    return u32.from_u64(o0 ^ o1).reshape(shape)
+    o0, o1 = _hash(k1, k2, torch.zeros_like(lo), lo)
+    return u32.from_u64(o0 ^ o1).reshape(lanes + shape)
 
 
-def uniform(k: tuple[int, int], shape, device) -> torch.Tensor:
+def uniform(k, shape, device) -> torch.Tensor:
     """float32 `jax.random.uniform(key, shape)` in [0, 1): the top 23
     bits as the mantissa of a float in [1, 2), minus 1 (exact)."""
     b = bits(k, shape, device)
     return (u32.lsr(b, 9) | 0x3F800000).view(torch.float32) - 1.0
 
 
-def randint(k: tuple[int, int], shape, lo: int, hi: int,
-            device) -> torch.Tensor:
+def randint(k, shape, lo: int, hi: int, device) -> torch.Tensor:
     """int32 `jax.random.randint(key, shape, lo, hi)`: u32 arithmetic,
     done in int64 and cut to 32 bits after every step."""
     k1, k2 = split(k, 2)

@@ -265,6 +265,38 @@ def test_study_period_makes_no_host_sync(cuda, name):
     assert int(state.step) == 2 and len(row) == 4
 
 
+@pytest.mark.parametrize("engine,kw", [
+    ("ring", {}), ("ring", {"ring_probe": "pull"}), ("dense", {}),
+    ("rumor", {"lifeguard": True})], ids=["wave", "pull", "dense", "rumor"])
+def test_batched_study_period_makes_no_host_sync(cuda, engine, kw):
+    """A batched study period (the lanes' draws and one vmapped period)
+    queues its work without waiting for the card: the draws' lane keys
+    go over from pinned memory."""
+    n, p = 4_096, 3
+    cfg = SwimConfig(n_nodes=n, telemetry=True, **kw)
+    mod = {"ring": ring, "dense": dense, "rumor": rumor}[engine]
+    plan = faults.with_random_crashes(faults.none(n, cuda), threefry.key(2),
+                                      0.01, 1, 6)
+    plans = runner.batch_states([plan] * p)
+    state = runner.batch_states([mod.init_state(cfg, cuda)] * p)
+    track = runner.StudyTrack(*(torch.full((p, n), runner.NEVER,
+                                           dtype=torch.int32, device=cuda)
+                                for _ in range(3)))
+    keys = [threefry.key(10 + i) for i in range(p)]
+    draws = runner.lane_draws(cfg, engine, keys, 0, 2, cuda)
+    rnd = next(draws)
+    period = runner.batch_period(cfg, engine, rnd)
+    # the first period builds the per-(cfg, device) tables
+    state, track, _, _ = period(state, track, plans, rnd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, track, row, frame = period(state, track, plans, next(draws))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step.tolist() == [2] * p and len(row) == 4
+
+
 # ------------------------------------------------ dense and rumor engines
 
 ENGINES = {"dense": (dense, dense.DenseState, prng.draw_period,
@@ -378,7 +410,8 @@ def test_ring_batch_lanes_equal_serial_on_the_card(cuda):
                                            "ring", device=cuda)
     made = [a - b for a, b in zip((selb.launches, coldsel.launches,
                                    wavemerge.launches), before)]
-    assert made == [2 * periods * 14, 2 * periods, 2 * periods * 14]
+    # one step a period for both lanes: one lane's launches
+    assert made == [periods * 14, periods, periods * 14]
     for p in range(2):
         serial = experiments._run_study(cfg, progs[p], keys[p], periods,
                                         "ring", cuda)
