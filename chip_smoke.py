@@ -240,7 +240,18 @@ Phases, each printed as one JSON line:
      periods) sharded and on one device, the sharded within 5% of the
      other; the wall and busy ms a period, idle share and kernels a
      period of the sharded wave-scope period beside the single-device
-     one in the same call.
+     one in the same call; then the `batch` part: phase 11's 1M ring
+     batch (P = 3 FaultPrograms, telemetry, 5 periods) on the sharded
+     engine, `_run_study_batch(..., "ringshard")`, one sharded step a
+     period for all lanes, each lane bitwise its serial sharded study,
+     launches (112 / 8 / 112 a wave-scope period) and rendezvous one
+     lane's, with wall, kernels a period (2 profiled periods) and peak
+     beside the serial lanes'; one batched period under the sync check
+     (no vmap fallback anywhere in the part); the card shards'
+     lane-form kernel calls of one more period (selb on P x S rows,
+     coldsel and wavemerge on [P, ...] operands) against their plain
+     versions, with ms per launch (`ringshard_batch` in each kernel's
+     row, `launches_ringshard_batch` in the `kernels` line).
  17. shard: the exchange-sharded rumor engine (parallel/shard_engine.py)
      with D = 8 shards on the one card, 1,000,000 nodes (R = 4,096), 0.1%
      crashing, loss 0.1.  First, before the children start: the peak
@@ -315,11 +326,17 @@ Phases, each printed as one JSON line:
      one-card step and of the partitioned step; the ring through the
      studies' router: `make_mesh()` giving the mixed mesh,
      `_run_study_batch` of two FaultProgram lanes at 100,000 nodes
-     (rotor, wave scope, 3 periods), each lane equal to its one-card
-     serial study, selb and coldsel launched on the two card shards
-     (twice one card's) and wavemerge on them once a wave, the card
-     shards' kernel calls of one more period against their plain
-     versions.  For each: the seconds, the
+     (rotor, wave scope, 3 periods), one partitioned step a period for
+     both lanes, each lane equal to its one-card serial study, selb and
+     coldsel launched on the two card shards twice one lane's one-card
+     launches and wavemerge on them once a wave, the rendezvous a
+     period one lane's partitioned study's and the bytes copied twice
+     its, the card shards' kernel calls of one more period against
+     their plain versions; a two-lane rumor batch at 100,000 nodes (R =
+     4,096, loss 0.1, telemetry, 3 periods) through the same router,
+     each lane equal to its one-card serial study, with the same
+     rendezvous and bytes checks against the rumor part's partitioned
+     study (its exchanges have one lane's shapes).  For each: the seconds, the
      bytes copied between the devices a period (`Mesh.copied_bytes`),
      the rendezvous a period (`Mesh.rendezvous`) and the card shards'
      launches (`launches_partition`: the ring's).  Where PyTorch sees
@@ -1748,20 +1765,25 @@ def no_sync_batch_period(engine: str, n: int, p: int) -> None:
          lanes=p)
 
 
+def ring_batch_programs() -> list:
+    """The LANES FaultPrograms of the 1M ring batches: the program plan,
+    the same with its gray segment at 0.6, and the crashes alone."""
+    prog = program_plan(N)
+    gray = prog._replace(seg_level=prog.seg_level.clone())
+    gray.seg_level[0] = faults.level_to_threshold(0.6)
+    return [prog, gray, faults.as_program(crash_plan(SwimConfig(n_nodes=N),
+                                                     SLICE_PERIODS))]
+
+
 def batches_phase(card: str) -> dict:
     """The 1M ring batch (P = 3) and the 100,000-node rumor batch (P = 2),
     and a batched period of each with no host sync; returns each batch's
     kernel launches."""
     no_sync_batch_period("ring", N, LANES)
     no_sync_batch_period("rumor", BATCH_RUMOR_N, 2)
-    prog = program_plan(N)
-    gray = prog._replace(seg_level=prog.seg_level.clone())
-    gray.seg_level[0] = faults.level_to_threshold(0.6)
-    empty = faults.as_program(crash_plan(SwimConfig(n_nodes=N),
-                                         SLICE_PERIODS))
     n_r = BATCH_RUMOR_N
     return {"batch": batch_phase("ring 1M", "ring", N, TAP_PERIODS,
-                                 [prog, gray, empty], card),
+                                 ring_batch_programs(), card),
             "batch_rumor": batch_phase(
                 "rumor 100k", "rumor", n_r, 10,
                 [program_plan(n_r), faults.as_program(crash_plan(
@@ -3260,10 +3282,256 @@ def shard_timing(card: str) -> None:
          card=card)
 
 
+SHARD_BATCH_PERIODS = 5
+SHARD_BATCH_PROFILED = 2        # periods of the kernels-a-period runs
+
+
+@contextlib.contextmanager
+def started_meshes():
+    """The meshes `pmesh.start_mesh` builds inside the block, in order:
+    those of the sharded studies started there."""
+    made, real = [], pmesh.start_mesh
+    pmesh.start_mesh = lambda device=None: made.append(real(device)) or \
+        made[-1]
+    try:
+        yield made
+    finally:
+        pmesh.start_mesh = real
+
+
+def measured(fn) -> tuple:
+    """(fn(), wall s, the kernels' launches, peak bytes over what was
+    allocated before, the rendezvous of the meshes it started)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    with started_meshes() as meshes:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (out, wall, read_launches(),
+            torch.cuda.max_memory_allocated() - before,
+            sum(m.rendezvous for m in meshes))
+
+
+def kernels_on_card(fn) -> int:
+    """The device activities (kernels, copies, fills) of fn() under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        fn()
+        torch.cuda.synchronize()
+    return busy_ms(pr)[1]
+
+
+def capture_lane_calls(fn) -> dict:
+    """fn() with each kernel's custom op keeping clones of the arguments
+    of its calls on physical tensors: under a batched study's vmap the
+    calls its vmap rule makes, one kernel launch for all lanes."""
+    mods = {"selb": selb, "coldsel": coldsel, "wavemerge": wavemerge}
+    got = {k: [] for k in mods}
+    real = {k: m._op for k, m in mods.items()}
+    lock = threading.Lock()
+
+    def keep(name, op):
+        def wrapped(*args):
+            if not any(isinstance(a, torch.Tensor)
+                       and torch._C._functorch.is_batchedtensor(a)
+                       for a in args):
+                with lock:
+                    got[name].append(tuple(
+                        a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args))
+            return op(*args)
+        return wrapped
+
+    for k, m in mods.items():
+        m._op = keep(k, real[k])
+    try:
+        fn()
+    finally:
+        for k, m in mods.items():
+            m._op = real[k]
+    torch.cuda.synchronize()
+    return got
+
+
+def check_lane_calls(what: str, got: dict) -> int:
+    """Each captured lane-form call's kernel against its plain version
+    on the same lane-stacked operands."""
+    err = 0
+    for (win, b) in got["selb"]:
+        err = max(err, require_equal(
+            f"{what} selb rows={win.shape[0]}", selb._op(win, b),
+            selb.select_first_b_plain(win, b)))
+    for (cold, fr, fv, qr) in got["coldsel"]:
+        c_k, c_p = cold.clone(), cold.clone()
+        s_k = coldsel._op(c_k, fr, fv, qr)
+        s_p = coldsel.cold_update_select_plain(c_p, fr, fv, qr)[1]
+        err = max(err, require_equal(f"{what} coldsel cold", c_k, c_p),
+                  require_equal(f"{what} coldsel sel", s_k, s_p))
+    for (win, sel, oks, offs, bcol, bval) in got["wavemerge"]:
+        w_k = win.clone()
+        wavemerge._op(w_k, sel, oks, offs, bcol, bval)
+        err = max(err, require_equal(
+            f"{what} wavemerge lanes={win.shape[0]} v={oks.shape[-2]}",
+            w_k, wavemerge.merge_waves_plain(win.clone(), sel, oks, offs,
+                                             bcol, bval)))
+    return err
+
+
+def lane_call_rows(got: dict, lanes: int) -> dict:
+    """Each kernel's ms per lane-form launch on shard 0's first captured
+    call, beside its plain version's, the bytes and the bound."""
+    win, b = got["selb"][0]
+    cold, fr, fv, qr = got["coldsel"][0]
+    m_win, m_sel, oks, offs, bcol, bval = got["wavemerge"][0]
+    s = cold.shape[-1]
+    ow, q = fr.shape[-1], qr.shape[-2]
+    out = {}
+    for name, t_k, t_p, nbytes, nops in (
+            ("selb", gpu_ms(lambda: selb._op(win, b)),
+             gpu_ms(lambda: selb.select_first_b_plain(win, b), samples=5,
+                    inner=2),
+             2 * win.numel() * 4, win.numel() * 8),
+            ("coldsel", gpu_ms(lambda: coldsel._op(cold, fr, fv, qr)),
+             gpu_ms(lambda: coldsel.cold_update_select_plain(
+                 cold, fr, fv, qr), samples=5, inner=2),
+             lanes * (2 * ow + 3 * q) * s * 4,
+             lanes * s * (ow + q * (ow + 4))),
+            ("wavemerge",
+             gpu_ms(lambda: wavemerge._op(m_win, m_sel, oks, offs, bcol,
+                                          bval)),
+             gpu_ms(lambda: wavemerge.merge_waves_plain(
+                 m_win, m_sel, oks, offs, bcol, bval), samples=5, inner=2),
+             3 * m_win.numel() * 4 + oks.numel(),
+             m_win.numel() * 3 * oks.shape[-2])):
+        bms, by = bound(nbytes, nops)
+        out[name] = dict(ms_main=t_k, plain_ms_main=t_p, bytes_main=nbytes,
+                         bound_ms_main=bms, bound_by=by, lanes=lanes,
+                         shard_rows=s)
+    return out
+
+
+def shard_batch_period(cfg, progs, keys) -> dict:
+    """One batched sharded period (the lanes' draws and one vmapped
+    study period, after a first that builds the tables) with PyTorch's
+    sync check set to raise; then the selb, coldsel and wavemerge calls
+    of one more period captured on the card shards' lane-stacked
+    operands (`capture_lane_calls`)."""
+    mesh, state, plans, step = ring_shard.start(
+        cfg, faults.stack_programs(progs).program, "cuda")
+    track = runner.StudyTrack(*(torch.full((len(progs), N), runner.NEVER,
+                                           dtype=torch.int32, device="cuda")
+                                for _ in range(3)))
+    draws = ring.period_draws(cfg, keys, 0, 3, "cuda")
+    rnd, shifts = next(draws)
+    period = runner.batch_period(cfg, "ring", rnd, step)
+    with no_vmap_fallback():
+        state, track, _, _ = period(state, track, plans, rnd, shifts)
+        rnd, shifts = next(draws)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, track, _, _ = period(state, track, plans, rnd, shifts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        steps = pmesh.assemble(state.step).tolist()
+        if steps != [2] * len(progs):
+            raise AssertionError(f"ringshard batch period: steps {steps}")
+        rnd, shifts = next(draws)
+        return capture_lane_calls(
+            lambda: period(state, track, plans, rnd, shifts))
+
+
+def shard_batch(rows: dict, card: str) -> dict:
+    """The 1M ring batch of phase 11's programs on the sharded engine
+    (D = 8 slots of the card, the default SwimConfig with telemetry,
+    LANES lanes, SHARD_BATCH_PERIODS periods): `_run_study_batch(...,
+    "ringshard")`, one sharded step a period for all lanes, against its
+    serial sharded lanes: each lane bitwise, launches and rendezvous
+    one lane's; wall, peak and kernels a period beside the serial
+    lanes'.  Then one batched period under the sync check and the card
+    shards' lane-form kernel calls of one more period against their
+    plain versions, with their ms per launch (`ringshard_batch` in each
+    kernel's row).  Returns the batch's launches."""
+    t0 = time.perf_counter()
+    cfg = SwimConfig(n_nodes=N, telemetry=True)
+    progs = ring_batch_programs()
+    keys = [threefry.key(20 + p) for p in range(len(progs))]
+    periods = SHARD_BATCH_PERIODS
+
+    def batch(periods=periods):
+        return experiments._run_study_batch(cfg, progs, keys, periods,
+                                            "ringshard", device="cuda")
+
+    def lane(p, periods=periods):
+        return experiments._run_study(cfg, progs[p], keys[p], periods,
+                                      "ringshard", "cuda")
+
+    with no_vmap_fallback():
+        batched, wall, launches, peak, rendezvous = measured(batch)
+    serial, leaves = [], 0
+    for p in range(len(progs)):
+        res, *row = measured(lambda p=p: lane(p))
+        leaves = require_same(f"ringshard batch lane {p} against its "
+                              "serial sharded study",
+                              runner.lane_result(batched, p), res)
+        serial.append(dict(zip(("wall", "launches", "peak", "rendezvous"),
+                               row)))
+        del res
+    del batched
+    one = serial[0]
+    if any(r["launches"] != one["launches"] for r in serial) or \
+            launches != one["launches"]:
+        raise AssertionError(f"ringshard batch: launches {launches}, "
+                             f"serial lanes {[r['launches'] for r in serial]}")
+    if rendezvous != one["rendezvous"]:
+        raise AssertionError(f"ringshard batch: {rendezvous} rendezvous, "
+                             f"one lane {one['rendezvous']}")
+    with no_vmap_fallback():
+        k_batch = kernels_on_card(lambda: batch(SHARD_BATCH_PROFILED))
+    k_serial = kernels_on_card(lambda: [lane(p, SHARD_BATCH_PROFILED)
+                                        for p in range(len(progs))])
+    got = shard_batch_period(cfg, progs, keys)
+    calls = {k: len(v) for k, v in got.items()}
+    if calls != {k: v // periods for k, v in launches.items()}:
+        raise AssertionError(f"ringshard batch: captured {calls} lane "
+                             f"calls, launches {launches}")
+    err = check_lane_calls("ringshard batch", got)
+    for name, row in lane_call_rows(got, len(progs)).items():
+        rows[name]["ringshard_batch"] = row
+    emit(phase="ringshard", part="batch", n_nodes=N, shards=SHARDS,
+         lanes=len(progs), periods=periods, leaves_equal_per_lane=leaves,
+         launches=launches,
+         launches_per_period={k: v / periods for k, v in launches.items()},
+         launches_serial_lane=one["launches"],
+         rendezvous_per_period=rendezvous / periods,
+         rendezvous_per_period_serial_lane=one["rendezvous"] / periods,
+         wall_ms=wall * 1e3,
+         wall_ms_serial_lanes=[r["wall"] * 1e3 for r in serial],
+         kernels_per_period=k_batch / SHARD_BATCH_PROFILED,
+         kernels_per_period_serial_lanes=k_serial / SHARD_BATCH_PROFILED,
+         kernels_counted_over=f"{SHARD_BATCH_PROFILED} periods, set-up "
+                              "included",
+         peak_bytes=peak, peak_bytes_serial_lanes=[r["peak"]
+                                                   for r in serial],
+         no_vmap_fallback=True, host_syncs_in_a_batched_period=0,
+         lane_calls_checked=calls, max_abs_err=err,
+         selb=rows["selb"]["ringshard_batch"],
+         coldsel=rows["coldsel"]["ringshard_batch"],
+         wavemerge=rows["wavemerge"]["ringshard_batch"],
+         seconds=time.perf_counter() - t0, card=card)
+    return launches
+
+
 def ringshard_phase(rows: dict, card: str) -> dict:
     """Phase 16 but its golden digests (`shard_golden`, a `Background`
-    job); returns the kernels' launches in the wave-scope sharded parity
-    run."""
+    job); returns the kernels' launches in the sharded parity runs and
+    (`batch`) in the sharded batch."""
     t0 = time.perf_counter()
     launches = {}
     placed = None
@@ -3277,9 +3545,10 @@ def ringshard_phase(rows: dict, card: str) -> dict:
     shard_study(card)
     shard_memwall(card)
     shard_timing(card)
+    launches["batch"] = shard_batch(rows, card)
     emit(phase="ringshard", part="done", seconds=time.perf_counter() - t0,
          card=card)
-    return launches["wave"]
+    return launches
 
 
 # ------------------------------------------------------- phase 17: shard
@@ -4045,10 +4314,11 @@ def part_dense() -> None:
         crash_fraction=PART_DENSE_CRASHES)
 
 
-def part_rumor() -> None:
+def part_rumor() -> dict:
     """Rumor at 100,000 nodes, R = 4,096, loss 0.1, with a join
     schedule (200 nodes joining at periods 1 and 2) and a FaultProgram
-    with segments: neither of which the `shard` engine takes."""
+    with segments: neither of which the `shard` engine takes.  Returns
+    its `mesh_counts`."""
     n = PART_RUMOR_N
     cfg = SwimConfig(n_nodes=n, rumor_capacity=PART_RUMOR_R, telemetry=True)
     plan = faults.with_loss(crash_plan(cfg, PART_PERIODS), SHARD_LOSS)
@@ -4059,18 +4329,37 @@ def part_rumor() -> None:
                                kind="gray", level=0.3, domain=1)
     prog = faults.with_segment(prog, 1, start=1, end=PART_PERIODS,
                                kind="link_loss", level=0.2, domain=2)
-    emit(**part_rows_engine("rumor", cfg, prog), rumor_slots=cfg.rumor_slots,
-         loss=SHARD_LOSS, joins=int(late.size), segments=2)
+    row = part_rows_engine("rumor", cfg, prog)
+    emit(**row, rumor_slots=cfg.rumor_slots, loss=SHARD_LOSS,
+         joins=int(late.size), segments=2)
+    return {k: row[k] for k in ("copied_bytes_per_period",
+                                "rendezvous_per_period")}
+
+
+def check_lane_counts(what: str, counts: dict, lane: dict,
+                      lanes: int) -> None:
+    """A partitioned batch's rendezvous a period those of one lane's
+    partitioned study, and its bytes copied between the devices `lanes`
+    times that lane's: one step a period for all lanes, each exchange
+    carrying every lane."""
+    if (counts["rendezvous_per_period"] != lane["rendezvous_per_period"]
+            or counts["copied_bytes_per_period"]
+            != lanes * lane["copied_bytes_per_period"]):
+        raise AssertionError(f"{what}: batch {counts}, one lane {lane}, "
+                             f"{lanes} lanes")
 
 
 def part_ring() -> dict:
     """The ring through the studies' router: `_run_study_batch` with two
     FaultProgram lanes at 100,000 nodes (the rotor probe, wave scope),
-    `make_mesh()` giving the mixed mesh; each lane equal to its one-card
-    serial study; selb and coldsel on the two card shards, twice one
-    card's, and wavemerge on them once a wave; the card shards' kernel
-    calls of one more period against their plain versions.  Returns the
-    batch's launches."""
+    `make_mesh()` giving the mixed mesh, one partitioned step a period
+    for both lanes; each lane equal to its one-card serial study; selb
+    and coldsel on the two card shards twice one lane's one-card
+    launches and wavemerge on them once a wave (each launch carries
+    both lanes); rendezvous a period one lane's partitioned study's,
+    bytes copied between the devices twice its; the card shards' kernel
+    calls of one more period against their plain versions.  Returns
+    the batch's launches."""
     t0 = time.perf_counter()
     n = PART_RING_N
     cfg = SwimConfig(n_nodes=n)
@@ -4082,31 +4371,38 @@ def part_ring() -> dict:
         lossy, 0, start=1, end=PART_PERIODS, kind="gray", level=0.3,
         domain=3)]
     keys = [threefry.key(0), threefry.key(1)]
-    torch.cuda.synchronize()
-    reset_launches()
-    one = [experiments._run_study(cfg, prog, key, PART_PERIODS, "ring",
-                                  device="cuda")
-           for prog, key in zip(progs, keys)]
-    torch.cuda.synchronize()
-    one_launches = read_launches()
+    one, one_launches = [], []
+    for prog, key in zip(progs, keys):
+        torch.cuda.synchronize()
+        reset_launches()
+        one.append(experiments._run_study(cfg, prog, key, PART_PERIODS,
+                                          "ring", device="cuda"))
+        torch.cuda.synchronize()
+        one_launches.append(read_launches())
     zero_counts(mesh)
     t1 = time.perf_counter()
-    with default_mesh(mesh):
+    with default_mesh(mesh), no_vmap_fallback():
         batch = experiments._run_study_batch(cfg, progs, keys, PART_PERIODS,
                                              "ring")
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = read_launches()
-    periods = PART_PERIODS * len(progs)
-    counts = mesh_counts(mesh, periods)
+    counts = mesh_counts(mesh, PART_PERIODS)
     fields = sum(require_same(f"partition ring: lane {p} against its "
                               "one-card study", runner.lane_result(batch, p),
                               one[p]) for p in range(len(progs)))
+    zero_counts(mesh)
+    with default_mesh(mesh):
+        experiments._run_study(cfg, progs[0], keys[0], PART_PERIODS, "ring")
+    torch.cuda.synchronize()
+    lane = mesh_counts(mesh, PART_PERIODS)
+    check_lane_counts("partition ring", counts, lane, len(progs))
     c = card_shards(mesh)
-    want = {"selb": c * one_launches["selb"],
-            "coldsel": c * one_launches["coldsel"],
-            "wavemerge": c * periods * shard_merge_launches(cfg)}
-    if launches != want or not one_launches["coldsel"]:
+    want = {"selb": c * one_launches[0]["selb"],
+            "coldsel": c * one_launches[0]["coldsel"],
+            "wavemerge": c * PART_PERIODS * shard_merge_launches(cfg)}
+    if (launches != want or not one_launches[0]["coldsel"]
+            or one_launches[1] != one_launches[0]):
         raise AssertionError(f"partition ring: launches {launches}, one "
                              f"card {one_launches}, expected {want}")
     placed, pl = ring_shard.place(cfg, mesh, one[1].state, progs[1])
@@ -4119,12 +4415,61 @@ def part_ring() -> dict:
     emit(phase="partition", part="ring", n_nodes=n, shards=mesh.size,
          devices=MIXED_DEVICES, lanes=len(progs), periods=PART_PERIODS,
          routed_by="experiments._run_study_batch", fields_equal=fields,
-         launches=launches, launches_one_card=one_launches,
+         launches=launches, launches_one_card_lane=one_launches[0],
          card_shard_launches=launches,
          kernels_checked={k: len(v) for k, v in got.items()},
-         max_abs_err=err,
-         **counts, run_seconds=run_s, seconds=time.perf_counter() - t0)
+         max_abs_err=err, **counts,
+         one_lane_partitioned=lane, no_vmap_fallback=True,
+         run_seconds=run_s, seconds=time.perf_counter() - t0)
     return launches
+
+
+def part_rumor_batch(lane: dict) -> None:
+    """A two-lane rumor batch at 100,000 nodes (R = 4,096, telemetry,
+    loss 0.1; lane 0 part_rumor's segments, lane 1 a gray segment at
+    0.6) through the studies' router on the mixed mesh, one partitioned
+    step a period for both lanes: each lane equal to its one-card
+    serial study; rendezvous a period those of `lane` (part_rumor's
+    partitioned study, whose exchanges have this batch's lane shapes),
+    bytes copied twice its; no kernel launched."""
+    t0 = time.perf_counter()
+    n = PART_RUMOR_N
+    cfg = SwimConfig(n_nodes=n, rumor_capacity=PART_RUMOR_R, telemetry=True)
+    prog = faults.as_program(faults.with_loss(crash_plan(cfg, PART_PERIODS),
+                                              SHARD_LOSS),
+                             np.arange(n) % 4, capacity=2)
+    progs = [faults.with_segment(prog, 0, start=0, end=PART_PERIODS,
+                                 kind="gray", level=level, domain=1)
+             for level in (0.3, 0.6)]
+    progs[0] = faults.with_segment(progs[0], 1, start=1, end=PART_PERIODS,
+                                   kind="link_loss", level=0.2, domain=2)
+    keys = [threefry.key(4), threefry.key(5)]
+    one = [experiments._run_study(cfg, p, k, PART_PERIODS, "rumor",
+                                  device="cuda") for p, k in zip(progs, keys)]
+    mesh = pmesh.make_mesh(devices=MIXED_DEVICES)
+    zero_counts(mesh)
+    t1 = time.perf_counter()
+    with default_mesh(mesh), no_vmap_fallback():
+        batch = experiments._run_study_batch(cfg, progs, keys, PART_PERIODS,
+                                             "rumor")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_launches()
+    counts = mesh_counts(mesh, PART_PERIODS)
+    fields = sum(require_same(f"partition rumor batch: lane {p} against "
+                              "its one-card study",
+                              runner.lane_result(batch, p), one[p])
+                 for p in range(len(progs)))
+    check_lane_counts("partition rumor batch", counts, lane, len(progs))
+    if any(launches.values()):
+        raise AssertionError(f"partition rumor batch: launches {launches}")
+    emit(phase="partition", part="rumor_batch", n_nodes=n,
+         shards=mesh.size, devices=MIXED_DEVICES, lanes=len(progs),
+         periods=PART_PERIODS, routed_by="experiments._run_study_batch",
+         fields_equal=fields, launches=launches, **counts,
+         one_lane_partitioned=dict(lane, run="rumor"),
+         no_vmap_fallback=True,
+         run_seconds=run_s, seconds=time.perf_counter() - t0)
 
 
 def partition_phase(card: str) -> dict:
@@ -4132,8 +4477,9 @@ def partition_phase(card: str) -> dict:
     the kernels' launches on the card shards of its runs."""
     t0 = time.perf_counter()
     part_dense()
-    part_rumor()
+    rumor_lane = part_rumor()
     launches = part_ring()
+    part_rumor_batch(rumor_lane)
     emit(phase="partition", part="done", launches=launches,
          seconds=time.perf_counter() - t0, card=card)
     return launches
@@ -4363,7 +4709,9 @@ def main() -> None:
     launches["serve"] = serve_phase(rows, card)
     launches.update(bridge_phase(card))
     launches["instruments"] = instruments_phase(card)
-    launches["ringshard"] = ringshard_phase(rows, card)
+    shard_launches = ringshard_phase(rows, card)
+    launches["ringshard"] = shard_launches["wave"]
+    launches["ringshard_batch"] = shard_launches["batch"]
     background = []
     try:
         launches["shard"] = shard_phase(card, lambda: background.extend([
@@ -4385,7 +4733,7 @@ def main() -> None:
                 "wavemerge": "swim_tpu/ops/wavemerge.py:136"}
     extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
              "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve",
-             "ringshard", "lanes_ms", "lanes_bound_ms")
+             "ringshard", "ringshard_batch", "lanes_ms", "lanes_bound_ms")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]
@@ -4408,6 +4756,7 @@ def main() -> None:
             launches_bridge_golden=launches["bridge_golden"][name],
             launches_instruments=launches["instruments"][name],
             launches_ringshard=launches["ringshard"][name],
+            launches_ringshard_batch=launches["ringshard_batch"][name],
             launches_shard=launches["shard"][name],
             launches_audit=launches["audit"][name],
             launches_oracle=launches["oracle"][name],

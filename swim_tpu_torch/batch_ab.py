@@ -1,5 +1,6 @@
 """Batched studies from several checkouts of the repo, in turns: the
-1M ring batch of chip_smoke.py's phase 11 and one search generation.
+1M ring batch of chip_smoke.py's phase 11, the same batch on the
+sharded ring (phase 16's) and one search generation.
 
     python3 -m swim_tpu_torch.batch_ab --trees _parent . [--rounds 1]
 
@@ -17,16 +18,23 @@ once measured:
   * `serial`: lane 0's study alone (`experiments._run_study`), the
     control for the host's speed and the batch's one-lane yardstick;
   * `search`: `search.explore(generations=1)` at its defaults (16
-    candidates, 256 nodes, 48 periods as one batch).
+    candidates, 256 nodes, 48 periods as one batch);
+  * `ringshard_batch`: the `batch` arm's programs and keys on the
+    sharded ring (`_run_study_batch(..., "ringshard")`, D = 8 slots of
+    the card), SHARD_PERIODS periods;
+  * `ringshard_serial`: its three lanes' serial sharded studies, one
+    after another.
 
 For each: the wall seconds, the three kernels' launches, and the peak
 (`torch.cuda.max_memory_allocated()` over the call less what was
-allocated before); then `batch` and `serial` once more under
-torch.profiler for the kernels a period on the card (the study's own
-set-up included) and the kernels, by name (cut to 100 characters), the
-batch launches a period beyond one serial lane.  It uses only calls that every checkout since the
-batched studies has.  Prints one JSON line a process and last a
-summary, with the card's name and power limit.  Needs one card.
+allocated before); then `batch`, `serial` and the two ringshard arms
+once more under torch.profiler for the kernels a period on the card
+(the study's own set-up included; the serial sharded arm's are its
+three lanes' together) and the kernels, by name (cut to 100
+characters), the batch launches a period beyond one serial lane.  It
+uses only calls that every checkout since the batched studies has.
+Prints one JSON line a process and last a summary, with the card's name
+and power limit.  Needs one card.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from swim_tpu_torch.shard_period_ab import card_line, run_tree
 N = 1_000_000
 LANES = 3
 PERIODS = 20
+SHARD_PERIODS = 5
 
 WORKER = f"""
 import collections, json, time, torch
@@ -48,7 +57,7 @@ from swim_tpu_torch.sim import experiments, faults, search
 from swim_tpu_torch.utils import threefry
 import numpy as np
 
-N, P, T = {N}, {LANES}, {PERIODS}
+N, P, T, TS = {N}, {LANES}, {PERIODS}, {SHARD_PERIODS}
 cfg = SwimConfig(n_nodes=N, telemetry=True)
 plan = faults.with_loss(faults.with_random_crashes(
     faults.none(N, "cuda"), threefry.key(1), 0.001, 0, T), 0.01)
@@ -68,7 +77,13 @@ arms = {{
     "serial": lambda: experiments._run_study(cfg, progs[0], keys[0], T,
                                              "ring", "cuda"),
     "search": lambda: search.explore(generations=1),
+    "ringshard_batch": lambda: experiments._run_study_batch(
+        cfg, progs, keys, TS, "ringshard", device="cuda"),
+    "ringshard_serial": lambda: [experiments._run_study(
+        cfg, progs[p], keys[p], TS, "ringshard", "cuda") for p in range(P)],
 }}
+periods = {{"batch": T, "serial": T, "ringshard_batch": TS,
+            "ringshard_serial": TS}}
 out = {{}}
 for name, fn in arms.items():
     for _ in range(2):
@@ -88,7 +103,7 @@ for name, fn in arms.items():
                   "launches": {{m.__name__.rsplit(".", 1)[1]: m.launches
                                for m in mods}}}}
 counts = {{}}
-for name in ("batch", "serial"):
+for name in periods:
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         arms[name]()
@@ -97,7 +112,8 @@ for name in ("batch", "serial"):
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             counts[name][e.key[:100]] += e.count
-    out[name]["kernels_per_period"] = sum(counts[name].values()) / T
+    out[name]["kernels_per_period"] = (sum(counts[name].values())
+                                       / periods[name])
 more = {{k: (counts["batch"][k] - counts["serial"][k]) / T
         for k in counts["batch"].keys() | counts["serial"].keys()}}
 out["batch"]["kernels_beyond_serial"] = dict(sorted(
@@ -118,7 +134,8 @@ def main(argv: list[str] | None = None) -> None:
     for i, tree in enumerate(order):
         got = run_tree(tree, WORKER)
         print(json.dumps({"turn": i, "tree": str(tree), "n_nodes": N,
-                          "lanes": LANES, "periods": PERIODS, "arms": got}),
+                          "lanes": LANES, "periods": PERIODS,
+                          "shard_periods": SHARD_PERIODS, "arms": got}),
               flush=True)
         for arm, row in got.items():
             rows[str(tree)].setdefault(arm, []).append(row)

@@ -30,7 +30,10 @@ built here, byte for byte the reference's:
     empty entries the wire dtype's max), in `slot_dtype(ww)`'s carrier.
 
 Every round trip is exact; `unpack_slots(pack_slots(sel, b), ww) == sel`
-whenever no row of `sel` has more than b set bits.
+whenever no row of `sel` has more than b set bits.  Under
+`torch.func.vmap` (a batched study's shard threads) the payloads build
+out of place, and bytes come from shifts instead of a dtype view, which
+some PyTorch versions cannot batch: the same bytes.
 """
 from __future__ import annotations
 
@@ -91,9 +94,8 @@ def pack_bits(flags: torch.Tensor) -> torch.Tensor:
     + i] (the pad bits are 0)."""
     s = flags.shape[0]
     w = packed_words(s)
-    padded = torch.zeros((w * WORD,), dtype=torch.bool, device=flags.device)
-    padded[:s] = flags
-    return u32.pack_bits(padded.reshape(w, WORD))
+    pad = torch.zeros((w * WORD - s,), dtype=torch.bool, device=flags.device)
+    return u32.pack_bits(torch.cat([flags, pad]).reshape(w, WORD))
 
 
 def unpack_bits(words: torch.Tensor, s: int) -> torch.Tensor:
@@ -112,9 +114,19 @@ def narrow_bytes(x: torch.Tensor, itemsize=None) -> torch.Tensor:
     if x.dtype == torch.uint8:
         return x.reshape(*x.shape, 1)
     w = _width(x, itemsize)
+    if _batched(x):
+        if w == 1:
+            return (x & 0xFF).to(torch.uint8)[..., None]
+        sh = torch.arange(0, 8 * w, 8, dtype=x.dtype, device=x.device)
+        return ((x[..., None] >> sh) & 0xFF).to(torch.uint8)
     b = x.contiguous().view(torch.uint8).reshape(*x.shape,
                                                   x.element_size())
     return b[..., :w]
+
+
+def _batched(x: torch.Tensor) -> bool:
+    """Whether x is a tensor batched by torch.func.vmap."""
+    return torch._C._functorch.is_batchedtensor(x)
 
 
 def widen_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -124,7 +136,7 @@ def widen_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.uint8:
         return b[..., 0]
     size = torch.empty((), dtype=dtype).element_size()
-    if w == size:
+    if w == size and not _batched(b):
         # a fresh copy: a slice of a payload may sit at any byte offset
         return b.clone().view(dtype).reshape(b.shape[:-1])
     out = b[..., 0].to(dtype)

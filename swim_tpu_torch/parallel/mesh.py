@@ -14,7 +14,10 @@ boundary); the default mesh never takes the CPU.
 A placed tensor is a `Sharded`: its D blocks, one per shard, in shard
 order, each in storage of its own on its shard's device, and the axis
 they split (None for a replicated tensor, whose D blocks hold equal
-values).  `shard_state` and `state_shardings` place a NamedTuple of
+values).  A batch's placed tensor carries a leading lane axis in every
+block (`split(..., lanes=1)`, `stack_lanes`); a Sharded is a pytree
+node, so a batched study's vmap batches its blocks.  `shard_state` and
+`state_shardings` place a NamedTuple of
 tensors by the reference's rule (the node axis is the leading one, or
 the one the state type's SHARD_AXES names; a tensor whose node axis is
 not N long replicates), and `assemble` stitches a placed tree back into
@@ -35,7 +38,10 @@ integer, so a sum is the same in any order.  A shard that raises
 aborts the rendezvous, so every other shard raises too; a wait longer
 than BARRIER_TIMEOUT_S seconds breaks it the same way.  `run_spmd`
 runs one function on every shard and returns their results in shard
-order.
+order.  Under a shard thread's `torch.func.vmap` (a batched study's
+sharded step) a collective posts the physical lane-stacked tensor and
+wraps what it reads at the caller's vmap level: one rendezvous for all
+lanes, each exchange P times the bytes.
 
 Ordering on the card: each shard runs on the caller's current stream of
 its device, and records an event on it when it posts.  A block read on
@@ -52,6 +58,8 @@ import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.utils._pytree
+from torch._C import _functorch
 
 from swim_tpu_torch import device as devmod
 
@@ -144,23 +152,34 @@ class Sharded:
     """One tensor placed over a mesh: `blocks[i]` lives on shard i.
     `axis` is the node axis the blocks split (concatenated in shard
     order they give the whole tensor), or None for a replicated tensor
-    (every block holds the whole value)."""
+    (every block holds the whole value).  `ndim` is one lane's block
+    rank: blocks of a batch carry leading lane axes (`lead` of them), so
+    their node axis is `axis + lead`; under `torch.func.vmap` the lane
+    axis is hidden and `lead` reads 0.  A Sharded is a pytree node
+    (its blocks the children), so vmap batches every block."""
 
-    __slots__ = ("blocks", "axis")
+    __slots__ = ("blocks", "axis", "ndim")
 
-    def __init__(self, blocks, axis: int | None):
+    def __init__(self, blocks, axis: int | None, ndim: int | None = None):
         self.blocks = list(blocks)
         self.axis = axis
+        self.ndim = self.blocks[0].dim() if ndim is None else ndim
 
     @property
     def device(self) -> torch.device:
         return self.blocks[0].device
 
     @property
+    def lead(self) -> int:
+        """The leading lane axes of the blocks (0 outside a batch)."""
+        return self.blocks[0].dim() - self.ndim
+
+    @property
     def shape(self) -> tuple:
         shape = list(self.blocks[0].shape)
         if self.axis is not None:
-            shape[self.axis] = sum(b.shape[self.axis] for b in self.blocks)
+            ax = self.axis + self.lead
+            shape[ax] = sum(b.shape[ax] for b in self.blocks)
         return tuple(shape)
 
     def whole(self) -> torch.Tensor:
@@ -170,11 +189,31 @@ class Sharded:
         if self.axis is None:
             return self.blocks[0]
         dev = self.device
-        return torch.cat([b.to(dev) for b in self.blocks], dim=self.axis)
+        return torch.cat([b.to(dev) for b in self.blocks],
+                         dim=self.axis + self.lead)
+
+    def lane(self, p: int) -> Sharded:
+        """Lane p of a batch's placed tensor."""
+        return Sharded([b[p] for b in self.blocks], self.axis, self.ndim)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={self.shape}, dtype={self.blocks[0].dtype}, "
                 f"axis={self.axis}, shards={len(self.blocks)})")
+
+
+torch.utils._pytree.register_pytree_node(
+    Sharded, lambda x: (x.blocks, (x.axis, x.ndim)),
+    lambda blocks, ctx: Sharded(blocks, *ctx))
+
+
+def stack_lanes(xs) -> Any:
+    """Tensors (or Sharded of one placement) stacked along a new leading
+    lane axis; a Sharded's blocks stack shard by shard."""
+    if isinstance(xs[0], Sharded):
+        return Sharded([torch.stack(bs) for bs in
+                        zip(*(x.blocks for x in xs))], xs[0].axis,
+                       xs[0].ndim)
+    return torch.stack(xs)
 
 
 def _node_dim(state, n: int | None) -> int | None:
@@ -220,30 +259,36 @@ def state_shardings(state, mesh: Mesh, n: int | None = None):
     return type(state)(*(spec_of(nm, x) for nm, x in zip(fields, state)))
 
 
-def split(x: torch.Tensor, mesh: Mesh, axis: int | None) -> Sharded:
+def split(x: torch.Tensor, mesh: Mesh, axis: int | None,
+          lanes: int = 0) -> Sharded:
     """x placed on `mesh`: D contiguous blocks along `axis` (N % D == 0),
-    or D copies when `axis` is None; every block in storage of its own."""
+    or D copies when `axis` is None; every block in storage of its own.
+    `lanes` leading axes of x are lane axes (a batch's), kept whole in
+    every block: the node axis is then `axis + lanes`."""
     d = mesh.size
+    ndim = x.dim() - lanes
     if axis is None:
-        return Sharded([x.to(dev, copy=True) for dev in mesh.devices], None)
-    n = x.shape[axis]
+        return Sharded([x.to(dev, copy=True) for dev in mesh.devices], None,
+                       ndim)
+    n = x.shape[axis + lanes]
     if n % d:
         raise ValueError(f"node axis of {n} does not split over {d} shards")
     s = n // d
-    return Sharded([x.narrow(axis, i * s, s).to(dev, copy=True)
+    return Sharded([x.narrow(axis + lanes, i * s, s).to(dev, copy=True)
                     .contiguous() for i, dev in enumerate(mesh.devices)],
-                   axis)
+                   axis, ndim)
 
 
-def place_tree(tree, specs, mesh: Mesh):
+def place_tree(tree, specs, mesh: Mesh, lanes: int = 0):
     """`tree` with every tensor leaf split by the matching leaf of
-    `specs` (an axis or None); None leaves stay None."""
+    `specs` (an axis or None), `lanes` leading lane axes kept whole;
+    None leaves stay None."""
     if tree is None:
         return None
     if isinstance(tree, tuple):
-        return type(tree)(*(place_tree(x, sp, mesh)
+        return type(tree)(*(place_tree(x, sp, mesh, lanes)
                             for x, sp in zip(tree, specs)))
-    return split(tree, mesh, specs)
+    return split(tree, mesh, specs, lanes)
 
 
 def shard_state(state, mesh: Mesh, n: int | None = None):
@@ -263,16 +308,17 @@ def block(tree, i: int):
     return tree
 
 
-def gather_blocks(per_shard: list, specs):
+def gather_blocks(per_shard: list, specs, lanes: int = 0):
     """The placed tree whose block i is `per_shard[i]` (trees of one
-    structure), each leaf split by the matching leaf of `specs`."""
+    structure), each leaf split by the matching leaf of `specs`; the
+    blocks carry `lanes` leading lane axes."""
     first = per_shard[0]
     if first is None:
         return None
     if isinstance(first, tuple):
-        return type(first)(*(gather_blocks(list(parts), sp) for parts, sp
-                             in zip(zip(*per_shard), specs)))
-    return Sharded(per_shard, specs)
+        return type(first)(*(gather_blocks(list(parts), sp, lanes)
+                             for parts, sp in zip(zip(*per_shard), specs)))
+    return Sharded(per_shard, specs, first.dim() - lanes)
 
 
 def assemble(tree):
@@ -284,6 +330,90 @@ def assemble(tree):
     if isinstance(tree, tuple):
         return type(tree)(*(assemble(x) for x in tree))
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Lanes across the vmap boundary
+# ---------------------------------------------------------------------------
+# A batched study vmaps its period over the lane axis (sim/runner.py
+# `batch_period`).  A batched tensor lives in the interpreter stack of
+# the thread that made it, so neither the sharded step nor a collective
+# hands one to another thread: the step unwraps its placed inputs into
+# physical tensors with the lane axis leading, runs each shard's step
+# under that shard thread's own vmap, and wraps the results back
+# (`unwrap_lanes` / `wrap_lanes`, the unwrap and wrap that a custom
+# op's vmap rule gets from PyTorch); a collective posts the physical
+# lane-stacked tensor and wraps what it reads (`_to_lanes`).
+
+
+def _unbatch(x: torch.Tensor, level: int) -> tuple:
+    """(x as a physical tensor, its lane axis leading; True) when x is
+    batched at `level`, else (x, False)."""
+    if _functorch.maybe_get_level(x) != level:
+        return x, False
+    phys, bdim = _functorch._unwrap_batched(x, level)
+    if _functorch.is_batchedtensor(phys):
+        raise ValueError("a sharded step crosses one vmap level, not "
+                         "nested ones")
+    return phys.movedim(bdim, 0), True
+
+
+def lane_level(tree) -> int | None:
+    """The vmap level of the first batched tensor of a (placed) tree,
+    None when it holds none."""
+    for x in torch.utils._pytree.tree_leaves(tree):
+        if isinstance(x, torch.Tensor) and _functorch.is_batchedtensor(x):
+            return _functorch.maybe_get_level(x)
+    return None
+
+
+def unwrap_lanes(tree, level: int) -> tuple:
+    """(the tree's tensors as physical tensors with a leading lane axis,
+    the tree of their lane dims: 0, or None for a tensor the lanes
+    share; a Sharded's blocks, batched alike, one dim)."""
+    def one(x):
+        if isinstance(x, Sharded):
+            parts = [_unbatch(b, level) for b in x.blocks]
+            return (Sharded([p for p, _ in parts], x.axis, x.ndim),
+                    0 if parts[0][1] else None)
+        if isinstance(x, torch.Tensor):
+            phys, batched = _unbatch(x, level)
+            return phys, (0 if batched else None)
+        return x, None
+
+    def walk(x):
+        if isinstance(x, tuple):
+            parts = [walk(y) for y in x]
+            make = (lambda *a: a) if type(x) is tuple else type(x)
+            return (make(*(p for p, _ in parts)),
+                    make(*(d for _, d in parts)))
+        return one(x)
+
+    return walk(tree)
+
+
+def wrap_lanes(tree, level: int):
+    """Every tensor of a tree (lane axis leading) batched at `level`; a
+    Sharded's blocks each."""
+    return torch.utils._pytree.tree_map(
+        lambda x: (_functorch._add_batch_dim(x, 0, level)
+                   if isinstance(x, torch.Tensor) else x), tree)
+
+
+def _to_lanes(x):
+    """(a collective's post: x as a physical tensor with its lane axis
+    leading where the calling shard thread's vmap batches it, that
+    vmap's level or None)."""
+    if isinstance(x, torch.Tensor) and _functorch.is_batchedtensor(x):
+        level = _functorch.maybe_get_level(x)
+        return _unbatch(x, level)[0], level
+    return x, None
+
+
+def _from_lanes(x: torch.Tensor, level: int | None, dim: int = 0):
+    """A collective's physical result batched at the caller's `level`
+    along `dim` (as it is where the post was not batched)."""
+    return x if level is None else _functorch._add_batch_dim(x, dim, level)
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +527,9 @@ class Collectives:
         return [self._fetch(p, dev) for p in posts]
 
     # -- the collectives of the reference's shard_map ---------------------
+    # Under a shard thread's vmap each posts the physical lane-stacked
+    # tensor (`_to_lanes`): one rendezvous for all lanes, P times the
+    # bytes, and the result batched at the caller's level.
     def permute(self, rank: int, x, srcs: tuple) -> list:
         """[post of shard j on the caller's device for j in srcs]: every
         shard posts x (a tensor or a tuple of them) and reads only the
@@ -409,35 +542,38 @@ class Collectives:
         the posts are held.  A post read as it is is the poster's own
         tensor: neither shard writes it afterwards (the rule for every
         collective's result)."""
-        posts = self._post(rank, x)
+        many = isinstance(x, tuple)
+        phys = [_to_lanes(v) for v in (x if many else (x,))]
+        posts = self._post(rank, tuple(v for v, _ in phys))
         dev = self.mesh.devices[rank]
         out = []
         for j in srcs:
             p = posts[j]
-            out.append(tuple(self._fetch(p._replace(value=v), dev)
-                             for v in p.value)
-                       if isinstance(p.value, tuple) else self._fetch(p, dev))
+            got = tuple(_from_lanes(self._fetch(p._replace(value=v), dev), lv)
+                        for v, (_, lv) in zip(p.value, phys))
+            out.append(got if many else got[0])
         return out
 
     def stack(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """[D, *x.shape]: every shard's x in shard order (all_gather)."""
-        posts = self._post(rank, x)
-        return self._once_per_device(
-            rank, lambda dev: torch.stack(self._gathered(posts, dev)))
+        return self.stack_many(rank, (x,))[0]
 
     def stack_many(self, rank: int, xs: tuple) -> tuple:
         """`stack` of several tensors in one rendezvous."""
-        posts = self._post(rank, tuple(xs))
+        phys = [_to_lanes(v) for v in xs]
+        posts = self._post(rank, tuple(v for v, _ in phys))
 
         def make(dev):
             cols = zip(*(self._gathered([p._replace(value=v) for v in
                                          p.value], dev) for p in posts))
             return tuple(torch.stack(col) for col in cols)
-        return self._once_per_device(rank, make)
+        return tuple(_from_lanes(y, lv, 1) for y, (_, lv)
+                     in zip(self._once_per_device(rank, make), phys))
 
     def _reduce(self, rank: int, x: torch.Tensor, op: Callable):
         """op of the posted blocks, computed on the device of the first
         shard to read it and copied to each other device."""
+        x, level = _to_lanes(x)
         posts = self._post(rank, x)
         dev = self.mesh.devices[rank]
         if dev not in self._results:
@@ -446,7 +582,7 @@ class Collectives:
             else:
                 out = op(torch.stack(self._gathered(posts, dev)))
             self._results[dev] = _Post(out, *self._event(dev))
-        return self._results[dev].value
+        return _from_lanes(self._results[dev].value, level)
 
     def psum(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's x, in x's integer dtype."""

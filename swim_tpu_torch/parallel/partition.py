@@ -28,6 +28,12 @@ path; on one device the reference's GSPMD partitions nothing either.
     rows, so nothing is dropped: no slack, no overflow, no plan
     refused.  The one-device step is the same code with all N rows.
 
+A batch's placed trees carry a leading lane axis (`place(...,
+lanes=1)`; `start` given a stacked program): each shard runs its lanes
+under its thread's own vmap, the randomness copied to each device once
+a period holds every lane, and a batched study's vmap is crossed as
+ring_shard's step crosses it.
+
 The node axis must split evenly over the mesh (the reference's
 placement refuses an uneven split the same way).  `place`,
 `build_step`, `build_run` and `start` take the engine's name; the
@@ -47,6 +53,7 @@ from swim_tpu_torch.obs.engine import frame_from_tap, stack_frames
 from swim_tpu_torch.ops import scatter
 from swim_tpu_torch.parallel import mesh as pmesh
 from swim_tpu_torch.parallel import ring_shard
+from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
 from swim_tpu_torch.utils import prng, threefry
 from swim_tpu_torch.utils.tree import tree_map
@@ -158,6 +165,19 @@ class PartitionedStep:
         self.engine = engine
 
     def __call__(self, state, plan, rnd):
+        level = pmesh.lane_level((state, plan, rnd))
+        if level is None:
+            return self._run(state, plan, rnd, None)
+        # under a batched study's vmap, as ring_shard.ShardedStep
+        args, dims = pmesh.unwrap_lanes((state, plan, rnd), level)
+        return pmesh.wrap_lanes(self._run(*args, dims), level)
+
+    def _run(self, state, plan, rnd, dims):
+        """The step on placed trees; `dims` None for one study, else
+        the lane dims of (state, plan, rnd) for a batch's physical
+        lane-stacked trees, whose every shard runs its lanes under its
+        thread's own vmap (the randomness copied to each device holds
+        every lane)."""
         cfg, mesh = self.cfg, self.mesh
         model = _MODELS[self.engine][0]
         rnds = {dev: tree_map(lambda x, dev=dev: x.to(dev), rnd)
@@ -165,29 +185,41 @@ class PartitionedStep:
 
         def body(rank, coll):
             dev = mesh.devices[rank]
-            tap = {} if cfg.telemetry else None
-            st = model.step(cfg, pmesh.block(state, rank),
-                            pmesh.block(plan, rank), rnds[dev], tap=tap,
-                            rows=ShardRows(cfg.n_nodes, mesh.size, rank,
-                                           coll))
-            return st, (frame_from_tap(tap, dev) if cfg.telemetry
-                        else None)
+            rows = ShardRows(cfg.n_nodes, mesh.size, rank, coll)
+
+            def one(st, pl, rn):
+                tap = {} if cfg.telemetry else None
+                st = model.step(cfg, st, pl, rn, tap=tap, rows=rows)
+                return ((st, frame_from_tap(tap, dev)) if cfg.telemetry
+                        else (st,))
+
+            args = (pmesh.block(state, rank), pmesh.block(plan, rank),
+                    rnds[dev])
+            if dims is None:
+                return one(*args)
+            return torch.func.vmap(one, in_dims=(
+                pmesh.block(dims[0], rank), pmesh.block(dims[1], rank),
+                dims[2]))(*args)
 
         out = pmesh.run_spmd(mesh, body)
         st = pmesh.gather_blocks([o[0] for o in out],
-                                 STATE_SPECS[self.engine])
+                                 STATE_SPECS[self.engine],
+                                 int(dims is not None))
         return (st, out[0][1]) if cfg.telemetry else st
 
 
-def place(cfg: SwimConfig, mesh: pmesh.Mesh, engine: str, state, plan):
+def place(cfg: SwimConfig, mesh: pmesh.Mesh, engine: str, state, plan,
+          lanes: int = 0):
     """(placed state, placed plan): the ring's by `ring_shard.place`;
     dense's and rumor's node-axis fields split into row blocks, the
-    rest and the plan (a FaultPlan or a FaultProgram) replicated."""
+    rest and the plan (a FaultPlan or a FaultProgram) replicated.  With
+    `lanes` = 1 both are a batch's, every leaf with a leading lane
+    axis."""
     _check(cfg, engine, mesh)
     if engine == "ring":
-        return ring_shard.place(cfg, mesh, state, plan)
-    return (pmesh.place_tree(state, STATE_SPECS[engine], mesh),
-            pmesh.place_tree(plan, PLAN_SPECS[type(plan)], mesh))
+        return ring_shard.place(cfg, mesh, state, plan, lanes)
+    return (pmesh.place_tree(state, STATE_SPECS[engine], mesh, lanes),
+            pmesh.place_tree(plan, PLAN_SPECS[type(plan)], mesh, lanes))
 
 
 def build_step(cfg: SwimConfig, mesh: pmesh.Mesh, engine: str):
@@ -233,8 +265,14 @@ def build_run(cfg: SwimConfig, mesh: pmesh.Mesh, engine: str,
 
 def start(cfg: SwimConfig, engine: str, plan, mesh: pmesh.Mesh | None = None):
     """(mesh, placed initial state, placed plan, partitioned step) on
-    `mesh` (None: `pmesh.make_mesh()`)."""
+    `mesh` (None: `pmesh.make_mesh()`).  A batch's stacked plan
+    (`faults.lanes_of`: P lanes) starts P fresh states placed with
+    their lane axis."""
     mesh = pmesh.make_mesh() if mesh is None else mesh
     init = {"dense": dense, "ring": ring, "rumor": rumor}[engine].init_state
-    state, plan = place(cfg, mesh, engine, init(cfg, mesh.devices[0]), plan)
+    lanes = faults.lanes_of(plan)
+    fresh = [init(cfg, mesh.devices[0]) for _ in range(max(lanes, 1))]
+    state = runner.batch_states(fresh) if lanes else fresh[0]
+    del fresh
+    state, plan = place(cfg, mesh, engine, state, plan, int(lanes > 0))
     return mesh, state, plan, build_step(cfg, mesh, engine)

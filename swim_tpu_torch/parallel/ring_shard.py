@@ -58,7 +58,12 @@ without them raises), `build_run` a run of periods, and
 `mesh.assemble` the whole state back; `start` places a fresh state
 and a plan on the default mesh (`mesh.make_mesh()`: one shard per
 card, or 8 slots of one card) or on 8 slots of a named device, and
-builds its step.  A
+builds its step.  A batch's placed trees carry a leading lane axis
+(`place(..., lanes=1)`; `start` given a stacked program): the step then
+runs every shard's lanes under that shard thread's own
+`torch.func.vmap`, one rendezvous a collective and one kernel launch a
+call for all lanes, and under a batched study's vmap it crosses that
+vmap with the physical lane-stacked trees (`mesh.unwrap_lanes`).  A
 `ShardedStep`'s `record`, when set to a list, receives every exchange
 of shard 0: its op, the dtype and shape of every tensor it posts
 (`payloads`, with the reference's `wire_dtype`: uint32 for the u32
@@ -82,6 +87,7 @@ from swim_tpu_torch.obs.engine import frame_from_tap
 from swim_tpu_torch.ops import (coldsel, scatter, selb, u32,
                                 wavemerge, wavepack)
 from swim_tpu_torch.parallel import mesh as pmesh
+from swim_tpu_torch.sim import faults, runner
 from swim_tpu_torch.sim.faults import FaultPlan, FaultProgram
 from swim_tpu_torch.utils import threefry
 
@@ -251,10 +257,8 @@ class ShardOps:
 
     def scatter_add(self, dst, idx, val: int):
         li, owned = self._local(idx)
-        out = dst.clone()
-        out.scatter_add_(0, torch.where(owned, li, 0).to(I64),
-                         torch.where(owned, val, 0).to(dst.dtype))
-        return out
+        return dst.scatter_add(0, torch.where(owned, li, 0).to(I64),
+                               torch.where(owned, val, 0).to(dst.dtype))
 
     def scatter_or_word(self, win, rows, cols, bits):
         li, owned = self._local(rows)
@@ -477,25 +481,33 @@ def _check(cfg: SwimConfig, mesh: pmesh.Mesh) -> int:
     return d
 
 
-def place(cfg: SwimConfig, mesh: pmesh.Mesh, state: ring.RingState, plan):
+def place(cfg: SwimConfig, mesh: pmesh.Mesh, state: ring.RingState, plan,
+          lanes: int = 0):
     """(placed state, placed plan): each field split onto the mesh by
-    the spec tables; `plan` a FaultPlan or a FaultProgram."""
+    the spec tables; `plan` a FaultPlan or a FaultProgram.  With
+    `lanes` = 1 the state and the plan are a batch's, every leaf with a
+    leading lane axis (`runner.batch_states`, `faults.stack_programs`),
+    kept whole in every block."""
     _check(cfg, mesh)
-    st = pmesh.place_tree(state, _state_specs(cfg), mesh)
+    st = pmesh.place_tree(state, _state_specs(cfg), mesh, lanes)
     pl = pmesh.place_tree(plan, _plan_specs(isinstance(plan, FaultProgram)),
-                          mesh)
+                          mesh, lanes)
     return st, pl
 
 
-def _slice_rnd(rnd, specs, lo: int, s: int, device):
+def _slice_rnd(rnd, specs, lo: int, s: int, device, dims=None):
     """Shard rows [lo, lo + s) of a period's randomness on `device`
-    (replicated leaves whole)."""
+    (replicated leaves whole); a leaf whose lane dim in `dims` is 0
+    carries a leading lane axis, so its node axis is one further."""
     if rnd is None:
         return None
     if isinstance(rnd, tuple):
-        return type(rnd)(*(_slice_rnd(x, sp, lo, s, device)
-                           for x, sp in zip(rnd, specs)))
-    return (rnd if specs is None else rnd.narrow(specs, lo, s)).to(device)
+        dims = (None,) * len(rnd) if dims is None else dims
+        return type(rnd)(*(_slice_rnd(x, sp, lo, s, device, dm)
+                           for x, sp, dm in zip(rnd, specs, dims)))
+    if specs is None:
+        return rnd.to(device)
+    return rnd.narrow(specs + (dims == 0), lo, s).to(device)
 
 
 def mesh_copy_bytes(record: list, mesh: pmesh.Mesh) -> int:
@@ -565,13 +577,28 @@ class ShardedStep:
         ShardedStep.built += 1
 
     def __call__(self, state, plan, rnd, shifts=None):
+        level = pmesh.lane_level((state, plan, rnd))
+        if level is None:
+            return self._run(state, plan, rnd, shifts, None)
+        # under a batched study's vmap: the step crosses it with physical
+        # lane-stacked trees (mesh.unwrap_lanes)
+        args, dims = pmesh.unwrap_lanes((state, plan, rnd), level)
+        return pmesh.wrap_lanes(self._run(*args, shifts, dims), level)
+
+    def _run(self, state, plan, rnd, shifts, dims):
+        """The step on placed trees; `dims` None for one study, else
+        the lane dims of (state, plan, rnd) for a batch's physical
+        lane-stacked trees, whose every shard runs its lanes under its
+        thread's own vmap."""
         cfg, d = self.cfg, self.d
         s = cfg.n_nodes // d
         rspecs = _rnd_specs(cfg)
         record = self.record
         shifts = host_shifts(cfg, shifts)
+        lanes = dims is not None
+        rdims = dims[2] if lanes else None
 
-        rnds = [_slice_rnd(rnd, rspecs, r * s, s, dev)
+        rnds = [_slice_rnd(rnd, rspecs, r * s, s, dev, rdims)
                 for r, dev in enumerate(self.mesh.devices)]
 
         def body(rank, coll):
@@ -581,20 +608,29 @@ class ShardedStep:
             ops = ShardOps(cfg, d, rank, coll, dev, plain=self.plain,
                            record=record if rank == 0 else None,
                            shifts=shifts)
-            tap = {} if cfg.telemetry else None
-            pr = PhaseProbe() if cfg.profiling else None
-            st = ring.step(cfg, pmesh.block(state, rank),
-                           pmesh.block(plan, rank), rnds[rank], ops=ops,
-                           tap=tap, prof=pr)
-            extras = []
-            if cfg.telemetry:
-                extras.append(frame_from_tap(tap, dev))
-            if cfg.profiling:
-                extras.append(pr.marker_vector())
-            return st, extras
+
+            def one(st, pl, rn):
+                tap = {} if cfg.telemetry else None
+                pr = PhaseProbe() if cfg.profiling else None
+                st = ring.step(cfg, st, pl, rn, ops=ops, tap=tap, prof=pr)
+                extras = []
+                if cfg.telemetry:
+                    extras.append(frame_from_tap(tap, dev))
+                if cfg.profiling:
+                    extras.append(pr.marker_vector())
+                return st, extras
+
+            args = (pmesh.block(state, rank), pmesh.block(plan, rank),
+                    rnds[rank])
+            if not lanes:
+                return one(*args)
+            return torch.func.vmap(one, in_dims=(
+                pmesh.block(dims[0], rank), pmesh.block(dims[1], rank),
+                rdims))(*args)
 
         out = pmesh.run_spmd(self.mesh, body, around=self.around)
-        st = pmesh.gather_blocks([o[0] for o in out], _state_specs(cfg))
+        st = pmesh.gather_blocks([o[0] for o in out], _state_specs(cfg),
+                                 int(lanes))
         extras = out[0][1]
         return (st, *extras) if extras else st
 
@@ -615,10 +651,16 @@ def build_step(cfg: SwimConfig, mesh: pmesh.Mesh,
 def start(cfg: SwimConfig, plan, device=None):
     """(mesh, placed initial state, placed plan, sharded step): the
     engine's set-up, as the studies, memwall and the CLI run it, on
-    `pmesh.start_mesh(device)`."""
+    `pmesh.start_mesh(device)`.  A batch's stacked plan
+    (`faults.lanes_of`: P lanes) starts P fresh states placed with
+    their lane axis, as the batched study runs them."""
     mesh = pmesh.start_mesh(device)
-    state, plan = place(cfg, mesh, ring.init_state(cfg, mesh.devices[0]),
-                        plan)
+    lanes = faults.lanes_of(plan)
+    fresh = [ring.init_state(cfg, mesh.devices[0])
+             for _ in range(max(lanes, 1))]
+    state = runner.batch_states(fresh) if lanes else fresh[0]
+    del fresh
+    state, plan = place(cfg, mesh, state, plan, int(lanes > 0))
     return mesh, state, plan, mapped_step(cfg, mesh)
 
 

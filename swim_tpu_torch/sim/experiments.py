@@ -36,9 +36,11 @@ engine has no tap (the reference fails there unpacking the frame).
 digest and a health summary, and dumps the flight recorder on an
 error-severity finding or when `flight_record` names a path.
 `_run_study_batch` runs one study per fault program of a library along
-a leading P axis: dense, rumor and ring on one device as one step a
-period over the lanes (`runner.run_study_batch`); the sharded ring and
-a partitioned study lane by lane.
+a leading P axis as one step a period over the lanes
+(`runner.run_study_batch`): dense, rumor and ring on one device; the
+sharded ring and a partitioned study as one sharded or partitioned step
+a period for all lanes, each shard's kernels launched once for all of
+them.
 """
 from __future__ import annotations
 
@@ -163,11 +165,14 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
     runs the serial study on `faults.lane_program(batch, p)` and its own
     threefry key `keys[p]`, from a fresh state.  De-interleave with
     `runner.lane_result`: each lane is its serial run bit for bit
-    (inert padding slots add 0 to every lane threshold).  Dense, rumor
-    and ring on one device run as one step a period over the lane axis
-    (`runner.run_study_batch`, the reference's vmap).  The sharded ring
-    ("ringshard") and a study partitioned over several devices run
-    their lanes one after another."""
+    (inert padding slots add 0 to every lane threshold).  Every batch
+    runs as one step a period over the lane axis
+    (`runner.run_study_batch`, the reference's vmap): dense, rumor and
+    ring on one device; the sharded ring ("ringshard") and a study
+    partitioned over several devices as one sharded or partitioned
+    step a period for all lanes, on states and plans placed with their
+    lane axis (the reference vmaps over its shard_map'd or GSPMD
+    step).  A placed batch's state is assembled."""
     if engine == "shard":
         raise ValueError("batched studies: the exchange-sharded engine "
                          "has no fault-program path; use rumor, ring, "
@@ -182,17 +187,30 @@ def _run_study_batch(cfg: SwimConfig, progs, keys, periods: int,
     cap = max(int(p.seg_kind.shape[0]) for p in progs)
     if capacity is not None:
         cap = max(cap, int(capacity))
-    batch = faults.stack_programs(progs, cap)
-    if engine in PARTITIONED and (device is not None
-                                  or not _partitioned()):
-        # the runner drops the initial states after the first period
-        return runner.run_study_batch(
-            cfg, runner.batch_states([_init_state(engine, cfg, device)
-                                      for _ in progs]),
-            batch.program, keys, periods, engine)
-    return runner.batch_states(
-        [_run_study(cfg, faults.lane_program(batch, p), key, periods,
-                    engine, device) for p, key in enumerate(keys)])
+    program = faults.stack_programs(progs, cap).program
+    placed = None                       # [mesh, state, plan, step_fn]
+    if engine == "ringshard":
+        from swim_tpu_torch.parallel import ring_shard
+
+        placed = list(ring_shard.start(cfg, program, device))
+    elif device is None and _partitioned():
+        from swim_tpu_torch.parallel import partition
+
+        placed = list(partition.start(cfg, engine, program,
+                                      pmesh.make_mesh()))
+    if placed is None:
+        placed = [None, runner.batch_states(
+            [_init_state(engine, cfg, device) for _ in progs]), program,
+            None]
+    # as in _run_study, the runner takes the initial states out of
+    # `placed` and drops them after the first period
+    kind = "ring" if engine == "ringshard" else engine
+    plan, step_fn = placed[2], placed[3]
+    res = runner.run_study_batch(cfg, placed.pop(1), plan, keys, periods,
+                                 kind, step_fn)
+    if step_fn is None:
+        return res
+    return res._replace(state=pmesh.assemble(res.state))
 
 
 def _crash_plan(n: int, seed: int, crash_fraction: float, periods: int,

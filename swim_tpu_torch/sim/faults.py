@@ -293,6 +293,13 @@ def base_of(plan) -> FaultPlan:
     return plan.base if isinstance(plan, FaultProgram) else plan
 
 
+def lanes_of(plan) -> int:
+    """The lanes of a batch's stacked plan or program (its node lanes
+    [P, N], `stack_programs`); 0 for one study's plan."""
+    crash = base_of(plan).crash_step
+    return crash.shape[0] if crash.dim() == 2 else 0
+
+
 def link_lanes(prog: FaultProgram, step):
     """Per-node (send_thr, recv_thr, reply_thr) lanes at period `step`
     (a device scalar or int): u32 values in int32 carriers, each the

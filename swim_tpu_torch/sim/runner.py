@@ -40,8 +40,11 @@ result's `telemetry`; else that field is None.
 
 `run_study_batch` runs P studies of one configuration as one step a
 period over a leading lane axis (`torch.func.vmap` of the study bodies,
-as the reference's vmap); `batch_states` stacks per-lane states or
-results along that axis and `lane_result` takes one lane back out.
+as the reference's vmap), on one device or, with the sharded or
+partitioned step as `step_fn`, on placed lane-stacked states (one
+sharded step a period for all lanes); `batch_states` stacks per-lane
+states or results along that axis and `lane_result` takes one lane
+back out.
 """
 from __future__ import annotations
 
@@ -664,13 +667,20 @@ def lane_draws(cfg: SwimConfig, kind: str, keys: list, t0: int,
     """Every lane's draws of periods t0 .. t0+periods-1, stacked along a
     leading P axis (one set of launches a period): the ring's rotor
     offsets, a function of the step alone, stay one shared copy."""
+    for rnd, _ in _lane_periods(cfg, kind, keys, t0, periods, dev):
+        yield rnd
+
+
+def _lane_periods(cfg: SwimConfig, kind: str, keys: list, t0: int,
+                  periods: int, dev):
+    """(lane_draws' draw, the ring's host shifts or None) of each
+    period."""
     if kind == "ring":
-        for rnd, _ in ring.period_draws(cfg, keys, t0, periods, dev):
-            yield rnd
+        yield from ring.period_draws(cfg, keys, t0, periods, dev)
         return
     draw = prng.draw_period if kind == "dense" else rumor.draw_period_rumor
     for t in range(t0, t0 + periods):
-        yield draw(keys, t, cfg, dev)
+        yield draw(keys, t, cfg, dev), None
 
 
 def _lane_dims(rnd):
@@ -682,40 +692,53 @@ def _lane_dims(rnd):
     return dims
 
 
-def batch_period(cfg: SwimConfig, kind: str, rnd):
+def batch_period(cfg: SwimConfig, kind: str, rnd, step_fn=None):
     """`kind`'s study period vmapped over the lane axis: (state, track,
-    plan, rnd), each lane-stacked as `rnd` (a `lane_draws` draw), ->
-    (state, track, the period's series row, its EngineFrame; the
-    state's step in the frame's place when cfg.telemetry is off)."""
+    plan, rnd, shifts=None), each lane-stacked as `rnd` (a `lane_draws`
+    draw), -> (state, track, the period's series row, its EngineFrame;
+    the state's step in the frame's place when cfg.telemetry is off).
+    `step_fn` is the serial runners' (make_stepper): the sharded or
+    partitioned step on placed lane-stacked trees, which crosses the
+    vmap itself; `shifts` the ring's host shifts of the period, which
+    the sharded ring step reads."""
     engine_step, body, _ = _BODIES[kind]
 
-    def period(state, track, plan, rnd):
-        stepper = make_stepper(cfg, plan, engine_step)
-        out = body(cfg, state, track, faults.base_of(plan), rnd, stepper)
+    def period(state, track, plan, rnd, shifts=None):
+        stepper = make_stepper(cfg, plan, engine_step, step_fn)
+        extra = () if shifts is None else (shifts,)
+        out = body(cfg, state, track, pmesh.assemble(faults.base_of(plan)),
+                   rnd, stepper, *extra)
         return out if cfg.telemetry else out[:3] + (state.step,)
 
-    return torch.func.vmap(period, in_dims=(0, 0, 0, _lane_dims(rnd)))
+    vperiod = torch.func.vmap(period,
+                              in_dims=(0, 0, 0, _lane_dims(rnd), None))
+    return lambda state, track, plan, rnd, shifts=None: vperiod(
+        state, track, plan, rnd, shifts)
 
 
 def run_study_batch(cfg: SwimConfig, states, plans, root_keys,
-                    periods: int, kind: str):
+                    periods: int, kind: str, step_fn=None):
     """P studies of one configuration as one step a period over a
     leading lane axis: the reference's `run_study_batch`, a vmap of the
     unchanged study bodies.  `states` and `plans` carry a leading P axis
     (`batch_states`, `faults.stack_programs`), `root_keys` is one
     threefry key per lane and `kind` the engine ("dense", "rumor" or
-    "ring", on one device).  Each period draws every lane's randomness
-    in one set of launches, outside the vmap, and calls
-    `torch.func.vmap` of the engine's study period once on the
-    lane-stacked (state, track, plan, draws): every op, the three
-    kernels included (their vmap rules), runs once for all lanes.  The
-    lanes share one period clock, read once.  Returns the engine's
-    result with every leaf [P, ...] (series and frames [P, periods]);
+    "ring").  Each period draws every lane's randomness in one set of
+    launches, outside the vmap, and calls `torch.func.vmap` of the
+    engine's study period once on the lane-stacked (state, track, plan,
+    draws): every op, the three kernels included (their vmap rules),
+    runs once for all lanes.  `step_fn` overrides the engine's step as
+    in the serial runners: the sharded ring's or a partitioned step, on
+    placed lane-stacked states and plans (`place(..., lanes=1)`), which
+    runs one sharded step a period for all lanes, each shard's kernels
+    launched once for all of them.  The lanes share one period clock,
+    read once.  Returns the engine's result with every leaf [P, ...]
+    (series and frames [P, periods]; a placed state stays placed);
     lane p is bitwise the serial study of lane p's state, plan and
     key."""
     result = _BODIES[kind][2]
     keys = list(root_keys)
-    steps = states.step.cpu()
+    steps = pmesh.assemble(states.step).cpu()
     if steps.shape != (len(keys),):
         raise ValueError(f"batched studies: {len(keys)} root keys for "
                          f"states of lanes {tuple(steps.shape)}")
@@ -726,11 +749,14 @@ def run_study_batch(cfg: SwimConfig, states, plans, root_keys,
     track = StudyTrack(*(torch.full((len(keys), cfg.n_nodes), NEVER,
                                     dtype=I32, device=dev)
                          for _ in range(3)))
+    takes = getattr(step_fn, "takes_shifts", False)
     state, rows, frames, vperiod = states, [], [], None
     del states
-    for rnd in lane_draws(cfg, kind, keys, int(steps[0]), periods, dev):
-        vperiod = vperiod or batch_period(cfg, kind, rnd)
-        state, track, row, frame = vperiod(state, track, plans, rnd)
+    for rnd, shifts in _lane_periods(cfg, kind, keys, int(steps[0]),
+                                     periods, dev):
+        vperiod = vperiod or batch_period(cfg, kind, rnd, step_fn)
+        state, track, row, frame = vperiod(state, track, plans, rnd,
+                                           shifts if takes else None)
         rows.append(row)
         frames.append(frame)
     frames = (type(frames[0])(*(torch.stack(c, 1) for c in zip(*frames)))
@@ -742,17 +768,19 @@ def run_study_batch(cfg: SwimConfig, states, plans, root_keys,
 
 def batch_states(states) -> Any:
     """Stack per-lane states (or any NamedTuples of one structure)
-    leaf-wise along a new leading P axis."""
+    leaf-wise along a new leading P axis; placed leaves stack block by
+    block (`mesh.stack_lanes`)."""
     states = list(states)
     if not states:
         raise ValueError("batch_states: empty state list")
-    return tree_map(lambda *xs: torch.stack(xs), *states)
+    return tree_map(lambda *xs: pmesh.stack_lanes(xs), *states)
 
 
 def lane_result(result, p: int):
-    """Lane `p` of a batched result (indexes every stacked leaf; a None
-    telemetry slot stays None)."""
-    return tree_map(lambda x: x[p], result)
+    """Lane `p` of a batched result (indexes every stacked leaf, a
+    placed leaf block by block; a None telemetry slot stays None)."""
+    return tree_map(lambda x: x.lane(p) if isinstance(x, pmesh.Sharded)
+                    else x[p], result)
 
 
 def _host(x) -> np.ndarray:

@@ -22,7 +22,8 @@ Entry points run on the CUDA card unless `device` names another.
 `engine="real"` (`replay_storm`) runs a core/cluster.py SimCluster of
 real nodes on the host; `ringshard` arms run the sharded ring engine
 (parallel/ring_shard.py), whose verdicts are the `ring` arms' but for
-the engine's name.
+the engine's name; batched, one sharded step a period for the arms'
+lanes.
 """
 from __future__ import annotations
 

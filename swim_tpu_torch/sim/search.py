@@ -4,8 +4,9 @@
 It maps where the detector breaks, as the scenario library's hand
 calibration did: every generation compiles P mutated candidates at one
 segment capacity and runs them as one batch
-(`experiments._run_study_batch`: one step a period over the P lanes on
-one device, each kernel launched once a period for all of them).
+(`experiments._run_study_batch`: one step a period over the P lanes,
+on one device or partitioned over several, each kernel launched once a
+period for all of them).
 
   * `explore`: novelty-guided mutation over (kind, level, window, duty
     cycle, domain, crash co-injection).  Each lane reduces to a coarse

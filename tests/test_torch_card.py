@@ -26,7 +26,9 @@ conftest, which imports JAX,
     and gives int32 frames on the card that saw deliveries (card frames
     against the CPU's: chip_smoke.py's engine parity, dense 2,048 and
     rumor 100,000 nodes); the lanes of a P = 2 ring batch with
-    telemetry equal their serial runs on the card;
+    telemetry equal their serial runs on the card, and so do the lanes
+    of a `ringshard` batch (one sharded step a period, one lane's
+    launches), whose batched period makes no host sync;
   * a minified packed scenario: its verdict on the card has the CPU's
     bytes, and its Lifeguard arm's kernels equal their plain versions;
   * the serving hub: golden.drive_serve (injections with a spill, an
@@ -419,6 +421,69 @@ def test_ring_batch_lanes_equal_serial_on_the_card(cuda):
         tree_map(lambda a, b: pairs.append(torch.equal(a, b)),
                  runner.lane_result(batched, p), serial)
         assert pairs and all(pairs), f"lane {p}"
+
+
+@pytest.mark.parametrize("kw", [{}, dict(
+    ring_sel_scope="period", ring_scalar_wire="packed", lifeguard=True,
+    buddy=True)], ids=["wave", "period_packed"])
+def test_ringshard_batch_lanes_equal_serial_on_the_card(cuda, kw):
+    """A `ringshard` batch (8 shards on the card, two lanes, telemetry)
+    is one sharded step a period: each lane equals its serial sharded
+    study, and the kernels launch one lane's count."""
+    n, periods = 20_000, 4
+    cfg = SwimConfig(n_nodes=n, telemetry=True, **kw)
+    progs = [slice_plan("program", n, cuda),
+             faults.pad_program(faults.as_program(
+                 slice_plan("pull", n, cuda)), 3)]
+    keys = [threefry.key(13), threefry.key(14)]
+
+    def launches():
+        return [selb.launches, coldsel.launches, wavemerge.launches]
+
+    before = launches()
+    batched = experiments._run_study_batch(cfg, progs, keys, periods,
+                                           "ringshard", device=cuda)
+    made = [a - b for a, b in zip(launches(), before)]
+    for p in range(2):
+        before = launches()
+        serial = experiments._run_study(cfg, progs[p], keys[p], periods,
+                                        "ringshard", cuda)
+        assert [a - b for a, b in zip(launches(), before)] == made
+        pairs = []
+        tree_map(lambda a, b: pairs.append(torch.equal(a, b)),
+                 runner.lane_result(batched, p), serial)
+        assert pairs and all(pairs), f"lane {p}"
+    assert made[1] == 8 * periods
+
+
+def test_batched_sharded_period_makes_no_host_sync(cuda):
+    """A batched sharded study period (8 shards on the card, three
+    lanes) queues its work without waiting for the card."""
+    from swim_tpu_torch.parallel import mesh as pmesh
+    from swim_tpu_torch.parallel import ring_shard
+
+    n, p = 20_000, 3
+    cfg = SwimConfig(n_nodes=n, telemetry=True)
+    plan = faults.as_program(faults.with_random_crashes(
+        faults.none(n, cuda), threefry.key(2), 0.01, 1, 6))
+    _, state, plans, step = ring_shard.start(
+        cfg, faults.stack_programs([plan] * p).program, cuda)
+    track = runner.StudyTrack(*(torch.full((p, n), runner.NEVER,
+                                           dtype=torch.int32, device=cuda)
+                                for _ in range(3)))
+    draws = ring.period_draws(cfg, [threefry.key(10 + i) for i in range(p)],
+                              0, 2, cuda)
+    rnd, shifts = next(draws)
+    period = runner.batch_period(cfg, "ring", rnd, step)
+    state, track, _, _ = period(state, track, plans, rnd, shifts)
+    rnd, shifts = next(draws)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, track, row, _ = period(state, track, plans, rnd, shifts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pmesh.assemble(state.step).tolist() == [2] * p and len(row) == 4
 
 
 def test_packed_scenario_card_equals_cpu(cuda, tmp_path):

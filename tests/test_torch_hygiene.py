@@ -83,7 +83,8 @@ def test_port_files_found():
             "engine_server.py", "prof.py", "expo.py", "memwall.py",
             "trend.py", "profiling.py", "roofline.py", "cli.py",
             "shard_engine.py", "audit.py", "oracle.py", "rumor_oracle.py",
-            "ring_oracle.py", "partition.py", "batch_ab.py"} <= names
+            "ring_oracle.py", "partition.py", "batch_ab.py",
+            "shard_batch_profile.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"swim_tpu_torch/core/codec.py",
             "swim_tpu_torch/core/transport.py",
