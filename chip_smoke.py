@@ -345,6 +345,40 @@ Phases, each printed as one JSON line:
      series bitwise the one-card study's, each card's peak; on
      one card the line `"part": "all_cards", "run": false`.
 
+ 21. scale: the reference's one-chip scale ladder (bench.py's `ringp`
+     tier at 4M, 10M and 16M nodes; bench_results/scale_*.json and the
+     detection study at 10M and 16M), after the children are joined and
+     with the card's cache emptied, so that nothing else holds its
+     memory.  golden.GOLDEN_DIGEST_SCALE_STUDY (the 1M streaming pull
+     study the JAX package computed) on the card; path 1, `RingEngine`
+     in period scope under bench_ring's plan (0.1% crashing in periods
+     0-2) at each size: 2 warm-up periods and a third, whose digest at
+     4M is golden.GOLDEN_DIGEST_SCALE (the JAX package's), then 3 timed
+     periods (launches 1 / 1 / 1 a period, zeroed before and read
+     after) and 2 under torch.profiler: wall and busy ms a period, idle
+     share, device activities a period, peak memory; suspicions raised
+     and no live node declared dead.  At 16M the warm-up state equals 2
+     periods of the plain versions in every field and by digest, and
+     the kernels run on one more period's captured inputs, bitwise
+     against their plain versions, with their ms, the plain versions'
+     ms, bytes and bound (`ms_16m`, `bytes_16m`, `bound_ms_16m`); path 5,
+     the sharded ring at 16M (D = 8 shard slots of the card, period
+     scope, 2 periods) whose assembled digest equals the one-device
+     run's; path 2, the default SwimConfig (wave scope) at 16M, launches
+     14 / 1 / 14 a period; paths 3 and 4, memwall's streaming row
+     (`study_memory_analysis`, the study's own program, under the
+     profiler: busy ms and the measured peak against the card's memory)
+     and the reference artifact's command `study detection --nodes N
+     --engine ring --periods 12 --crash-fraction 0.00001` through
+     `cli.main` at 10M and 16M (selb 1 a period), the 10M summary
+     printed beside bench_results/study_detection_10m.json's fields (the
+     fields that differ named, not asserted), and memwall's 16M stacked
+     row.  Each must fit the card: an out-of-memory error ends the
+     script.  The `kernels` line gains `launches_scale_ringp` (the
+     three sizes' timed periods), `launches_scale_wave`,
+     `launches_scale_study` (both studies) and
+     `launches_scale_ringshard`.
+
 Phase 12's search and phase 16's sharded golden digests are host-paced
 checks, so each runs in a child process (`Background`) from just after
 phase 17's timing, the last measurement of time on one card, to the end
@@ -359,7 +393,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
+import io
 import json
 import shutil
 import socket
@@ -374,7 +410,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from swim_tpu_torch import SwimConfig, _kernels, coldsel_bench, golden
+from swim_tpu_torch import SwimConfig, _kernels, cli, coldsel_bench, golden
 from swim_tpu_torch import native
 from swim_tpu_torch.bridge import EngineBridgeServer
 from swim_tpu_torch.bridge import protocol as bp
@@ -425,9 +461,15 @@ def emit(**kw):
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest u32 difference, counted in int64 2**26 elements at a
+    time (a 16M-node cold ring is 2**31 elements)."""
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((u32.to_u64(a) - u32.to_u64(b)).abs().max())
+    if torch.equal(a, b):
+        return 0
+    fa, fb, step = a.reshape(-1), b.reshape(-1), 1 << 26
+    return max(int((u32.to_u64(fa[i:i + step]) - u32.to_u64(fb[i:i + step])
+                    ).abs().max()) for i in range(0, fa.numel(), step))
 
 
 def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> int:
@@ -835,6 +877,19 @@ def parity_phase(path: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def declared_dead(st, plan, periods_done: int) -> tuple:
+    """(crashed bool[N], nodes some view or tombstone declares dead, how
+    many of those are alive) after `periods_done` periods of `plan`."""
+    crashed = plan.crash_step <= periods_done
+    dead_subj = torch.zeros(st.win.shape[0], dtype=torch.bool,
+                            device=st.win.device)
+    dead_subj |= st.gone_key < 0
+    live_rows = (st.subject >= 0) & (st.rkey < 0)
+    dead_subj[st.subject[live_rows].long()] = True
+    return (crashed, int(dead_subj.sum()),
+            int((dead_subj & ~crashed).sum()))
+
+
 def throughput_phase(path: str, card: str) -> tuple[dict, dict]:
     """(launches in the timed run, the next period's captured inputs)."""
     cfg = path_cfg(path)
@@ -865,13 +920,7 @@ def throughput_phase(path: str, card: str) -> tuple[dict, dict]:
     if tuple(st.win.shape) != (cfg.n_nodes, g.ww) or \
             tuple(st.cold.shape) != (g.rw, cfg.n_nodes):
         raise AssertionError("state shapes changed")
-    crashed = plan.crash_step <= periods_done
-    dead_subj = torch.zeros(cfg.n_nodes, dtype=torch.bool, device="cuda")
-    dead_subj |= st.gone_key < 0
-    live_rows = (st.subject >= 0) & (st.rkey < 0)
-    dead_subj[st.subject[live_rows].long()] = True
-    false_dead = int((dead_subj & ~crashed).sum())
-    n_dead = int(dead_subj.sum())
+    crashed, n_dead, false_dead = declared_dead(st, plan, periods_done)
     # a suspicion takes suspicion_periods to confirm: only the
     # period-scope run is long enough for that
     if false_dead or (path == "period" and n_dead == 0):
@@ -4676,6 +4725,356 @@ def audit_oracles_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ 21. scale
+
+SCALE_LADDER = (4_000_000, 10_000_000, 16_000_000)
+SCALE_TOP = SCALE_LADDER[-1]
+SCALE_WARMUP = 2            # bench_ring's warm-up periods
+SCALE_TIMED = 3             # launches counted, bare wall
+SCALE_PROFILED = 2          # busy ms under torch.profiler
+SCALE_SHARD_PERIODS = 2
+SCALE_STUDY = ["study", "detection", "--engine", "ring", "--periods", "12",
+               "--crash-fraction", "0.00001"]
+SCALE_STUDY_PERIODS = 12
+SCALE_STUDY_NODES = (10_000_000, 16_000_000)
+REFERENCE_10M = (Path(__file__).resolve().parent / "bench_results"
+                 / "study_detection_10m.json")
+
+
+def free_card() -> int:
+    """Drop what Python still holds, return PyTorch's cached blocks to
+    the card, reset the peak; the bytes still allocated."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_row(before: int, card: str) -> dict:
+    total = torch.cuda.get_device_properties(0).total_memory
+    return dict(max_memory_allocated=torch.cuda.max_memory_allocated()
+                - before, allocated_before=before, card_memory=total,
+                card=card)
+
+
+def host_digests(*states) -> list[str]:
+    """golden.digest of each state, hashed in threads (hashlib lets go
+    of the GIL on large buffers) from host copies."""
+    arrays = [convert.state_to_numpy(st) for st in states]
+    out = [None] * len(arrays)
+
+    def one(i):
+        out[i] = golden.digest(arrays[i])
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(arrays))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def scale_periods(run, want: dict) -> dict:
+    """`run(k)` steps k periods: SCALE_TIMED bare (the wall; launches
+    zeroed just before and read just after, as `want` says a period),
+    then SCALE_PROFILED under torch.profiler (busy ms, device
+    activities)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    run(SCALE_TIMED)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / SCALE_TIMED
+    launches = read_launches()
+    per = {k: v / SCALE_TIMED for k, v in launches.items()}
+    if per != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"launches a period {per}, expected {want}")
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        run(SCALE_PROFILED)
+        torch.cuda.synchronize()
+    busy, count = busy_ms(pr)
+    busy /= SCALE_PROFILED
+    return dict(periods=SCALE_TIMED, wall_ms=wall, busy_ms=busy,
+                idle_share=1.0 - busy / wall,
+                kernels_per_period=count / SCALE_PROFILED,
+                launches=launches, launches_per_period=per)
+
+
+def scale_kernels(captured: dict, rows: dict, card: str) -> None:
+    """The three kernels on one 16M ringp period's captured inputs,
+    bitwise against their plain versions; ms, plain ms, the bytes the
+    inputs need (as phase 7 counts them) and their bound
+    (`ms_16m`, `plain_ms_16m`, `bytes_16m`, `bound_ms_16m`)."""
+    got = {}
+    win, b = captured["selb"]
+    err = require_equal("selb on the 16M inputs",
+                        selb.select_first_b(win, b),
+                        selb.select_first_b_plain(win, b))
+    nbytes = 2 * win.numel() * 4
+    got["selb"] = dict(
+        max_abs_err=err, ms_16m=gpu_ms(lambda: selb.select_first_b(win, b)),
+        plain_ms_16m=gpu_ms(lambda: selb.select_first_b_plain(win, b),
+                            samples=3, inner=1),
+        bytes_16m=nbytes, bound_ms_16m=bound(nbytes, win.numel() * 8)[0])
+    r = wavemerge_on(captured, "the 16M period-scope inputs")
+    win, sel, oks, offs, bcol, bval = captured["wavemerge"]
+    out = win.clone()
+    got["wavemerge"] = dict(
+        max_abs_err=r["max_abs_err"], ms_16m=r["ms_main"],
+        plain_ms_16m=gpu_ms(lambda: wavemerge.merge_waves_plain(
+            out, sel, oks, offs, bcol, bval), samples=3, inner=1),
+        bytes_16m=r["bytes_main"], bound_ms_16m=r["bound_ms_main"])
+    del out
+    r = coldsel_on(captured["coldsel"], "the 16M period")
+    cold, fr, fv, qr = captured["coldsel"]
+    got["coldsel"] = dict(
+        max_abs_err=r["max_abs_err"], ms_16m=r["ms_main"],
+        plain_ms_16m=gpu_ms(lambda: coldsel.cold_update_select_plain(
+            cold, fr, fv, qr), samples=3, inner=1),
+        bytes_16m=r["bytes_main"], bound_ms_16m=r["bound_ms_main"])
+    for name, r in got.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        r.pop("max_abs_err"))
+        rows[name].update(r)
+        emit(phase="scale", part="kernels", name=name, n_nodes=SCALE_TOP,
+             **r, card=card)
+
+
+def scale_ringp(n: int, rows: dict, card: str) -> tuple[dict, str | None]:
+    """Path 1 at n: bench_ring's ringp run through RingEngine, its 2
+    warm-up periods and one more (GOLDEN_DIGEST_SCALE at 4M), then the
+    timed and profiled periods.  At the top of the ladder the warm-up
+    state is held against 2 periods of the plain versions, every field
+    and the digest, and the kernels run on one more period's inputs.
+    (launches of the timed run, the 2-period digest at the top)"""
+    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    t_path = time.perf_counter()
+    before = free_card()
+    plan = golden.scale_plan(n, "cuda")
+    engine = ring.RingEngine(cfg, plan, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    engine.run(SCALE_WARMUP)
+    torch.cuda.synchronize()
+    row = dict(phase="scale", path="ringp", n_nodes=n,
+               warmup_seconds=time.perf_counter() - t0)
+    top = None
+    if n == SCALE_TOP:
+        plain = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0,
+                         SCALE_WARMUP, plain=True)
+        for f in ring.RingState._fields:
+            if not torch.equal(getattr(engine.state, f), getattr(plain, f)):
+                raise AssertionError(f"ringp at {n}: field {f} differs "
+                                     "between the kernels and the plain "
+                                     "versions")
+        top, plain_digest = host_digests(engine.state, plain)
+        del plain
+        if top != plain_digest:
+            raise AssertionError(f"ringp at {n}: kernel digest {top} != "
+                                 f"plain {plain_digest}")
+        row.update(periods_parity=SCALE_WARMUP, digest_kernels=top,
+                   digest_plain=plain_digest,
+                   parity_max_memory_allocated=torch.cuda
+                   .max_memory_allocated() - before)
+        free_card()     # the row's peak: the kernels' run alone
+    engine.run(golden.SCALE_PERIODS - SCALE_WARMUP)
+    if n == golden.SCALE_N:
+        got = host_digests(engine.state)[0]
+        if got != golden.GOLDEN_DIGEST_SCALE:
+            raise AssertionError(f"ringp at {n}: digest {got} != the JAX "
+                                 f"package's {golden.GOLDEN_DIGEST_SCALE}")
+        row["digest_anchor"] = got
+    row.update(scale_periods(engine.run, expected_launches(cfg)))
+    st = engine.state
+    done = golden.SCALE_PERIODS + SCALE_TIMED + SCALE_PROFILED
+    g = ring.geometry(cfg)
+    if int(st.step) != done or tuple(st.win.shape) != (n, g.ww) or \
+            tuple(st.cold.shape) != (g.rw, n):
+        raise AssertionError(f"ringp at {n}: step {int(st.step)}, shapes "
+                             f"{tuple(st.win.shape)} {tuple(st.cold.shape)}")
+    crashed, n_dead, false_dead = declared_dead(st, plan, done)
+    suspects = int((st.rkey & 1).sum())
+    if false_dead or suspects == 0:
+        raise AssertionError(f"ringp at {n}: {suspects} suspicions, "
+                             f"{false_dead} live nodes declared dead")
+    row.update(crashed=int(crashed.sum()), suspects=suspects,
+               declared_dead=n_dead, false_dead=0, **peak_row(before, card),
+               seconds=time.perf_counter() - t_path)
+    emit(**row)
+    if n == SCALE_TOP:
+        captured = capture_inputs(engine)
+        del engine, st
+        scale_kernels(captured, rows, card)
+    return row["launches"], top
+
+
+def scale_ringshard(want_digest: str, card: str) -> dict:
+    """Path 5: the sharded ring at the top of the ladder, D = 8 shard
+    slots of the card, period scope, bench_ring's plan, 2 periods: its
+    assembled digest equal to one device's; then one profiled period."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = SwimConfig(n_nodes=SCALE_TOP, ring_sel_scope="period")
+    t_path = time.perf_counter()
+    before = free_card()
+    mesh, st, pl, _ = ring_shard.start(cfg, golden.scale_plan(SCALE_TOP,
+                                                              "cuda"),
+                                       "cuda")
+    run = ring_shard.build_run(cfg, mesh, SCALE_SHARD_PERIODS)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    placed = run(st, pl, threefry.key(0))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / SCALE_SHARD_PERIODS
+    launches = read_launches()
+    del st
+    want = {"selb": SHARDS * SCALE_SHARD_PERIODS,
+            "coldsel": SHARDS * SCALE_SHARD_PERIODS,
+            "wavemerge": SHARDS * shard_merge_launches(cfg)
+            * SCALE_SHARD_PERIODS}
+    if launches != want:
+        raise AssertionError(f"ringshard at {SCALE_TOP}: launches "
+                             f"{launches}, expected {want}")
+    peak = peak_row(before, card)
+    got = host_digests(pmesh.assemble(placed))[0]
+    if got != want_digest:
+        raise AssertionError(f"ringshard at {SCALE_TOP}: digest {got} != "
+                             f"one device's {want_digest}")
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        ring_shard.build_run(cfg, mesh, 1)(placed, pl, threefry.key(0))
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    busy, count = busy_ms(pr)
+    emit(phase="scale", path="ringshard", n_nodes=SCALE_TOP, shards=SHARDS,
+         periods=SCALE_SHARD_PERIODS, digest=got, digest_one_device=True,
+         wall_ms=wall, busy_ms=busy, idle_share=1.0 - busy / wall,
+         wall_ms_profiled=wall_prof, kernels_per_period=count,
+         launches=launches,
+         launches_per_period={k: v / SCALE_SHARD_PERIODS
+                              for k, v in launches.items()}, **peak,
+         seconds=time.perf_counter() - t_path)
+    return launches
+
+
+def scale_wave(card: str) -> dict:
+    """Path 2: the default SwimConfig (wave scope) at the top of the
+    ladder, bench_ring's plan, one warm-up period."""
+    cfg = SwimConfig(n_nodes=SCALE_TOP)
+    t_path = time.perf_counter()
+    before = free_card()
+    engine = ring.RingEngine(cfg, golden.scale_plan(SCALE_TOP, "cuda"),
+                             seed=0, device="cuda")
+    engine.run(1)
+    row = scale_periods(engine.run, expected_launches(cfg))
+    emit(phase="scale", path="wave", n_nodes=SCALE_TOP, **row,
+         **peak_row(before, card), seconds=time.perf_counter() - t_path)
+    return row["launches"]
+
+
+def scale_memwall(n: int, variant: str, card: str) -> dict:
+    """Path 4: memwall's row at n on the card, under torch.profiler
+    (the streaming row is the study's own program: its busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    free_card()
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        rep = memwall.study_memory_analysis(n, variant=variant,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, count = busy_ms(pr)
+    if not rep["measured"] or not rep["fits_budget"] or \
+            rep["total_bytes"] < rep["state_bytes"]:
+        raise AssertionError(f"memwall at {n} ({variant}): {rep}")
+    row = dict(rep, peak_over_state=rep["total_bytes"] / rep["state_bytes"],
+               seconds_profiled=wall, busy_ms=busy / rep["periods"],
+               kernels_per_period=count / rep["periods"])
+    emit(phase="scale", path="memwall", **row, card=card)
+    return row
+
+
+def scale_study(n: int, mem: dict, card: str) -> tuple[dict, dict]:
+    """Path 3: the reference artifact's command, `swim-tpu-torch study
+    detection --nodes n --engine ring --periods 12 --crash-fraction
+    0.00001`, through cli.main on the card; `mem` is memwall's row of
+    the same program, run under the profiler (busy ms, device
+    activities).  (summary, launches)"""
+    before = free_card()
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(SCALE_STUDY[:2] + ["--nodes", str(n)]
+                      + SCALE_STUDY[2:])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / SCALE_STUDY_PERIODS
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"study at {n}: the CLI exited {rc}")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    per = {k: v / SCALE_STUDY_PERIODS for k, v in launches.items()}
+    if per != {"selb": 1.0, "coldsel": 0.0, "wavemerge": 0.0}:
+        raise AssertionError(f"study at {n}: launches a period {per}")
+    # `overflow` counts originations past the ring's lane budget: a
+    # datum of the run (133 crashes at 16M), not a fault
+    if out["n"] != n or out["ring_probe"] != "pull" or not out["stream"] \
+            or out["crashed"] == 0 or out["suspect_detected"] == 0 or \
+            out["false_dead_views_peak"] != 0:
+        raise AssertionError(f"study at {n}: {out}")
+    emit(phase="scale", path="study", n_nodes=n,
+         periods=SCALE_STUDY_PERIODS, wall_ms=wall, busy_ms=mem["busy_ms"],
+         idle_share=1.0 - mem["busy_ms"] / wall,
+         kernels_per_period=mem["kernels_per_period"], launches=launches,
+         launches_per_period=per, summary=out, **peak_row(before, card))
+    return out, launches
+
+
+def scale_phase(rows: dict, card: str) -> dict:
+    """Phase 21: the reference's one-chip scale ladder, with nothing
+    else holding the card's memory."""
+    t_phase = time.perf_counter()
+    free_card()
+    t0 = time.perf_counter()
+    res = golden.scale_study("cuda")
+    got = golden.study_digest(res.state, res.track, res.series)
+    if got != golden.GOLDEN_DIGEST_SCALE_STUDY:
+        raise AssertionError(f"scale study anchor {got} != the JAX "
+                             f"package's {golden.GOLDEN_DIGEST_SCALE_STUDY}")
+    emit(phase="scale", part="study_anchor", n_nodes=golden.SCALE_STUDY_N,
+         periods=golden.SCALE_STUDY_PERIODS, digest=got,
+         crashed=int(res.track.subjects.numel()),
+         seconds=time.perf_counter() - t0)
+    del res
+    out = {"scale_ringp": {k: 0 for k in ("selb", "coldsel", "wavemerge")},
+           "scale_study": {k: 0 for k in ("selb", "coldsel", "wavemerge")}}
+    top = None
+    for n in SCALE_LADDER:
+        launches, digest = scale_ringp(n, rows, card)
+        top = digest or top
+        for k, v in launches.items():
+            out["scale_ringp"][k] += v
+    out["scale_ringshard"] = scale_ringshard(top, card)
+    out["scale_wave"] = scale_wave(card)
+    for n in SCALE_STUDY_NODES:
+        summary, launches = scale_study(
+            n, scale_memwall(n, "stream", card), card)
+        for k, v in launches.items():
+            out["scale_study"][k] += v
+        if n == 10_000_000:
+            ref = json.loads(REFERENCE_10M.read_text())["result"]
+            emit(phase="scale", part="study_10m_vs_reference",
+                 port={k: summary.get(k) for k in ref}, reference=ref,
+                 reference_hardware="TPU v5 lite (bench_results/"
+                 "study_detection_10m.json)",
+                 differ=sorted(k for k in ref if summary.get(k) != ref[k]))
+    scale_memwall(SCALE_TOP, "stacked", card)
+    emit(phase="scale", part="done", seconds=time.perf_counter() - t_phase,
+         launches=out, card=card)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -4725,6 +5124,7 @@ def main() -> None:
     finally:
         for job in background:
             job.stop()
+    launches.update(scale_phase(rows, card))
     all_cards_part(card)
     partition_all_cards(card)
 
@@ -4733,7 +5133,8 @@ def main() -> None:
                 "wavemerge": "swim_tpu/ops/wavemerge.py:136"}
     extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
              "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve",
-             "ringshard", "ringshard_batch", "lanes_ms", "lanes_bound_ms")
+             "ringshard", "ringshard_batch", "lanes_ms", "lanes_bound_ms",
+             "ms_16m", "plain_ms_16m", "bytes_16m", "bound_ms_16m")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]
@@ -4762,6 +5163,10 @@ def main() -> None:
             launches_oracle=launches["oracle"][name],
             launches_multidevice=launches["multidevice"][name],
             launches_partition=launches["partition"][name],
+            launches_scale_ringp=launches["scale_ringp"][name],
+            launches_scale_wave=launches["scale_wave"][name],
+            launches_scale_study=launches["scale_study"][name],
+            launches_scale_ringshard=launches["scale_ringshard"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -33,6 +33,25 @@ nodes, seed 0): `dense` (N = 256), `rumor` (N = 4096) and
 suspicion); the exchange-sharded engine gives the rumor digests
 (`engine_run(device, name, sharded=True)`).
 
+GOLDEN_DIGEST_SCALE is the digest after `scale_run(device)`: bench.py's
+`ringp` tier at the foot of the one-chip scale ladder, SCALE_N =
+4,000,000 nodes in period scope, bench_ring's plan (`scale_plan`: 0.1%
+of the nodes crashing in periods [0, SCALE_PERIODS)), seed 0,
+SCALE_PERIODS = 3 periods from init.  The JAX package computed it on a
+CPU host (8 cores) in 15.6 s, compile included:
+`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_scale.py -m slow
+-k scale_anchor` runs it in both packages.  4M is the largest ladder
+size XLA:CPU runs; chip_smoke.py's `scale` phase holds the card to it.
+
+GOLDEN_DIGEST_SCALE_STUDY is `study_digest` of `scale_study(device)`:
+the detection study of the reference's 4M CPU artifact's command (pull
+probing, 12 periods, crash fraction 0.00002, seed 0, the streaming
+runner) at SCALE_STUDY_N = 1,000,000 nodes.  The reference's study
+program needs about 18,000 bytes of XLA:CPU temporaries a node
+(memwall's compile: 18,666,123,648 B at 2**20 nodes), 77.5 GB at 4M,
+beyond a 62 GB CPU host; at 1M the JAX package ran it there in 49.2 s
+(`-k scale_study_anchor`, slow).
+
 GOLDEN_DIGEST_SERVE is serve/load.py's `state_digest` after
 `drive_serve` on a serving hub (serve/hub.py) of SERVE_N = 4096 nodes
 in the serve anchor geometry: 8 attached rows, gossip datagrams with
@@ -108,6 +127,17 @@ GOLDEN_DIGEST_STUDY = (
 GOLDEN_DIGEST_SEARCH = (
     "ef0889fdcbbef7e38903221be4759f7e85ea2bd4d16e679d3bcb75a312468a05")
 
+SCALE_N = 4_000_000
+SCALE_PERIODS = 3
+SCALE_CRASH_FRACTION = 0.001
+GOLDEN_DIGEST_SCALE = (
+    "afafc234d355e3cfc64f404e73affb123d7e4bf71791aeb4299ceee1de5d6d65")
+SCALE_STUDY_N = 1_000_000
+SCALE_STUDY_PERIODS = 12
+SCALE_STUDY_FRACTION = 0.00002
+GOLDEN_DIGEST_SCALE_STUDY = (
+    "8b57f21a544e9d71dd7ae4471d1cef07e4d45bc13d1d9147b19c8a6de5a48321")
+
 ENGINE_N = {"dense": 256, "rumor": 4096, "rumor_lifeguard": 4096}
 ENGINE_LOSS = 0.05
 ENGINE_CRASHES = {"dense": ([5, 77, 100, 200, 255], [2, 3, 5, 8, 13]),
@@ -142,9 +172,10 @@ def digest(state) -> str:
         arrays = {f: np.asarray(state[f]) for f in fields}
     h = hashlib.sha256()
     for f in fields:
-        a = np.asarray(arrays[f]).astype(_DTYPES[f], copy=False)
+        a = np.asarray(arrays[f]).astype(_DTYPES[f], order="C",
+                                          copy=False)
         h.update(f"{f}:{a.shape}:".encode())
-        h.update(a.tobytes())
+        h.update(a.data)            # the bytes, hashed without a copy
     return h.hexdigest()
 
 
@@ -228,6 +259,38 @@ def golden_study(device=None) -> runner.RingStudyResult:
     return runner.run_study_ring_stream(
         cfg, ring.init_state(cfg, device), study_plan(device),
         threefry.key(GOLDEN_SEED), GOLDEN_PERIODS, chunk=STUDY_CHUNK)
+
+
+def scale_plan(n: int, device=None, periods: int = SCALE_PERIODS):
+    """bench.py `bench_ring`'s plan: SCALE_CRASH_FRACTION of the nodes
+    crashing at a uniform period in [0, periods), key 1."""
+    return faults.with_random_crashes(
+        faults.none(n, device), threefry.key(1), SCALE_CRASH_FRACTION, 0,
+        max(periods, 1))
+
+
+def scale_run(device=None, n: int = SCALE_N) -> ring.RingState:
+    """The run whose digest at SCALE_N is GOLDEN_DIGEST_SCALE."""
+    cfg = SwimConfig(n_nodes=n, ring_sel_scope="period")
+    return ring.run(cfg, ring.init_state(cfg, device),
+                    scale_plan(n, device), 0, SCALE_PERIODS)
+
+
+def scale_study(device=None, n: int = SCALE_STUDY_N
+                ) -> runner.RingStudyResult:
+    """The study whose digest at SCALE_STUDY_N is
+    GOLDEN_DIGEST_SCALE_STUDY: `detection_study`'s plan and streaming
+    runner, pull probing."""
+    from swim_tpu_torch import device as devmod
+    from swim_tpu_torch.sim import experiments
+
+    dev = devmod.resolve(device)
+    cfg = SwimConfig(n_nodes=n, **STUDY_CONFIG)
+    plan = experiments._crash_plan(n, 0, SCALE_STUDY_FRACTION,
+                                   SCALE_STUDY_PERIODS, dev)
+    return experiments._run_study(cfg, plan, threefry.key(0),
+                                  SCALE_STUDY_PERIODS, "ring", dev,
+                                  stream=True)
 
 
 def engine_config(name: str) -> SwimConfig:

@@ -335,9 +335,10 @@ def _lane_counts_op(words: torch.Tensor,
     under vmap."""
     ow = words.shape[-2]
     sh = torch.arange(8, dtype=torch.uint8, device=words.device)
-    masked = torch.where(active[..., None, :], words, 0)
-    octets = masked.contiguous().view(torch.uint8).reshape(*masked.shape,
-                                                           4, 1)
+    masked = torch.where(active[..., None, :], words, 0).contiguous()
+    if masked.stride(-1) != 1:      # a one-node chunk keeps its stride
+        masked = masked.clone(memory_format=torch.contiguous_format)
+    octets = masked.view(torch.uint8).reshape(*masked.shape, 4, 1)
     bits = (octets >> sh) & 1                          # [..., OW, N, 4, 8]
     return bits.sum(dim=-3, dtype=I32).reshape(*masked.shape[:-2],
                                                ow * WORD)
@@ -380,19 +381,23 @@ def _window_overlay(g: RingGeometry, step) -> tuple[torch.Tensor,
 
 
 def live_knower_counts(cfg: SwimConfig, state: RingState, up: torch.Tensor,
+                       chunk_words: int | None = None,
                        pair_budget: int = 1 << 23) -> torch.Tensor:
     """int32[R]: per-ring-slot count of live (`up`) nodes holding the
     bit: the study runner's census.  Chunks of word rows (and of the
-    node axis, where one row exceeds the budget) keep the expanded bits
-    to `pair_budget` word-node pairs at a time (32 bytes each: 256 MiB at
-    the default, plus the int32 copy of them `sum(dtype=int32)` makes,
-    128 bytes a pair: analysis/audit.py's census_chunked row holds the
-    peak to 168 bytes a pair); integer sums, equal in any chunk order.
-    `state` may be one shard's block of rows (its `win`, `cold` and `up`
-    rows): the counts are then that shard's part of the sum."""
+    node axis, where one chunk exceeds the budget) keep the expanded
+    bits to `pair_budget` word-node pairs at a time (32 bytes each: 256
+    MiB at the default, plus the int32 copy of them `sum(dtype=int32)`
+    makes, 128 bytes a pair: analysis/audit.py's census_chunked row
+    holds the peak to 168 bytes a pair); integer sums, equal in any
+    chunk order.  `chunk_words` sets the rows a chunk takes (default:
+    as many as the budget holds, at least one); a chunk of more pairs
+    than the budget is cut along the node axis, as the reference cuts
+    it.  `state` may be one shard's block of rows (its `win`, `cold`
+    and `up` rows): the counts are then that shard's part of the sum."""
     g = geometry(cfg)
     n = state.win.shape[0]
-    cw = max(1, pair_budget // max(n, 1))
+    cw = chunk_words or max(1, pair_budget // max(n, 1))
 
     def matrix_counts(words, nrows):            # [nrows, N] word-major
         out = []

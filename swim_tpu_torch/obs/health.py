@@ -15,7 +15,7 @@ records.  It only sees scalars that already crossed to the host.
     `"health:<rule>"` dump reason (sim/experiments.py uses this).
   * `evaluate_registries` runs the real-node rules over anything with
     `.counters[name].value` (the node registries of the host protocol
-    layer, not yet ported).
+    layer, `core/`, through `obs/registry.py`).
 
 The rules for real nodes, sessions and ExtOriginations fire only on the
 rows and registries that those layers bring; the table is whole, so a

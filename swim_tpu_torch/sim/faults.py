@@ -95,9 +95,13 @@ def with_random_crashes(plan: FaultPlan, key: tuple[int, int],
     k_pick, k_when = threefry.split(key, 2)
     hit = threefry.uniform(k_pick, (n,), dev) < torch.tensor(
         np.float32(fraction), device=dev)
-    when = threefry.randint(k_when, (n,), start, max(end, start + 1), dev)
-    return plan._replace(crash_step=torch.where(
-        hit, torch.minimum(plan.crash_step, when), plan.crash_step))
+    # the crash periods are drawn only where a node is hit
+    at = hit.nonzero()[:, 0]
+    when = threefry.randint(k_when, (n,), start, max(end, start + 1), dev,
+                            at=at)
+    crash_step = plan.crash_step.clone()
+    crash_step[at] = torch.minimum(crash_step[at], when)
+    return plan._replace(crash_step=crash_step)
 
 
 def with_partition(plan: FaultPlan, group_of, start: int,

@@ -49,9 +49,8 @@ def _rotl(v, r: int):
 
 
 def _hash(k1: int, k2: int, x0, x1):
-    """threefry2x32 (20 rounds).  x0/x1 are Python ints or int64
-    tensors holding u32 values; the keys are Python ints or int64
-    tensors that broadcast against them."""
+    """threefry2x32 (20 rounds) of Python ints holding u32 values: the
+    host's key arithmetic (`_hash_` is the tensor form)."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M
     x1 = (x1 + ks[1]) & _M
@@ -61,6 +60,26 @@ def _hash(k1: int, k2: int, x0, x1):
             x1 = _rotl(x1, r) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M
+    return x0, x1
+
+
+def _hash_(k1, k2, x0: torch.Tensor, x1: torch.Tensor):
+    """`_hash` of int64 tensors x0, x1 already of the output's shape,
+    in place: the two counters and one scratch tensor are all it
+    holds, where the expression form allocates a tensor for each of
+    its 170 steps."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0.add_(ks[0]).bitwise_and_(_M)
+    x1.add_(ks[1]).bitwise_and_(_M)
+    hi = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0.add_(x1).bitwise_and_(_M)
+            torch.bitwise_right_shift(x1, 32 - r, out=hi)
+            x1.bitwise_left_shift_(r).bitwise_and_(_M).bitwise_or_(hi)
+            x1.bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M)
     return x0, x1
 
 
@@ -101,17 +120,28 @@ def _lanes(k, device):
     return kt[:, :1], kt[:, 1:], (kt.shape[0],)
 
 
-def bits(k, shape, device) -> torch.Tensor:
+def bits(k, shape, device, at: torch.Tensor | None = None
+         ) -> torch.Tensor:
     """int32 carrier of `jax.random.bits(key, shape, jnp.uint32)`; for a
-    list of P keys, [P, *shape] with lane p the draw of key p."""
+    list of P keys, [P, *shape] with lane p the draw of key p.  `at`
+    (one key only) names flat indices of `shape`: the draw's elements
+    there, in `at`'s shape (each element hashes its own counter)."""
     shape = tuple(shape)
     size = math.prod(shape)
     if size >= (1 << 32):
         raise ValueError("bits: more than 2**32 counters")
     k1, k2, lanes = _lanes(k, device)
+    if at is not None:
+        if lanes:
+            raise ValueError("bits: `at` takes one key")
+        lo = at.to(torch.int64, copy=True)
+        o0, o1 = _hash_(k1, k2, torch.zeros_like(lo), lo)
+        return u32.from_u64(o0.bitwise_xor_(o1))
     lo = torch.arange(size, dtype=torch.int64, device=device)
-    o0, o1 = _hash(k1, k2, torch.zeros_like(lo), lo)
-    return u32.from_u64(o0 ^ o1).reshape(lanes + shape)
+    if lanes:
+        lo = lo.expand(*lanes, size).clone()
+    o0, o1 = _hash_(k1, k2, torch.zeros_like(lo), lo)
+    return u32.from_u64(o0.bitwise_xor_(o1)).reshape(lanes + shape)
 
 
 def uniform(k, shape, device) -> torch.Tensor:
@@ -121,12 +151,14 @@ def uniform(k, shape, device) -> torch.Tensor:
     return (u32.lsr(b, 9) | 0x3F800000).view(torch.float32) - 1.0
 
 
-def randint(k, shape, lo: int, hi: int, device) -> torch.Tensor:
+def randint(k, shape, lo: int, hi: int, device,
+            at: torch.Tensor | None = None) -> torch.Tensor:
     """int32 `jax.random.randint(key, shape, lo, hi)`: u32 arithmetic,
-    done in int64 and cut to 32 bits after every step."""
+    done in int64 and cut to 32 bits after every step.  `at` as in
+    `bits`."""
     k1, k2 = split(k, 2)
-    higher = u32.to_u64(bits(k1, shape, device))
-    lower = u32.to_u64(bits(k2, shape, device))
+    higher = u32.to_u64(bits(k1, shape, device, at))
+    lower = u32.to_u64(bits(k2, shape, device, at))
     span = (hi - lo) & _M if hi > lo else 1
     mult = (1 << 16) % span
     mult = ((mult * mult) & _M) % span
