@@ -21,7 +21,12 @@ Phases, each printed as one JSON line:
      coldsel with shared and per-lane flush rows and on N + 1 columns
      (the 4-byte path), wavemerge fused (V = 14, VB = 0 and 4),
      one-wave (V = 1, VB = 0 and 1) and on WW = 3; each one's ms per
-     launch beside its bytes and bound;
+     launch beside its bytes and bound.  Then the published studies'
+     wider rings (`wide`), bitwise against the plain versions with ms,
+     bytes and bound: selb on u32[4M, 24] and u32[1M, 48]; coldsel
+     flushing OW = 4 rows into cold u32[224, 4M] and OW = 8 rows into
+     u32[512, 1M] (random and main-path-shaped queries, Q = 4);
+     wavemerge at both widths with V = 1 and fused V = 14, VB 0 and 1;
   4. golden: the port on the card reproduces the three engine digests
      of golden.py (period scope, wave scope, Lifeguard with buddy) and
      the study digest (a pull-mode streaming detection study), which
@@ -65,8 +70,8 @@ Phases, each printed as one JSON line:
      bitwise equal; one more study period with PyTorch's sync check
      set to raise (no host sync inside a period); study periods/sec
      and the census's share of the wall time (CUDA events around
-     `live_knower_counts`); then one
-     `lifeguard_ablation` arm pair at 1,000,000 nodes, 20 periods;
+     `live_knower_counts`) (its 20-period Lifeguard arm pair went to
+     phase 22's 100-period arms);
  10. engines: the dense and rumor engines (plain PyTorch: they launch
      none of the three kernels, and their launch counts are read to
      show it).  The three engine digests of golden.py on the card; the
@@ -77,14 +82,16 @@ Phases, each printed as one JSON line:
      several chunks); the studies at full width through their
      entry points with the default engine: `detection_study()` (dense,
      1,000 nodes), a `DenseEngine` at DENSE_MAX = 8,192 nodes for 10
-     periods, `fp_sweep()` (rumor, 100,000 nodes),
-     `suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=20)` and
-     `lifeguard_ablation(n=1_000_000, periods=10)` (Lifeguard with
-     buddy); for each, run twice, periods/sec and wall ms from the bare
-     run, device busy ms from a second run under torch.profiler (which
-     must give the same result), and peak memory, and on the runs
-     without loss that crashed subjects were suspected and no live node
-     declared dead;
+     periods and `fp_sweep()` (rumor, 100,000 nodes) (the cut 1M
+     `suspicion_sweep` went to phase 22's published rows); for each,
+     run twice, periods/sec and wall ms from the bare run, device busy
+     ms from a second run under torch.profiler (which must give the
+     same result), and peak memory, and on the runs without loss that
+     crashed subjects were suspected and no live node declared dead;
+     then `lifeguard_ablation(n=1_000_000, periods=5)` once, bare (the
+     rumor engine with crashes and Lifeguard through the study runner
+     and detection_summary: every arm crashed some, no ring kernel
+     launched; its wall);
      one study period of each engine with PyTorch's sync check set to
      raise;
  11. telemetry: the engines' taps, the study runners' frames, the flight
@@ -203,13 +210,18 @@ Phases, each printed as one JSON line:
      period scope and in the default wave scope with a device trace:
      per-phase ms, step ms, its wall coverage, the roofline band, the
      top kernels; the same attribution by device time, each prefix and
-     the step traced with torch.profiler: per-phase device ms and the
+     the step called in 9 rounds, each round under a torch.profiler
+     trace with its calls split at idle gaps of the card: per-phase
+     device ms from each prefix's median call, each prefix's range and
+     device events a call, and the
      device-time coverage, which must lie in 95-105% (at least 100% by
      construction, the excess is what the clamp of negative prefix
      differences dropped); then 2
      traced periods of each scope whose trace holds each kernel as
      often as its wrapper launched it, under its phase; marker mode on
-     against off, wall ms a period in 3 alternating pairs (printed, not
+     against off, wall ms a period in 21 interleaved pairs of 5 periods
+     (medians, each pair's ratio with its median, quartiles and range,
+     and the device activities a period of each mode: printed, not
      asserted); `study_memory_analysis`
      at 1M (streaming): the measured peak against the card's memory;
      the CLI in subprocesses on the card: `simulate --nodes 1000000
@@ -378,6 +390,27 @@ Phases, each printed as one JSON line:
      three sizes' timed periods), `launches_scale_wave`,
      `launches_scale_study` (both studies) and
      `launches_scale_ringshard`.
+ 22. published: the JAX package's published studies at their own sizes
+     and periods (swim_tpu_torch/published.py's rows, each held field by
+     field to its bench_results/ artifact), with the card's cache
+     emptied: the determinism witness (`study suspicion_sweep --nodes
+     1000000 --engine ring --periods 100 --mults 2.0 --losses 0.02`
+     through cli.main; also run under torch.profiler: busy ms), the
+     four arms of `study lifeguard --nodes 1000000 --engine ring
+     --periods 100 --budget-arms` (ring_orig_words 2 and 8: WW 48, RW
+     512), the sized 4M point (ring_orig_words 4, 60 periods; printed
+     beside its artifact, not asserted), the geometry ablation's three
+     arms (50 periods of ring.run; overflow 27,852 / 27,802 / 27,429):
+     every asserted row equal, and each row's wall, busy, idle, peak and
+     launches a period (14 / 1 / 14 a wave-scope period at every width;
+     1 / 1 / 1 in period scope), zeroed before and read after each
+     run.  After the Lifeguard row, one period of its OW-8 arm (after
+     20) captured: each kernel on its inputs against its plain version,
+     `ms_main_ow8`, `plain_ms_ow8`, `bound_ms_main_ow8`.  The `kernels`
+     line gains `launches_published`.  The 1M grid, the witness on
+     `ringshard` (D = 8 slots), the 4M OW-2 row, the 4M ringshard row
+     and the pull law run in `python3 -m swim_tpu_torch.published`
+     alone.
 
 Phase 12's search and phase 16's sharded golden digests are host-paced
 checks, so each runs in a child process (`Background`) from just after
@@ -411,12 +444,15 @@ import numpy as np
 import torch
 
 from swim_tpu_torch import SwimConfig, _kernels, cli, coldsel_bench, golden
-from swim_tpu_torch import native
+from swim_tpu_torch import attribution, native, published
 from swim_tpu_torch.bridge import EngineBridgeServer
 from swim_tpu_torch.bridge import protocol as bp
 from swim_tpu_torch.core import codec
-from swim_tpu_torch.measure import (PartTimer, bound, capture_inputs,
-                                    card_line, coldsel_profile, gpu_ms)
+from swim_tpu_torch.measure import (PartTimer, bound, busy_ms,
+                                    capture_inputs, card_line,
+                                    coldsel_profile, gpu_ms,
+                                    launches_a_period, read_launches,
+                                    reset_launches)
 from swim_tpu_torch import convert
 from swim_tpu_torch.models import (dense, oracle, ring, ring_oracle, rumor,
                                    rumor_oracle)
@@ -707,6 +743,62 @@ def lanes_rows(gen, cfg, n: int = N, p: int = LANES) -> dict:
     return out
 
 
+# the published studies' wider rings: (nodes, SwimConfig keywords) of
+# the sized 4M suspicion point (WW 24, RW 224) and of the 1M Lifeguard
+# budget arm (WW 48, RW 512)
+WIDE = ((4_000_000, dict(ring_orig_words=4, suspicion_mult=2.0)),
+        (1_000_000, dict(ring_orig_words=8, lifeguard=True)))
+
+
+def wide_rows(gen) -> dict:
+    """Phase 3's cases at the published studies' wider rings, each
+    bitwise against its plain version, with its ms per launch beside its
+    bytes and bound: selb on u32[N, WW]; coldsel flushing OW rows into
+    cold u32[RW, N] (random queries, then main-path-shaped ones with a
+    duplicate flush row); wavemerge one-wave (V = 1) and fused (V = 14),
+    VB 0 and 1."""
+    out = {"selb": [], "coldsel": [], "wavemerge": []}
+    for n, kw in WIDE:
+        cfg = SwimConfig(n_nodes=n, **kw)
+        g = ring.geometry(cfg)
+        ww, rw, ow, q, b = g.ww, g.rw, g.ow, g.c + 1, cfg.max_piggyback
+        win, err = check_selb(gen, n, ww, b)
+        nbytes = 2 * n * ww * 4
+        bms, by = bound(nbytes, n * ww * 8)
+        out["selb"].append(dict(
+            n=n, ww=ww, b=b, max_abs_err=err,
+            ms=gpu_ms(lambda: selb.select_first_b(win, b)), bytes=nbytes,
+            bound_ms=bms, bound_by=by))
+        del win
+        flushes = (None, [0] + [rw - 1 - i for i in range(ow - 2)] + [0])
+        for flush, quiet in zip(flushes, (False, True)):
+            (cold, fr, fv, qr), err = check_coldsel(gen, rw, n, ow, q, flush,
+                                                    quiet)
+            nbytes = (2 * ow + 3 * q) * n * 4
+            bms, by = bound(nbytes, n * (ow + q * (ow + 4)))
+            out["coldsel"].append(dict(
+                n=n, rw=rw, ow=ow, q=q, quiet=quiet, max_abs_err=err,
+                ms=gpu_ms(lambda: coldsel.cold_update_select(cold, fr, fv,
+                                                             qr)),
+                bytes=nbytes, bound_ms=bms, bound_by=by))
+            del cold, fv, qr
+        for v, vb in ((1, 0), (1, 1), (14, 0), (14, 1)):
+            (win, sel, oks, offs, bcol, bval), err = check_wavemerge(
+                gen, n, ww, v, vb)
+            nbytes = 3 * n * ww * 4 + v * n + vb * n * 8
+            bms, by = bound(nbytes, n * ww * 3 * v)
+            out["wavemerge"].append(dict(
+                n=n, ww=ww, v=v, vb=vb, max_abs_err=err,
+                ms=gpu_ms(lambda: wavemerge.merge_waves(win, sel, oks, offs,
+                                                        bcol, bval)),
+                bytes=nbytes, bound_ms=bms, bound_by=by))
+            del win, sel, oks, bcol, bval
+        torch.cuda.empty_cache()
+    for name, cases in out.items():
+        emit(phase="kernel", part="wide", name=name, cases=cases)
+    return out
+
+
 def kernel_phase(cfg) -> dict:
     g = ring.geometry(cfg)
     ww, rw, ow, q = g.ww, g.rw, g.ow, g.c + 1
@@ -798,6 +890,11 @@ def kernel_phase(cfg) -> dict:
     emit(phase="kernel", name="wavemerge", edge_cases=len(edge) + 1,
          **rows["wavemerge"])
 
+    for name, cases in wide_rows(gen).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        *(c["max_abs_err"] for c in cases))
+        rows[name]["wide"] = cases
+
     # the lane forms a batched study launches (P = LANES at N nodes)
     for name, r in lanes_rows(gen, cfg).items():
         emit(phase="kernel", part="lanes", name=name, **r)
@@ -818,28 +915,6 @@ def crash_plan(cfg, periods: int, fraction: float = CRASH_FRACTION):
 
 def path_cfg(path: str) -> SwimConfig:
     return SwimConfig(n_nodes=N, **PATHS[path][0])
-
-
-def expected_launches(cfg) -> dict:
-    """Kernel launches per period: one of each when the waves fuse; else
-    a selection (wave scope only) and a one-wave merge per wave."""
-    waves = 2 + 4 * cfg.k_indirect
-    fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
-    return {"selb": 1 if cfg.ring_sel_scope == "period" else waves,
-            "coldsel": 1, "wavemerge": 1 if fused else waves}
-
-
-def shard_merge_launches(cfg) -> int:
-    """wavemerge calls a period on each card shard of the sharded ring:
-    one a wave (the exchanged block ORed in at offset 0), and in wave
-    scope under Lifeguard's buddy one more for each wave whose sender
-    forces a bit (W1 and the k W4s); none under pull."""
-    if cfg.ring_probe == "pull":
-        return 0
-    waves = 2 + 4 * cfg.k_indirect
-    fused = cfg.ring_sel_scope == "period" and waves <= wavemerge.MAX_WAVES
-    buddy = cfg.lifeguard and cfg.buddy and not fused
-    return waves + (1 + cfg.k_indirect if buddy else 0)
 
 
 def golden_phase() -> None:
@@ -905,7 +980,7 @@ def throughput_phase(path: str, card: str) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = {"selb": selb.launches, "coldsel": coldsel.launches,
                 "wavemerge": wavemerge.launches}
-    per_period = expected_launches(cfg)
+    per_period = launches_a_period(cfg)
     for name, cnt in launches.items():
         if cnt != timed * per_period[name]:
             raise AssertionError(
@@ -1058,15 +1133,6 @@ def main_inputs_phase(captured: dict, rows: dict) -> None:
 
 
 # ------------------------------------------------------ slice 4 paths
-
-
-def reset_launches() -> None:
-    selb.launches = coldsel.launches = wavemerge.launches = 0
-
-
-def read_launches() -> dict:
-    return {"selb": selb.launches, "coldsel": coldsel.launches,
-            "wavemerge": wavemerge.launches}
 
 
 def program_plan(n: int):
@@ -1224,16 +1290,6 @@ def study_phase(card: str) -> None:
          census_ms_per_period=census_ms,
          census_share_of_wall=census_ms * STUDY_PERIODS / 1e3 / wall,
          card=card)
-    t0 = time.perf_counter()
-    ab = experiments.lifeguard_ablation(n=N, crash_fraction=CRASH_FRACTION,
-                                        periods=20, seed=0, engine="ring")
-    for arm in ab["arms"].values():
-        if arm["crashed"] == 0:
-            raise AssertionError(f"Lifeguard ablation arm crashed none: "
-                                 f"{ab}")
-    emit(phase="study", study="lifeguard_ablation", n_nodes=N, periods=20,
-         loss=ab["loss"], arms=ab["arms"],
-         seconds=time.perf_counter() - t0, card=card)
 
 
 # --------------------------------------------------- slice 5: engines
@@ -1241,6 +1297,8 @@ def study_phase(card: str) -> None:
 # case -> (engine, nodes, config options, periods); at 100,000 nodes the
 # rumor engine's row-chunked reductions span two ROW_CHUNKs, and
 # Lifeguard's buddy witness over the N * k messages of wave 4 five
+# the bare 1M rumor Lifeguard study's periods (each arm)
+LIFEGUARD_RUMOR_PERIODS = 5
 ENGINE_PARITY = {"dense": ("dense", 2048, {}, 5),
                  "rumor": ("rumor", 100_000, {}, 5),
                  "rumor_lifeguard": ("rumor", 100_000, {"lifeguard": True},
@@ -1315,16 +1373,6 @@ def engine_parity_phase(case: str) -> None:
          frame_fields_equal=len(obs_engine.EngineFrame._fields),
          last_frame=dict(zip(obs_engine.EngineFrame._fields, frames[-1])),
          seconds=time.perf_counter() - t0)
-
-
-def busy_ms(prof) -> tuple[float, int]:
-    """(device ms, count) of the device activities (kernels, copies,
-    fills) a profile saw, read from its raw events: `key_averages`
-    takes minutes over the million events of a sweep."""
-    cuda_type = torch.autograd.DeviceType.CUDA
-    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-          if e.device_type() == cuda_type]
-    return sum(ns) / 1e6, len(ns)
 
 
 def timed_study(label: str, periods: int, fn, card: str) -> dict:
@@ -1464,24 +1512,27 @@ def engines_phase(card: str) -> dict:
     add("rumor", row)
     emit(**row)
 
-    ss, row = timed_study(
-        "suspicion_sweep(n=1_000_000, mults=(2.0, 5.0), periods=20)", 40,
-        lambda: experiments.suspicion_sweep(n=N, mults=(2.0, 5.0),
-                                            periods=20), card)
-    if ss["engine"] != "rumor" or any(pt["crashed"] == 0
-                                      for pt in ss["points"]):
-        raise AssertionError(f"suspicion_sweep: {ss}")
-    row.update(n_nodes=N, engine=ss["engine"], points=ss["points"])
-    add("rumor", row)
-    emit(**row)
-
-    lg, row = timed_study(
-        "lifeguard_ablation(n=1_000_000, periods=10)", 20,
-        lambda: experiments.lifeguard_ablation(n=N, periods=10), card)
+    # a rumor study with crashes and Lifeguard (buddy, dynamic suspicion)
+    # through the study runner and detection_summary, bare
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lg = experiments.lifeguard_ablation(n=N, periods=LIFEGUARD_RUMOR_PERIODS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = dict(phase="engines", part="study",
+               run=f"lifeguard_ablation(n=1_000_000, "
+                   f"periods={LIFEGUARD_RUMOR_PERIODS})",
+               periods=2 * LIFEGUARD_RUMOR_PERIODS, wall_ms=wall * 1e3,
+               periods_per_sec=2 * LIFEGUARD_RUMOR_PERIODS / wall,
+               launches=read_launches(), n_nodes=N, engine=lg["engine"],
+               arms=lg["arms"], card=card)
     if lg["engine"] != "rumor" or any(a["crashed"] == 0
                                       for a in lg["arms"].values()):
         raise AssertionError(f"lifeguard_ablation: {lg}")
-    row.update(n_nodes=N, engine=lg["engine"], arms=lg["arms"])
+    if any(row["launches"].values()):
+        raise AssertionError(f"lifeguard_ablation launched the ring "
+                             f"kernels {row['launches']}")
     add("rumor", row)
     emit(**row)
 
@@ -1556,7 +1607,8 @@ def recorded_run_phase(card: str) -> dict:
                                        plan, key, TAP_PERIODS)
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: TAP_PERIODS * v for k, v in expected_launches(cfg).items()}
+    want = {k: TAP_PERIODS * v
+            for k, v in launches_a_period(cfg).items()}
     if launches != want:
         raise AssertionError(f"recorded_ring_run launches {launches}, "
                              f"expected {want}")
@@ -2301,7 +2353,7 @@ BRIDGE_SYNC_PERIODS = 2
 
 def bridge_launches(what: str, launches: dict, periods: int, cfg) -> None:
     per = {k: v / periods for k, v in launches.items()}
-    want = {k: float(v) for k, v in expected_launches(cfg).items()}
+    want = {k: float(v) for k, v in launches_a_period(cfg).items()}
     if per != want:
         raise AssertionError(f"bridge {what}: launches a period {per}, "
                              f"expected {want}")
@@ -2627,8 +2679,8 @@ def bridge_phase(card: str) -> dict:
 
 
 PROF_PERIODS = 5
-OVERHEAD_PERIODS = 10
-OVERHEAD_PAIRS = 3
+OVERHEAD_PERIODS = 5
+OVERHEAD_PAIRS = 21
 REPO = Path(__file__).resolve().parent
 
 
@@ -2679,13 +2731,13 @@ def profiled_parity(cfg, card: str) -> dict:
 
 
 TRACE_PERIODS = 2
+# idle host seconds at each end of that trace: the profiler keeps only
+# the device events that its clock mapping puts inside the trace
+TRACE_MARGIN_S = 0.05
 # interleaved rounds of every prefix and the step for profile_ring's wall
 # attribution (printed, not checked: the host-paced step and its last
 # prefix drift up to 17% apart, at 20 rounds and at 60)
 PROFILE_REPS = 60
-# calls of every prefix and of the step under one trace each, for the
-# device-time attribution that the coverage check reads
-DEVICE_REPS = 5
 KERNEL_PHASES = {"selb_kernel": "select", "wavemerge_kernel": "merge",
                  "coldsel_kernel": "commit"}
 
@@ -2705,8 +2757,10 @@ def traced_launches(cfg, name: str) -> dict:
         torch.cuda.synchronize()
         reset_launches()
         with profiling.trace(tdir):
+            time.sleep(TRACE_MARGIN_S)
             ring.run(cfg, state, plan, 0, TRACE_PERIODS)
             torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
         launches = read_launches()
         every = prof.top_ops_from_trace(tdir, top_k=10_000)["ops"]
     found = {}
@@ -2725,68 +2779,12 @@ def traced_launches(cfg, name: str) -> dict:
     return found
 
 
-def device_attribution(cfg) -> dict:
-    """profile_ring's phase attribution by device time: the prefixes and
-    the full step of profile_ring's settled 1M period (its plan, settle
-    and seed), each called DEVICE_REPS times under one torch.profiler
-    trace, every call with its own copy of `cold` made before the
-    trace.  A phase takes the device ms of its prefix less the prefix
-    before (clamped at 0), telemetry_tap the rest of the full step.
-    Device time does not wait for the host, so the prefixes order as
-    their kernels do; coverage is 100% plus what the clamp dropped."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from swim_tpu_torch.obs.engine import frame_from_tap
-
-    settle, reps = 2, DEVICE_REPS
-    plan = faults.with_random_crashes(faults.none(cfg.n_nodes, "cuda"),
-                                      threefry.key(1), CRASH_FRACTION, 0,
-                                      settle)
-    state = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, settle)
-    rnds = [ring.draw_period_ring(threefry.key(0), 1_000 + i, cfg, "cuda")
-            for i in range(reps)]
-    active = prof.phases_for(cfg)
-
-    def prefix(phase):
-        return lambda st, rnd: ring.step(cfg, st, plan, rnd, tap={},
-                                         prof=prof.PhaseProbe(until=phase))
-
-    def full(st, rnd):
-        tap: dict = {}
-        st = ring.step(cfg, st, plan, rnd, tap=tap)
-        return st, frame_from_tap(tap, st.win.device)
-
-    fns = {p: prefix(p) for p in active if p != "telemetry_tap"}
-    fns["full"] = full
-    dev_ms = {}
-    for name, fn in fns.items():
-        fn(state._replace(cold=state.cold.clone()), rnds[0])    # warm-up
-        colds = [state.cold.clone() for _ in range(reps)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as pr:
-            for cold, rnd in zip(colds, rnds):
-                fn(state._replace(cold=cold), rnd)
-            torch.cuda.synchronize()
-        dev_ms[name] = busy_ms(pr)[0] / reps
-        del colds
-    phases, prev = {}, 0.0
-    for phase in active:
-        if phase == "telemetry_tap":
-            phases[phase] = max(dev_ms["full"] - prev, 0.0)
-        else:
-            phases[phase] = max(dev_ms[phase] - prev, 0.0)
-            prev = dev_ms[phase]
-    return {"step_device_ms": dev_ms["full"], "prefix_device_ms": dev_ms,
-            "phases": phases, "coverage_pct":
-            sum(phases.values()) / dev_ms["full"] * 100.0}
-
-
 def profile_report(cfg, name: str, card: str) -> dict:
     """profile_ring at 1M with a device trace: per-phase ms, step ms,
     its wall coverage, the roofline band and the top kernels; the same
-    attribution by device time (`device_attribution`), whose coverage
-    must lie in 95-105%; then a traced run whose kernel events match
-    the wrappers' launch counts.
+    attribution by device time (`attribution.device_attribution`),
+    whose coverage must lie in 95-105%; then a traced run whose kernel
+    events match the wrappers' launch counts.
 
     Both coverages are at least 100% by construction (each prefix
     difference is clamped at 0 and the telemetry term takes the rest of
@@ -2801,10 +2799,12 @@ def profile_report(cfg, name: str, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tdir:
         rep = prof.profile_ring(cfg, reps=PROFILE_REPS, trace_dir=tdir,
                                 top_k=8)
-    dev = device_attribution(cfg)
+    dev = attribution.device_attribution(cfg)
     if not 95.0 <= dev["coverage_pct"] <= 105.0:
         raise AssertionError(f"instruments: {name} device-time coverage "
-                             f"{dev['coverage_pct']}% outside 95-105%")
+                             f"{dev['coverage_pct']}% outside 95-105% "
+                             f"(median ms {dev['prefix_device_ms']}, "
+                             f"range {dev['prefix_device_range']})")
     found = traced_launches(cfg, name)
     emit(phase="instruments", part="profile", config=name,
          n_nodes=cfg.n_nodes, step_ms=rep["step_ms"], pps=rep["pps"],
@@ -2813,6 +2813,9 @@ def profile_report(cfg, name: str, card: str) -> dict:
          step_device_ms=dev["step_device_ms"],
          device_phases=dev["phases"],
          prefix_device_ms=dev["prefix_device_ms"],
+         prefix_device_range=dev["prefix_device_range"],
+         prefix_events=dev["prefix_events"], device_rounds=dev["rounds"],
+         rounds_redone=dev["rounds_redone"],
          phases={r["phase"]: r["ms"] for r in rep["phases"]},
          roofline=rep["roofline"], kernels_in_trace=found,
          trace_periods=TRACE_PERIODS,
@@ -2825,24 +2828,29 @@ def profile_report(cfg, name: str, card: str) -> dict:
 
 def marker_overhead(cfg, card: str) -> dict:
     """Wall ms per 1M period with the marker-mode probe and without it,
-    in alternating pairs (the reference's <= 5% contract, printed)."""
+    in OVERHEAD_PAIRS interleaved pairs in one call: the medians, each
+    pair's on/off ratio with its median and spread (the reference's
+    <= 5% contract, printed, not gated), and the device activities a
+    period of each mode from 2 periods under torch.profiler (their
+    difference: the marker folds' launches)."""
+    from torch.profiler import ProfilerActivity, profile
     plan = crash_plan(cfg, OVERHEAD_PERIODS)
     state = ring.run(cfg, ring.init_state(cfg, "cuda"), plan, 0, 2)
     rnds = [ring.draw_period_ring(threefry.key(0), 2 + i, cfg, "cuda")
             for i in range(OVERHEAD_PERIODS)]
 
-    def arm(on: bool) -> float:
+    def arm(on: bool, periods=rnds) -> float:
         st = state._replace(cold=state.cold.clone())
         rows = []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for rnd in rnds:
+        for rnd in periods:
             pr = prof.PhaseProbe() if on else None
             st = ring.step(cfg, st, plan, rnd, prof=pr)
             if on:      # kept, as profiled_ring_run keeps them
                 rows.append(pr.marker_vector())
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / len(rnds)
+        return (time.perf_counter() - t) * 1e3 / len(periods)
 
     arm(True)
     arm(False)
@@ -2850,12 +2858,27 @@ def marker_overhead(cfg, card: str) -> dict:
     for _ in range(OVERHEAD_PAIRS):
         off.append(arm(False))
         on.append(arm(True))
+    ratio = np.array(on) / np.array(off) - 1.0
+    acts = {}
+    for mode in (False, True):
+        with profile(activities=[ProfilerActivity.CUDA]) as pr_:
+            arm(mode, rnds[:2])
+        acts["on" if mode else "off"] = busy_ms(pr_)[1] / 2
     row = dict(phase="instruments", part="marker_overhead",
                n_nodes=cfg.n_nodes, periods=OVERHEAD_PERIODS,
-               off_ms=off, on_ms=on, off_median=float(np.median(off)),
+               pairs=OVERHEAD_PAIRS, off_ms=off, on_ms=on,
+               off_median=float(np.median(off)),
                on_median=float(np.median(on)),
                overhead_pct=float((np.median(on) / np.median(off) - 1)
-                                  * 100), card=card)
+                                  * 100),
+               pair_overhead_pct_median=float(np.median(ratio) * 100),
+               pair_overhead_pct_quartiles=[
+                   float(q * 100) for q in np.percentile(ratio, [25, 75])],
+               pair_overhead_pct_range=[float(ratio.min() * 100),
+                                        float(ratio.max() * 100)],
+               device_activities_per_period=acts,
+               marker_launches_per_period=acts["on"] - acts["off"],
+               card=card)
     emit(**row)
     return row
 
@@ -3007,7 +3030,8 @@ def shard_parity(name: str) -> tuple[dict, object]:
     require_same(f"ringshard {name}: sharded against one device", k, single)
     require_same(f"ringshard {name}: kernels against plain versions", k, p)
     want = {"selb": SHARDS * one["selb"], "coldsel": SHARDS * one["coldsel"],
-            "wavemerge": SHARDS * SHARD_PERIODS * shard_merge_launches(cfg)}
+            "wavemerge": SHARD_PERIODS * launches_a_period(
+                cfg, "ringshard", SHARDS)["wavemerge"]}
     if launches != want or one["wavemerge"] == 0:
         raise AssertionError(f"ringshard {name}: launches {launches}, one "
                              f"device {one}, expected {want}")
@@ -3101,7 +3125,8 @@ def shard_kernels(placed, rows: dict) -> None:
     waves = 2 + 4 * cfg.k_indirect
     if (len(got["selb"]) != SHARDS * waves
             or len(got["coldsel"]) != SHARDS
-            or len(got["wavemerge"]) != SHARDS * shard_merge_launches(cfg)):
+            or len(got["wavemerge"]) != launches_a_period(
+                cfg, "ringshard", SHARDS)["wavemerge"]):
         raise AssertionError(
             f"ringshard: captured {len(got['selb'])} selb, "
             f"{len(got['coldsel'])} coldsel and {len(got['wavemerge'])} "
@@ -4026,7 +4051,8 @@ def multi_ring_part(name: str, kw: dict, n: int) -> dict:
                           "card", pmesh.assemble(placed), single)
     c = card_shards(mesh)
     want = {"selb": c * one["selb"], "coldsel": c * one["coldsel"],
-            "wavemerge": c * MULTI_PERIODS * shard_merge_launches(cfg)}
+            "wavemerge": MULTI_PERIODS * launches_a_period(
+                cfg, "ringshard", c)["wavemerge"]}
     if launches != want or one["selb"] == 0:
         raise AssertionError(f"multidevice {name}: launches {launches}, "
                              f"one card {one}, expected {want}")
@@ -4449,7 +4475,8 @@ def part_ring() -> dict:
     c = card_shards(mesh)
     want = {"selb": c * one_launches[0]["selb"],
             "coldsel": c * one_launches[0]["coldsel"],
-            "wavemerge": c * PART_PERIODS * shard_merge_launches(cfg)}
+            "wavemerge": PART_PERIODS * launches_a_period(
+                cfg, "ringshard", c)["wavemerge"]}
     if (launches != want or not one_launches[0]["coldsel"]
             or one_launches[1] != one_launches[0]):
         raise AssertionError(f"partition ring: launches {launches}, one "
@@ -4689,9 +4716,7 @@ def oracles_on_card(card: str) -> dict:
             oracle_run(name, ring, cfg, plan, periods, seed,
                        ring_oracle.RingOracle, ring.draw_period_ring,
                        ring_oracle.to_numpy, ring_oracle.mismatches)
-            per = ({"selb": 1, "coldsel": 0, "wavemerge": 0}
-                   if cfg.ring_probe == "pull" else expected_launches(cfg))
-            for kn, c in per.items():
+            for kn, c in launches_a_period(cfg).items():
                 want[kn] += c * periods
         elif eng == "dense":
             oracle_run(name, dense, cfg, plan, periods, seed, oracle.Oracle,
@@ -4885,7 +4910,7 @@ def scale_ringp(n: int, rows: dict, card: str) -> tuple[dict, str | None]:
             raise AssertionError(f"ringp at {n}: digest {got} != the JAX "
                                  f"package's {golden.GOLDEN_DIGEST_SCALE}")
         row["digest_anchor"] = got
-    row.update(scale_periods(engine.run, expected_launches(cfg)))
+    row.update(scale_periods(engine.run, launches_a_period(cfg)))
     st = engine.state
     done = golden.SCALE_PERIODS + SCALE_TIMED + SCALE_PROFILED
     g = ring.geometry(cfg)
@@ -4931,8 +4956,8 @@ def scale_ringshard(want_digest: str, card: str) -> dict:
     del st
     want = {"selb": SHARDS * SCALE_SHARD_PERIODS,
             "coldsel": SHARDS * SCALE_SHARD_PERIODS,
-            "wavemerge": SHARDS * shard_merge_launches(cfg)
-            * SCALE_SHARD_PERIODS}
+            "wavemerge": SCALE_SHARD_PERIODS * launches_a_period(
+                cfg, "ringshard", SHARDS)["wavemerge"]}
     if launches != want:
         raise AssertionError(f"ringshard at {SCALE_TOP}: launches "
                              f"{launches}, expected {want}")
@@ -4967,7 +4992,7 @@ def scale_wave(card: str) -> dict:
     engine = ring.RingEngine(cfg, golden.scale_plan(SCALE_TOP, "cuda"),
                              seed=0, device="cuda")
     engine.run(1)
-    row = scale_periods(engine.run, expected_launches(cfg))
+    row = scale_periods(engine.run, launches_a_period(cfg))
     emit(phase="scale", path="wave", n_nodes=SCALE_TOP, **row,
          **peak_row(before, card), seconds=time.perf_counter() - t_path)
     return row["launches"]
@@ -5075,6 +5100,110 @@ def scale_phase(rows: dict, card: str) -> dict:
     return out
 
 
+
+# -------------------------------------------------------- 22. published
+
+# published.py's rows this phase runs, in order; the witness point runs
+# again under torch.profiler (busy ms); the 1M grid, the witness on
+# ringshard (42.6 s: it kept the script past 1,000 s), the 4M OW-2 row,
+# the 4M ringshard row and the pull law run in published.py alone
+PUBLISHED_ROWS = ("witness", "lifeguard_1m", "suspicion_4m_sized",
+                  "geometry")
+PUBLISHED_PROFILED = "witness"
+# the geometry arms' overflow in bench_results/geometry_ablation.json
+GEOMETRY_OVERFLOW = {"default": 27852, "period": 27802, "lean": 27429}
+OW8_WARMUP = 20         # periods of the OW-8 Lifeguard arm before capture
+
+
+def ow8_capture(rows: dict, card: str) -> None:
+    """The fourth main-path capture: one period of the 1M Lifeguard arm
+    at ring_orig_words 8 (`lifeguard_ob8` of `study lifeguard
+    --budget-arms`: the CLI's 1% crashes and loss 0.05, its randomness),
+    after OW8_WARMUP periods; each kernel on its first call's inputs,
+    bitwise against its plain version, with its ms, the plain version's
+    and the bound of the bytes the call needs (`ms_main_ow8`,
+    `plain_ms_ow8`, `bound_ms_main_ow8`)."""
+    cfg = SwimConfig(n_nodes=N, lifeguard=True, ring_orig_words=8)
+    periods = 100
+    plan = faults.with_loss(experiments._crash_plan(N, 0, 0.01, periods,
+                                                    "cuda"), 0.05)
+    engine = ring.RingEngine(cfg, plan, seed=0)
+    engine.run(OW8_WARMUP)
+    captured = capture_inputs(engine)
+    want = launches_a_period(cfg)
+    if captured["calls"] != want:
+        raise AssertionError(f"OW-8 capture: calls {captured['calls']}, "
+                             f"expected {want}")
+    win, b = captured["selb"]
+    err = require_equal("selb on the OW-8 arm's input",
+                        selb.select_first_b(win, b),
+                        selb.select_first_b_plain(win, b))
+    nbytes = 2 * win.numel() * 4
+    out = {"selb": dict(
+        max_abs_err=err, shape=list(win.shape), bytes_main_ow8=nbytes,
+        ms_main_ow8=gpu_ms(lambda: selb.select_first_b(win, b)),
+        plain_ms_ow8=gpu_ms(lambda: selb.select_first_b_plain(win, b),
+                            samples=5, inner=2),
+        bound_ms_main_ow8=bound(nbytes, win.numel() * 8)[0])}
+    cold, fr, fv, qr = captured["coldsel"]
+    r = coldsel_on(captured["coldsel"], "the OW-8 arm's period")
+    scratch = cold.clone()
+    out["coldsel"] = dict(
+        max_abs_err=r["max_abs_err"], shape=list(cold.shape),
+        ow=int(fr.shape[0]), q=int(qr.shape[0]),
+        bytes_main_ow8=r["bytes_main"], ms_main_ow8=r["ms_main"],
+        plain_ms_ow8=gpu_ms(lambda: coldsel.cold_update_select_plain(
+            scratch, fr, fv, qr), samples=5, inner=2),
+        bound_ms_main_ow8=r["bound_ms_main"])
+    r = wavemerge_on(captured, "the OW-8 arm's first wave")
+    w_win, sel, oks, offs, bcol, bval = captured["wavemerge"]
+    w_out = w_win.clone()
+    out["wavemerge"] = dict(
+        max_abs_err=r["max_abs_err"], shape=r["shape"], v=r["v"], vb=r["vb"],
+        bytes_main_ow8=r["bytes_main"], ms_main_ow8=r["ms_main"],
+        plain_ms_ow8=gpu_ms(lambda: wavemerge.merge_waves_plain(
+            w_out, sel, oks, offs, bcol, bval), samples=5, inner=2),
+        bound_ms_main_ow8=r["bound_ms_main"])
+    for name, r in out.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        r["max_abs_err"])
+        rows[name].update({k: r[k] for k in ("ms_main_ow8", "plain_ms_ow8",
+                                             "bound_ms_main_ow8")})
+        emit(phase="published", part="ow8_inputs", name=name,
+             period=OW8_WARMUP, card=card, **r)
+
+
+def published_phase(rows: dict, card: str) -> dict:
+    """Phase 22: the JAX package's published studies at their own sizes
+    and periods (published.py's rows), with the card's cache emptied;
+    returns the kernels' launches over the rows' runs."""
+    t_phase = time.perf_counter()
+    free_card()
+    done: dict = {}
+    total = {k: 0 for k in published.KERNELS}
+    for name in PUBLISHED_ROWS:
+        line = published.run_row(name, done, card,
+                                 profile=name == PUBLISHED_PROFILED)
+        emit(phase="published", **line)
+        if line["asserted"] and not line["equal"]:
+            raise AssertionError(f"published {name}: {line['differ']} "
+                                 f"differ from {line['artifact']}")
+        if not line["launches_ok"]:
+            raise AssertionError(f"published {name}: launches "
+                                 f"{line['launches']}, expected "
+                                 f"{line['launches_expected']}")
+        for k, v in line["launches"].items():
+            total[k] += v
+        if name == "lifeguard_1m":
+            ow8_capture(rows, card)
+    overflow = {a["arm"]: a["overflow"] for a in done["geometry"]["arms"]}
+    if overflow != GEOMETRY_OVERFLOW:
+        raise AssertionError(f"geometry arms' overflow {overflow}")
+    emit(phase="published", part="done", rows=list(done),
+         seconds=time.perf_counter() - t_phase, launches=total, card=card)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: PyTorch sees no CUDA device")
@@ -5100,7 +5229,8 @@ def main() -> None:
         {"selb": 1.0, "coldsel": 0.0, "wavemerge": 0.0})
     launches["program"] = slice_parity_phase(
         "program", SwimConfig(n_nodes=N), program_plan(N),
-        {k: float(v) for k, v in expected_launches(path_cfg("wave")).items()})
+        {k: float(v) for k, v in
+         launches_a_period(path_cfg("wave")).items()})
     study_phase(card)
     launches.update(engines_phase(card))
     launches.update(telemetry_phase(card))
@@ -5125,6 +5255,7 @@ def main() -> None:
         for job in background:
             job.stop()
     launches.update(scale_phase(rows, card))
+    launches["published"] = published_phase(rows, card)
     all_cards_part(card)
     partition_all_cards(card)
 
@@ -5134,7 +5265,8 @@ def main() -> None:
     extra = ("ms_main", "bytes_main", "bound_ms_main", "ok_density",
              "bound_ms_sector", "busy", "wave_scope", "lifeguard", "serve",
              "ringshard", "ringshard_batch", "lanes_ms", "lanes_bound_ms",
-             "ms_16m", "plain_ms_16m", "bytes_16m", "bound_ms_16m")
+             "ms_16m", "plain_ms_16m", "bytes_16m", "bound_ms_16m", "wide",
+             "ms_main_ow8", "plain_ms_ow8", "bound_ms_main_ow8")
     kernels = []
     for name in ("selb", "coldsel", "wavemerge"):
         r = rows[name]
@@ -5167,6 +5299,7 @@ def main() -> None:
             launches_scale_wave=launches["scale_wave"][name],
             launches_scale_study=launches["scale_study"][name],
             launches_scale_ringshard=launches["scale_ringshard"][name],
+            launches_published=launches["published"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, **{k: r[k] for k in extra if k in r}))

@@ -1,5 +1,5 @@
 """Timing and byte-counting helpers shared by the card scripts
-(chip_smoke.py, period_profile.py, coldsel_bench.py).
+(chip_smoke.py, period_profile.py, coldsel_bench.py, published.py).
 
 Everything here needs the CUDA card; nothing runs at import.
 """
@@ -10,7 +10,9 @@ import subprocess
 
 import torch
 
+from swim_tpu_torch.config import SwimConfig
 from swim_tpu_torch.ops import coldsel, selb, wavemerge
+from swim_tpu_torch.parallel.mesh import DEFAULT_SHARDS
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12       # the float32 rate outside the tensor cores;
@@ -45,6 +47,74 @@ def gpu_ms(fn, samples: int = 21, inner: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def busy_ms(prof) -> tuple[float, int]:
+    """(device ms, count) of the device activities (kernels, copies,
+    fills) a torch.profiler profile saw, read from its raw events:
+    `key_averages` takes minutes over the million events of a study."""
+    cuda_type = torch.autograd.DeviceType.CUDA
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda_type]
+    return sum(ns) / 1e6, len(ns)
+
+
+def busy_ms_by_gap(prof, gap_s: float, device_type=None) -> list:
+    """[(device ms, count)] of each run of device activities that a
+    torch.profiler profile saw, in order: the activities sorted by
+    start and split wherever the device idled longer than `gap_s`.
+    Calls separated by such idle gaps come out one run each; their
+    start times alone could not place them, since the profiler maps the
+    device's clock to the host's with an error of milliseconds.
+    `device_type` defaults to CUDA."""
+    dtype = torch.autograd.DeviceType.CUDA if device_type is None \
+        else device_type
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == dtype)
+    runs, last = [], None
+    for start, end in spans:
+        if last is None or start - last > gap_s * 1e9:
+            runs.append([0, 0])
+        runs[-1][0] += end - start
+        runs[-1][1] += 1
+        last = end if last is None else max(last, end)
+    return [(ns / 1e6, n) for ns, n in runs]
+
+
+def reset_launches() -> None:
+    """Zero the three kernels' launch counts."""
+    selb.launches = coldsel.launches = wavemerge.launches = 0
+
+
+def read_launches() -> dict:
+    return {"selb": selb.launches, "coldsel": coldsel.launches,
+            "wavemerge": wavemerge.launches}
+
+
+def launches_a_period(cfg: SwimConfig, engine: str = "ring",
+                      shards: int = DEFAULT_SHARDS) -> dict:
+    """The kernels' launches one period of `cfg` calls for: on one
+    device a selection a wave in wave scope (one in period scope or
+    under pull), one cold flush (none under pull), a one-wave merge a
+    wave unless the waves fuse; the sharded ring launches these on each
+    of its shards, a merge a wave (and in wave scope under Lifeguard's
+    buddy one more for each wave whose sender forces a bit)."""
+    waves = 2 + 4 * cfg.k_indirect
+    pull = cfg.ring_probe == "pull"
+    period = cfg.ring_sel_scope == "period"
+    fused = period and waves <= wavemerge.MAX_WAVES
+    one = {"selb": 1 if period or pull else waves,
+           "coldsel": 0 if pull else 1,
+           "wavemerge": 0 if pull else (1 if fused else waves)}
+    if engine != "ringshard":
+        return one
+    merges = 0
+    if not pull:
+        buddy = cfg.lifeguard and cfg.buddy and not fused
+        merges = waves + (1 + cfg.k_indirect if buddy else 0)
+    return {"selb": shards * one["selb"], "coldsel": shards * one["coldsel"],
+            "wavemerge": shards * merges}
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:

@@ -40,23 +40,22 @@ def _count_launch() -> None:
 
 
 def select_first_b_plain(win_masked: torch.Tensor, b: int) -> torch.Tensor:
-    """The extract loop: per row, peel lowest set bits while the budget
-    lasts, newest word first (in int64, where -m is exact)."""
-    n, ww = win_masked.shape
-    m_all = u32.to_u64(win_masked)
-    budget = torch.full((n,), b, dtype=torch.int64, device=win_masked.device)
-    taken = [None] * ww
-    for w in range(ww - 1, -1, -1):
-        m = m_all[:, w]
-        acc = torch.zeros_like(m)
-        for _ in range(min(b, WORD)):
-            low = m & (-m)
-            bitm = torch.where(budget > 0, low, 0)
-            acc = acc | bitm
-            m = m ^ bitm
-            budget = budget - (bitm != 0).to(torch.int64)
-        taken[w] = acc
-    return u32.from_u64(torch.stack(taken, dim=-1))
+    """The extract loop on all words at once: a word's budget is what
+    the set bits of the newer words leave of `b`; each word then peels
+    its lowest set bits while its budget lasts (in int64, where -m is
+    exact)."""
+    m = u32.to_u64(win_masked)
+    cnt = u32.popcount(win_masked).to(torch.int64)
+    newer = cnt.flip(-1).cumsum(-1).flip(-1) - cnt
+    left = (b - newer).clamp(min=0)
+    acc = torch.zeros_like(m)
+    for _ in range(min(b, WORD)):
+        low = m & (-m)
+        bitm = torch.where(left > 0, low, 0)
+        acc = acc | bitm
+        m = m ^ bitm
+        left = left - (bitm != 0).to(torch.int64)
+    return u32.from_u64(acc)
 
 
 def _launch(win_masked: torch.Tensor, b: int) -> torch.Tensor:

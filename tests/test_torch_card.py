@@ -10,6 +10,10 @@ conftest, which imports JAX,
     cases of tests/test_torch_kernels.py, and counts its launches;
   * each kernel on views 4 bytes past a 16-byte boundary, which take
     the kernels' 4-byte paths;
+  * each kernel at the published studies' wider rings (ring_orig_words
+    4 and 8: selb and wavemerge on WW 24 and 48, wavemerge one-wave and
+    fused with VB 0 and 1, coldsel flushing 4 and 8 rows into RW 224,
+    284 and 512) against its plain version;
   * a run on the card equals the same run on the CPU (plain versions),
     in period scope, in wave scope and with Lifeguard, under pull-uniform
     probing and under a FaultProgram;
@@ -60,8 +64,9 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cases import (
-    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, carrier,
-    coldsel_input, selb_input, wave_case_input, wavemerge_input)
+    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, WIDE_COLDSEL,
+    WIDE_SELB, WIDE_WAVE, carrier, coldsel_input, selb_input,
+    wave_case_input, wavemerge_input, wide_wave_input)
 
 from swim_tpu_torch import SwimConfig, convert, golden
 from swim_tpu_torch.models import dense, ring, rumor
@@ -120,6 +125,35 @@ def test_wavemerge_kernel_matches_plain(cuda, n, ww, v, vb, offs):
     assert wavemerge.launches == before + 1
     want = wavemerge.merge_waves_plain(carrier(win, cuda), *args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,ww,b", WIDE_SELB)
+def test_selb_kernel_matches_plain_on_wide_rings(cuda, n, ww, b):
+    win = carrier(selb_input(n + ww, n, ww), cuda)
+    assert torch.equal(selb.select_first_b(win, b),
+                       selb.select_first_b_plain(win, b))
+
+
+@pytest.mark.parametrize("rw,n,ow,q,flush", WIDE_COLDSEL)
+@pytest.mark.parametrize("quiet", [False, True])
+def test_coldsel_kernel_matches_plain_on_wide_rings(cuda, rw, n, ow, q, flush,
+                                                    quiet):
+    cold, fr, fv, qr = (carrier(a, cuda) for a in coldsel_input(
+        rw + n + ow, rw, n, ow, q, flush, quiet=quiet))
+    got = coldsel.cold_update_select(cold.clone(), fr, fv, qr)
+    want = coldsel.cold_update_select_plain(cold.clone(), fr, fv, qr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,ww,v,vb,offs", WIDE_WAVE)
+def test_wavemerge_kernel_matches_plain_on_wide_rings(cuda, n, ww, v, vb,
+                                                      offs):
+    win, sel, oks, offs, bcol, bval = wide_wave_input(n, ww, v, vb, offs)
+    args = [carrier(sel, cuda), torch.from_numpy(oks).to(cuda),
+            carrier(offs, cuda), carrier(bcol, cuda), carrier(bval, cuda)]
+    got = wavemerge.merge_waves(carrier(win, cuda), *args)
+    assert torch.equal(got, wavemerge.merge_waves_plain(carrier(win, cuda),
+                                                        *args))
 
 
 def _unaligned(t):

@@ -118,3 +118,23 @@ def wave_case_input(n, ww, v, vb, offs):
     """wavemerge_input for one entry of WAVE_CASES."""
     return wavemerge_input(n + v + vb, n, ww, v, vb, offs,
                            **WAVE_OPTS.get((n, ww, v, vb), {}))
+
+
+# the published studies' wider rings: ring_orig_words 4 (WW 24; RW 224
+# in the sized 4M call, suspicion_mult 2, and 284 at the default 5) and
+# 8 (WW 48, RW 512): (n, ww, b) for selb, (rw, n, ow, q, flush) for
+# coldsel (random, duplicate and out-of-range flush rows), (n, ww, v,
+# vb, offs) for wavemerge (one-wave and fused, VB 0 and 1)
+WIDE_SELB = [(4099, 24, 6), (4096, 48, 6), (1000, 48, 400), (777, 24, 33)]
+WIDE_COLDSEL = [(224, 4099, 4, 4, None), (284, 4096, 4, 4, [0, 283, 1, 0]),
+                (512, 4096, 8, 4, None),
+                (512, 1001, 8, 4, [0, 511, 510, 0, 3, 3, 600, -1])]
+WIDE_WAVE = [(4099, 24, 1, 0, [-7]), (4096, 24, 1, 1, [4095]),
+             (4099, 24, 14, 0, None), (4096, 24, 14, 1, None),
+             (4096, 48, 1, 0, [1]), (1001, 48, 1, 1, [-1000]),
+             (4096, 48, 14, 0, None), (1001, 48, 14, 1, None)]
+
+
+def wide_wave_input(n, ww, v, vb, offs):
+    """wavemerge_input for one entry of WIDE_WAVE."""
+    return wavemerge_input(n + ww + v, n, ww, v, vb, offs)

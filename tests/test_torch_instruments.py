@@ -308,3 +308,46 @@ def test_step_timer_and_trace(tmp_path):
     top = prof.top_ops_from_trace(str(tmp_path / "tr"))
     assert top["trace"].endswith(profiling.TRACE_FILE)
     assert top["ops"] == [] and top["total_us"] == 0.0
+
+
+def test_busy_ms_by_gap_splits_calls_at_idle_gaps():
+    """measure.busy_ms_by_gap splits a trace's activities into runs
+    where the device idled longer than the gap, one run a call of a
+    round (on the CPU the host's own ops stand in for the card's)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from swim_tpu_torch.measure import busy_ms_by_gap
+
+    x = torch.ones(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as pr:
+        for reps in (3, 1, 2):
+            time.sleep(0.05)
+            for _ in range(reps):
+                torch.mm(x, x)
+        time.sleep(0.05)
+    runs = busy_ms_by_gap(pr, 0.02, device_type=torch.autograd.DeviceType.CPU)
+    assert len(runs) == 3
+    assert all(ms > 0 and n >= reps for (ms, n), reps in zip(runs, (3, 1, 2)))
+    assert busy_ms_by_gap(pr, 1.0, torch.autograd.DeviceType.CPU)[0][1] \
+        == sum(n for _, n in runs)
+
+
+def test_device_attribution_clamps_and_covers():
+    """attribution's phases are the prefix differences clamped at 0,
+    telemetry_tap the rest of the full step, coverage 100% plus what
+    the clamp dropped; the script refuses to run without a card."""
+    from swim_tpu_torch import attribution
+
+    got = attribution._attribute(
+        {"select": 3.0, "merge": 5.5, "commit": 7.6, "full": 7.4},
+        ("select", "merge", "commit", "telemetry_tap"))
+    assert got["phases"] == {"select": 3.0, "merge": 2.5,
+                             "commit": pytest.approx(2.1),
+                             "telemetry_tap": 0.0}
+    assert got["coverage_pct"] == pytest.approx(7.6 / 7.4 * 100.0)
+    assert got["step_device_ms"] == 7.4
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        attribution.main(["--readings", "1"])

@@ -4,7 +4,9 @@ On the CPU each wrapper runs its plain PyTorch version; these tests hold
 that version against the JAX op (its jnp twin, and the Pallas kernel in
 interpret mode at one small shape) and against the repo's independent
 numpy references.  Cases: ragged N, offsets 0 / N-1 / negative, query
-rows out of range, values with bit 31 set, VB = 0 and VB = 2.
+rows out of range, values with bit 31 set, VB = 0 and VB = 2, and the
+published studies' wider rings (WW 24 and 48, 4 and 8 flush rows into
+RW 256, 284 and 512).
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_card.py.  Tolerance: exact.
@@ -18,8 +20,9 @@ import test_core_units
 import test_wavemerge
 import torch
 from test_torch_cases import (
-    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, as_u32,
-    carrier, coldsel_input, selb_input, wave_case_input, wavemerge_input)
+    COLDSEL_CASES, COLDSEL_QUIET_CASES, SELB_CASES, WAVE_CASES, WIDE_COLDSEL,
+    WIDE_SELB, WIDE_WAVE, as_u32, carrier, coldsel_input, selb_input,
+    wave_case_input, wavemerge_input, wide_wave_input)
 
 from swim_tpu.ops import coldsel as jcoldsel
 from swim_tpu.ops import selb as jselb
@@ -40,6 +43,14 @@ class TestSelectFirstB:
         np.testing.assert_array_equal(got, want)
         ref = test_core_units.TestSelectFirstB._reference(win, b)
         np.testing.assert_array_equal(got, ref)
+
+    @pytest.mark.parametrize("n,ww,b", WIDE_SELB)
+    def test_plain_matches_jax_on_wide_rings(self, n, ww, b):
+        win = selb_input(n + ww, n, ww)
+        got = as_u32(selb.select_first_b(carrier(win), b))
+        want = np.asarray(jselb.select_first_b(jnp.asarray(win), b,
+                                               impl="lax"))
+        np.testing.assert_array_equal(got, want)
 
     def test_plain_matches_pallas_interpret(self):
         win = selb_input(3, 300, 12)
@@ -71,6 +82,11 @@ class TestColdUpdateSelect:
         args = coldsel_input(rw * n + ow, rw, n, ow, q, flush, quiet=True)
         assert (args[3] == 0).mean() > 0.85
         self.check(args)
+
+    @pytest.mark.parametrize("rw,n,ow,q,flush", WIDE_COLDSEL)
+    def test_plain_matches_jax_on_wide_rings(self, rw, n, ow, q, flush):
+        self.check(coldsel_input(rw + n + ow, rw, n, ow, q, flush,
+                                 quiet=True))
 
     @staticmethod
     def check(args):
@@ -137,6 +153,18 @@ class TestMergeWaves:
         np.testing.assert_array_equal(as_u32(got), want)
         ref = test_wavemerge._numpy_ref(win, sel, oks, offs, bcol, bval)
         np.testing.assert_array_equal(as_u32(got), ref)
+
+    @pytest.mark.parametrize("n,ww,v,vb,offs", WIDE_WAVE)
+    def test_plain_matches_jax_on_wide_rings(self, n, ww, v, vb, offs):
+        win, sel, oks, offs, bcol, bval = wide_wave_input(n, ww, v, vb, offs)
+        got = wavemerge.merge_waves(carrier(win), carrier(sel),
+                                    torch.from_numpy(oks), carrier(offs),
+                                    carrier(bcol), carrier(bval))
+        want = np.asarray(jwavemerge.merge_waves(
+            jnp.asarray(win), jnp.asarray(sel), jnp.asarray(oks),
+            jnp.asarray(offs), jnp.asarray(bcol), jnp.asarray(bval),
+            impl="lax"))
+        np.testing.assert_array_equal(as_u32(got), want)
 
     def test_plain_matches_pallas_interpret(self):
         win, sel, oks, offs, bcol, bval = wavemerge_input(
